@@ -27,6 +27,16 @@ SIZE = 32
 NUM_CLASS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are small: one intra-op thread, so the parallel
+    test workers do not oversubscribe the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def engines():
     jmodel = JaxTSM(num_class=NUM_CLASS, num_segments=8, base_model="resnet18",

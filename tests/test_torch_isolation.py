@@ -39,9 +39,43 @@ print("isolated")
 
 
 def test_port_runs_without_jax_in_a_fresh_process():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")
+
+
+_TRAIN_CHILD = r"""
+import sys
+import numpy as np
+import workoutdetector_tpu_torch.trainer
+from workoutdetector_tpu_torch.config import Config
+from workoutdetector_tpu_torch.train.trainer import Trainer
+assert "yaml" not in sys.modules, "yaml imported without a yaml file"
+cfg = Config()
+cfg.model.base_model, cfg.model.num_segments, cfg.model.num_class = \
+    "resnet18", 4, 2
+cfg.model.dtype = "float32"
+trainer = Trainer(cfg, device="cpu")
+state = trainer.init_state(steps_per_epoch=4)
+x = np.random.default_rng(0).integers(0, 256, (2, 4, 32, 32, 3), np.uint8)
+m = trainer.train_step(state, x, np.array([0, 1], np.int32))
+assert np.isfinite(float(m["loss"])) and state.step == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "workoutdetector_tpu", "yaml"))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_port_trains_without_jax_nor_yaml_in_a_fresh_process():
+    """A CPU train step of the port imports none of jax, flax, optax,
+    orbax or the JAX package, and a config built in code needs no yaml."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -51,9 +85,12 @@ def test_port_runs_without_jax_in_a_fresh_process():
     + ["chip_smoke.py"]))
 def test_source_imports_no_jax_nor_the_jax_package(path):
     text = (REPO / path).read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|flax)\b", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
+                         text, re.M)
     assert not re.search(r"\bworkoutdetector_tpu\b(?!_torch)(\.\w+)*\s+import"
                          r"|import\s+workoutdetector_tpu\b(?!_torch)", text)
+    # PyYAML only inside the functions that read or write YAML
+    assert not re.search(r"^(import|from)\s+yaml\b", text, re.M)
 
 
 def test_default_device_raises_without_cuda():
@@ -66,6 +103,10 @@ def test_default_device_raises_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(TSM(2, 4, "resnet18"))
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config())
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -77,7 +118,8 @@ def test_kernel_modules_import_without_toolchain():
             "assert _build._loaded is None; "
             "assert 'triton' not in sys.modules; "
             "print(sorted(f.__name__ for f in k.WRAPPERS))")
-    env = dict(os.environ, PYTHONPATH=str(REPO), PATH="/usr/bin:/bin")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               PATH="/usr/bin:/bin")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]

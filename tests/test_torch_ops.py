@@ -27,6 +27,16 @@ from workoutdetector_tpu_torch.ops import temporal_shift as tts
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are small: one intra-op thread, so the parallel
+    test workers do not oversubscribe the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -195,3 +205,130 @@ def test_kernel_wrappers_refuse_other_devices():
                                  torch.zeros(2, 16), w, torch.zeros(2, 16))
     with pytest.raises(ValueError):
         kernels.fused_bottleneck(x, p, n_segment=4, fold=2)
+
+
+# ---------------------------------------------------------------- 1×1 backward
+
+
+def test_conv1x1_dx_dw_plain_match_pallas():
+    """The plain dx / dW against the Pallas kernels (interpret mode) at a
+    two-tile row count."""
+    from workoutdetector_tpu.ops.pallas.conv1x1 import _dw_pallas, _dx_pallas
+    rng = np.random.default_rng(7)
+    r, c, o = 1024, 64, 48
+    g = rng.standard_normal((r, o)).astype(np.float32)
+    wt = (rng.standard_normal((o, c)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    want_dx = np.asarray(_dx_pallas(jnp.asarray(g), jnp.asarray(wt), 512, True))
+    want_dw = np.asarray(_dw_pallas(jnp.asarray(x), jnp.asarray(g), 512, True))
+    before = (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches)
+    got_dx = _np(kernels.conv1x1_dx(_t(g), _t(wt)))
+    got_dw = _np(kernels.conv1x1_dw(_t(x), _t(g)))
+    assert (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches) == before
+    assert got_dw.dtype == np.float32
+    np.testing.assert_allclose(got_dx, want_dx, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_dw, want_dw, rtol=1e-4, atol=1e-4)
+
+
+# (B·T, H, W): rows 512, 1024, 192 and a ragged 75 (300 for the shifted
+# conv, whose B·T is a multiple of T = 4), where the JAX package takes its
+# XLA fallback; the port has no row-tile limit
+VJP_ROWS = [(8, 8, 8), (16, 8, 8), (12, 4, 4), (3, 5, 5)]
+SHIFT_VJP_ROWS = [(8, 8, 8), (16, 8, 8), (12, 4, 4), (12, 5, 5)]
+
+
+def _vjp_inputs(rows_shape, c, o, seed):
+    rng = np.random.default_rng(seed)
+    bt, h, w = rows_shape
+    x = rng.standard_normal((bt, h, w, c)).astype(np.float32)
+    k = (rng.standard_normal((1, 1, c, o)) * .05).astype(np.float32)
+    g = rng.standard_normal((bt, h, w, o)).astype(np.float32)
+    return x, k, g
+
+
+def _torch_vjp(fn, x, k, g):
+    xt = _t(x).requires_grad_(True)
+    wt = _t(k[0, 0]).requires_grad_(True)
+    y = fn(xt, wt)
+    y.backward(_t(g))
+    return _np(y), _np(xt.grad), _np(wt.grad)
+
+
+@pytest.mark.parametrize("rows_shape", VJP_ROWS)
+def test_conv1x1_vjp_matches_make_conv1x1(rows_shape):
+    import jax
+    from workoutdetector_tpu.ops.pallas.conv1x1 import make_conv1x1
+    x, k, g = _vjp_inputs(rows_shape, 64, 32, 8)
+    y_j, vjp = jax.vjp(make_conv1x1(), jnp.asarray(x), jnp.asarray(k))
+    dx_j, dk_j = vjp(jnp.asarray(g))
+    y, dx, dw = _torch_vjp(kernels.Conv1x1.apply, x, k, g)
+    np.testing.assert_allclose(y, np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx, np.asarray(dx_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dw, np.asarray(dk_j)[0, 0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows_shape", SHIFT_VJP_ROWS)
+def test_shift_conv1x1_vjp_matches_make_shift_conv1x1(rows_shape):
+    import jax
+    from workoutdetector_tpu.ops.pallas.conv1x1 import make_shift_conv1x1
+    x, k, g = _vjp_inputs(rows_shape, 64, 32, 9)
+    y_j, vjp = jax.vjp(make_shift_conv1x1(4, 8), jnp.asarray(x),
+                       jnp.asarray(k))
+    dx_j, dk_j = vjp(jnp.asarray(g))
+    y, dx, dw = _torch_vjp(
+        lambda a, b: kernels.ShiftConv1x1.apply(a, b, 4, 8), x, k, g)
+    np.testing.assert_allclose(y, np.asarray(y_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx, np.asarray(dx_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dw, np.asarray(dk_j)[0, 0], rtol=1e-4, atol=1e-4)
+
+
+def test_shifted_dx_dw_plain_match_the_shift_transpose():
+    """conv1x1_dx with a shift spec is Sᵀ(g Wᵀ) and conv1x1_dw is
+    shift(x)ᵀ g, S the JAX temporal shift (its vjp gives Sᵀ)."""
+    import jax
+    rng = np.random.default_rng(10)
+    t, hw, c, o = 4, 6, 32, 16
+    x = rng.standard_normal((2 * t, 2, 3, c)).astype(np.float32)
+    g = rng.standard_normal((2 * t * hw, o)).astype(np.float32)
+    wt = (rng.standard_normal((o, c)) * 0.1).astype(np.float32)
+    shifted, vjp = jax.vjp(lambda a: jts.temporal_shift_flat(a, t, 8),
+                           jnp.asarray(x))
+    dsh = (g @ wt).reshape(x.shape)
+    want_dx = np.asarray(vjp(jnp.asarray(dsh))[0]).reshape(-1, c)
+    want_dw = np.asarray(shifted).reshape(-1, c).T @ g
+    np.testing.assert_allclose(
+        _np(kernels.conv1x1_dx(_t(g), _t(wt), t, c // 8, hw)), want_dx,
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        _np(kernels.conv1x1_dw(_t(x.reshape(-1, c)), _t(g), t, c // 8, hw)),
+        want_dw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fold_div", [8, 4])
+def test_temporal_shift_function_vjp_matches_jax(fold_div):
+    """TemporalShift's backward (the shift reversed) equals jax.vjp of the
+    JAX temporal shift."""
+    import jax
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3 * 4, 2, 3, 16)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda a: jts.temporal_shift_flat(a, 4, fold_div),
+                       jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    y = kernels.TemporalShift.apply(xt, 4, fold_div)
+    y.backward(_t(g))
+    np.testing.assert_array_equal(_np(y), np.asarray(y_j))
+    np.testing.assert_array_equal(_np(xt.grad),
+                                  np.asarray(vjp(jnp.asarray(g))[0]))
+
+
+def test_backward_kernel_wrappers_refuse_other_devices():
+    g = torch.zeros((64, 16), device="meta")
+    w = torch.zeros((16, 32), device="meta")
+    with pytest.raises(ValueError):
+        kernels.conv1x1_dx(g, w)
+    with pytest.raises(ValueError):
+        kernels.conv1x1_dw(torch.zeros((64, 32), device="meta"), g)
+    with pytest.raises(ValueError):
+        kernels.temporal_shift(torch.zeros((8, 2, 2, 16), device="meta"), 4,
+                               reverse=True)

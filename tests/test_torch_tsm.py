@@ -27,6 +27,16 @@ SIZE = 32
 SEG = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are small: one intra-op thread, so the parallel
+    test workers do not oversubscribe the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -42,15 +52,23 @@ def _set(tree, path, value):
 
 
 def randomized_variables(model, x, seed=0):
-    """JAX init, then numpy-seeded BN stats/affine and head."""
-    v = model.init({"params": jax.random.PRNGKey(seed)}, x, train=False)
-    v = jax.tree_util.tree_map(np.array, {  # writable numpy copies
-        "params": dict(v["params"]), "batch_stats": dict(v["batch_stats"])})
+    """The JAX model's variable tree (from ``jax.eval_shape`` of its init,
+    which traces without running it), filled from a numpy seed: lecun-normal
+    conv kernels, random BN stats/affine, a unit-scale head."""
+    shapes = jax.eval_shape(
+        lambda: model.init({"params": jax.random.PRNGKey(seed)}, x,
+                           train=False))
+    v = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), {
+        "params": dict(shapes["params"]),
+        "batch_stats": dict(shapes["batch_stats"])})
     rng = np.random.default_rng(seed)
     for coll in ("params", "batch_stats"):
         for path, a in list(_flatten(v[coll])):
             leaf, owner = path[-1], path[-2]
-            if leaf == "mean":
+            if leaf == "kernel" and owner != "fc":
+                new = rng.normal(0.0, 1.0 / np.sqrt(np.prod(a.shape[:-1])),
+                                 a.shape)
+            elif leaf == "mean":
                 new = rng.normal(0.0, 0.2, a.shape)
             elif leaf == "var":
                 new = rng.uniform(0.5, 1.5, a.shape)

@@ -6,9 +6,10 @@
 // accumulator, rounded once on store.
 //
 // Bound on the H100: at the R50 sites (K = C = 256..2048, N = 128..512) the
-// arithmetic intensity is at most 2*K*N / (2*(K + N)) ~ 170 FLOP/byte, under
-// the card's ~295 FLOP/byte bf16 ridge, so bytes bind: x read once, W once,
-// y written once. Design: a plain GEMM over the rows; the shift lives in the
+// arithmetic intensity is 2*M*K*N / (2*(M*K + K*N + M*N)) ~ 85..390
+// FLOP/byte; under the card's ~295 FLOP/byte bf16 ridge bytes bind (x read
+// once, W once, y written once), at the three layer4 sites (N = 512) the
+// tensor cores do. Design: a plain GEMM over the rows; the shift lives in the
 // A-tile loader, which takes the first fold channels of row r from row
 // r + HW and the next fold from row r - HW, and zero-fills them at
 // t = T-1 / t = 0 of the same clip (the flat roll would otherwise wrap into

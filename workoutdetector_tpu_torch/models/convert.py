@@ -117,3 +117,34 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
             a = rng.uniform(0.5, 1.5, shape)
         state[key] = a.astype(np.float32)
     return port_state_to_flax(state)
+
+
+def init_flax_variables(model: torch.nn.Module, seed: int = 0
+                        ) -> Dict[str, Any]:
+    """A fresh model's variables with flax's default initializers, drawn
+    from a numpy seed: conv kernels ``lecun_normal`` (truncated normal,
+    fan-in scaling), the dense head normal(0.001) with a zero bias (the
+    JAX TSM's ``fc``), BN scale 1 and bias 0, running mean 0 and var 1.
+    The distributions are flax's; the draws are not jax.random's."""
+    rng = np.random.default_rng(seed)
+    state: Dict[str, np.ndarray] = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight" and len(shape) == 4:
+            std = np.sqrt(1.0 / (shape[1] * shape[2] * shape[3])) \
+                / 0.87962566103423978  # stddev of N(0, 1) cut at ±2
+            a = rng.standard_normal(shape)
+            out = np.abs(a) > 2
+            while out.any():  # redraw outside ±2: a truncated normal
+                a[out] = rng.standard_normal(int(out.sum()))
+                out = np.abs(a) > 2
+            a = a * std
+        elif leaf == "weight" and len(shape) == 2:
+            a = rng.normal(0.0, 0.001, shape)
+        elif leaf in ("weight", "running_var"):
+            a = np.ones(shape)
+        else:  # bias, running_mean
+            a = np.zeros(shape)
+        state[key] = a.astype(np.float32)
+    return port_state_to_flax(state)

@@ -1,15 +1,26 @@
-"""ResNet backbone for inference — NHWC at every module boundary.
+"""ResNet backbone — NHWC at every module boundary.
 
-Port of ``workoutdetector_tpu/models/resnet.py`` (eval mode only): stem
-7×7/2 → max-pool → four stages of BasicBlock (resnet18/34) or Bottleneck
-(resnet50/101, stride on the 3×3 — torchvision v1.5) → global average pool.
-Module and parameter names follow the flax tree (``conv1``, ``bn1``,
-``layer{i}_{j}``, ``downsample_conv`` / ``downsample_bn``), so
+Port of ``workoutdetector_tpu/models/resnet.py``: stem 7×7/2 → max-pool →
+four stages of BasicBlock (resnet18/34) or Bottleneck (resnet50/101,
+stride on the 3×3 — torchvision v1.5) → global average pool. Module and
+parameter names follow the flax tree (``conv1``, ``bn1``, ``layer{i}_{j}``,
+``downsample_conv`` / ``downsample_bn``), so
 ``models/convert.load_flax_variables`` is a key map. Conv weights are held
-OIHW in fp32 and cast to the compute dtype at the call, as flax does. An
-eval BatchNorm after a conv is folded into that conv's weight and bias
-(cached), so cuDNN applies it in its epilogue instead of five elementwise
-passes.
+OIHW in fp32 and cast to the compute dtype at the call, as flax does.
+
+Two regimes, by ``torch.is_grad_enabled()`` and the module's mode:
+
+* inference (no autograd, BN on running statistics): a BatchNorm after a
+  conv is folded into that conv's weight and bias (cached), so cuDNN
+  applies it in its epilogue, and eligible bottlenecks are fused-block
+  kernels;
+* autograd (training, or any forward a gradient is taken through): conv
+  then BN, unfolded, in flax's order; BN in train mode normalizes with
+  batch statistics and updates its running ones (``BatchNorm``); every
+  stride-1 1×1 conv of a bottleneck takes its backward through the 1×1
+  backward kernels (``Conv1x1``; the shifted conv1 ``ShiftConv1x1``), as
+  the JAX package's ``conv1x1_bwd='pallas'`` does; the 3×3 convs and the
+  stride-2 downsamples stay cuDNN convs with autograd.
 
 The TSM hooks of the JAX ResNet become constructor arguments: per-block
 shift specs (``shift_spec``: the shift fused into conv1; ``pre_shift``:
@@ -41,12 +52,18 @@ BOTTLENECK = {"resnet18": False, "resnet34": False, "resnet50": True,
               "resnet101": True}
 
 ShiftSpec = Optional[Tuple[int, int]]  # (n_segment, fold_div)
+BN_MOMENTUM = 0.9  # flax's convention: running ← 0.9·running + 0.1·batch
 
 
 def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
            dtype: torch.dtype, build: Callable[[], object]):
     """Tensors derived from parameters (kernel layouts, folded BN), rebuilt
-    only when a source changes storage or version, or ``dtype`` changes."""
+    only when a source changes storage or version, or ``dtype`` changes.
+    Under autograd (grad enabled and a source requiring grad) nothing is
+    cached: the value is built with its graph, so gradients reach the
+    sources."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return build()
     key = (dtype,) + tuple((t.device, t.data_ptr(), t._version)
                            for t in sources)
     hit = module._derived.get(name)
@@ -59,8 +76,9 @@ def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
 
 
 class Conv(nn.Module):
-    """Bias-free NHWC convolution with an OIHW fp32 weight; called with an
-    eval BatchNorm, the BN is folded into the weight and a bias."""
+    """Bias-free NHWC convolution with an OIHW fp32 weight, followed by
+    ``bn`` when given: folded into the weight and a bias when the BN can
+    fold (``BatchNorm.foldable``), else applied after the conv."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  pad: int = 0):
@@ -74,18 +92,19 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 bn: Optional["BatchNorm"] = None) -> torch.Tensor:
         p = self.pad
-        weight, bias = self.weight, None
-        if bn is not None:
-            sources = [self.weight] + bn.sources()
+        pads = ((p, p), (p, p))
+        if bn is None or not bn.foldable():
+            y = conv2d_nhwc(x, self.weight, (self.stride, self.stride), pads)
+            return y if bn is None else bn(y)
 
-            def fold():
-                sb = bn.folded()
-                return (self.weight * sb[0][:, None, None, None]).to(x.dtype), \
-                    sb[1].to(x.dtype)
+        def fold():
+            sb = bn.folded()
+            return (self.weight * sb[0][:, None, None, None]).to(x.dtype), \
+                sb[1].to(x.dtype)
 
-            weight, bias = cached(self, "bn", sources, x.dtype, fold)
-        return conv2d_nhwc(x, weight, (self.stride, self.stride),
-                           ((p, p), (p, p)), bias)
+        weight, bias = cached(self, "bn", [self.weight] + bn.sources(),
+                              x.dtype, fold)
+        return conv2d_nhwc(x, weight, (self.stride, self.stride), pads, bias)
 
     def matrix(self) -> torch.Tensor:
         """A 1×1 weight as (C, O) — the kernels' layout."""
@@ -105,29 +124,85 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis: x · s + b in fp32
-    with s, b folded from the running statistics (``folded``), cached."""
+    """BatchNorm over the last (channel) axis with flax's semantics
+    (``FrozenAwareBatchNorm``, ``momentum=0.9``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    * train mode, not ``frozen``: normalize with the batch mean and biased
+      variance (fp32 statistics, the output rounded once to x's dtype),
+      and update the running statistics as flax does,
+      ``new = momentum·old + (1 − momentum)·batch`` with the BIASED batch
+      variance (``F.batch_norm``'s own update would use the unbiased one,
+      so it is given no running buffers);
+    * eval mode, or ``frozen`` (partial BN): the running statistics, never
+      updated; under autograd as (x − mean)·rsqrt(var + eps)·scale + bias,
+      without autograd as x · s + b with s, b folded and cached.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 frozen: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
+        self.frozen = frozen
         self._derived: Dict[str, tuple] = {}
 
     def sources(self) -> List[torch.Tensor]:
         return [self.weight, self.bias, self.running_mean, self.running_var]
 
+    def batch_stats(self) -> bool:
+        """Whether this call normalizes with batch statistics."""
+        return self.training and not self.frozen
+
+    def foldable(self) -> bool:
+        """Running statistics and no autograd: a conv may fold this BN."""
+        return not self.batch_stats() and not torch.is_grad_enabled()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sb = cached(self, "sb", self.sources(), torch.float32, self.folded)
-        return torch.addcmul(sb[1], x, sb[0]).to(x.dtype)
+        if self.foldable():
+            sb = cached(self, "sb", self.sources(), torch.float32, self.folded)
+            return torch.addcmul(sb[1], x, sb[0]).to(x.dtype)
+        # as (rows, C): channels innermost for the input, the output and
+        # the gradients alike, so the backward hands NHWC-contiguous
+        # gradients on (a 4-D channels-last view got NCHW ones back, which
+        # every consumer then had to copy)
+        xr = x.reshape(-1, x.shape[-1])
+        if self.batch_stats():
+            self._update_running(xr)
+            y = F.batch_norm(xr, None, None, self.weight, self.bias,
+                             training=True, eps=self.eps)
+        else:
+            y = F.batch_norm(xr, self.running_mean, self.running_var,
+                             self.weight, self.bias, training=False,
+                             eps=self.eps)
+        return y.reshape(x.shape)
+
+    @torch.no_grad()
+    def _update_running(self, x: torch.Tensor) -> None:
+        """flax's update from (rows, C) x: fp32 batch mean and biased
+        variance E[x²] − E[x]² (clipped at 0), then the momentum average."""
+        xf = x.float()
+        mean = xf.mean(0)
+        var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def folded(self) -> torch.Tensor:
         """(2, F) fp32 [scale; bias] for the kernels."""
         return kernels.fold_bn(self.weight, self.bias, self.running_mean,
                                self.running_var, self.eps)
+
+
+def shift_input(x: torch.Tensor, spec: Tuple[int, int],
+                use_kernels: bool) -> torch.Tensor:
+    """The temporal shift at a block input: the shift kernel (differentiable
+    through ``TemporalShift``) or its plain version."""
+    if use_kernels:
+        return kernels.TemporalShift.apply(x, *spec)
+    return kernels.temporal_shift_plain(x, *spec)
 
 
 class BasicBlock(nn.Module):
@@ -137,25 +212,23 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int, downsample: bool,
                  shift: ShiftSpec = None, use_kernels: bool = True,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, frozen_bn: bool = False):
         super().__init__()
         self.shift = shift
         self.use_kernels = use_kernels
         self.conv1 = Conv(cin, filters, 3, stride, 1)
-        self.bn1 = BatchNorm(filters, eps)
+        self.bn1 = BatchNorm(filters, eps, frozen=frozen_bn)
         self.conv2 = Conv(filters, filters, 3, 1, 1)
-        self.bn2 = BatchNorm(filters, eps)
+        self.bn2 = BatchNorm(filters, eps, frozen=frozen_bn)
         if downsample:
             self.downsample_conv = Conv(cin, filters, 1, stride)
-            self.downsample_bn = BatchNorm(filters, eps)
+            self.downsample_bn = BatchNorm(filters, eps, frozen=frozen_bn)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
         if self.shift is not None:
-            shift = kernels.temporal_shift if self.use_kernels \
-                else kernels.temporal_shift_plain
-            y = shift(x.contiguous(), *self.shift)
+            y = shift_input(x, self.shift, self.use_kernels)
         y = torch.relu(self.conv1(y, self.bn1))
         y = self.conv2(y, self.bn2)
         residual = x
@@ -167,28 +240,31 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1×1-3×3-1×1 bottleneck (resnet50/101), stride on the 3×3.
 
-    ``fuse``: at stride 1 the whole block is one fused-block kernel.
-    Otherwise a shift site's conv1 is the shift-matmul kernel.
+    Inference: ``fuse`` at stride 1 makes the whole block one fused-block
+    kernel; otherwise a shift site's conv1 is the shift-matmul kernel.
+    Under autograd the block runs unfused, its stride-1 1×1 convs through
+    ``Conv1x1`` / ``ShiftConv1x1`` (kernel backward).
     """
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, downsample: bool,
                  shift: ShiftSpec = None, fuse: bool = False,
-                 use_kernels: bool = True, eps: float = 1e-5):
+                 use_kernels: bool = True, eps: float = 1e-5,
+                 frozen_bn: bool = False):
         super().__init__()
         out = filters * self.expansion
         self.shift = shift
         self.fuse = fuse and stride == 1
         self.use_kernels = use_kernels
         self.conv1 = Conv(cin, filters, 1)
-        self.bn1 = BatchNorm(filters, eps)
+        self.bn1 = BatchNorm(filters, eps, frozen=frozen_bn)
         self.conv2 = Conv(filters, filters, 3, stride, 1)
-        self.bn2 = BatchNorm(filters, eps)
+        self.bn2 = BatchNorm(filters, eps, frozen=frozen_bn)
         self.conv3 = Conv(filters, out, 1)
-        self.bn3 = BatchNorm(out, eps)
+        self.bn3 = BatchNorm(out, eps, frozen=frozen_bn)
         if downsample:
             self.downsample_conv = Conv(cin, out, 1, stride)
-            self.downsample_bn = BatchNorm(out, eps)
+            self.downsample_bn = BatchNorm(out, eps, frozen=frozen_bn)
         self.downsample = downsample
         self._derived: Dict[str, tuple] = {}
 
@@ -216,8 +292,18 @@ class Bottleneck(nn.Module):
 
         return cached(self, "fused", sources, dtype, build)
 
+    def _pointwise(self, conv: Conv, x: torch.Tensor,
+                   bn: BatchNorm) -> torch.Tensor:
+        """A stride-1 1×1 conv + BN: under autograd with the kernels on,
+        ``Conv1x1`` (its backward on the kernels), else the conv's own
+        path (folded BN when it can fold)."""
+        if self.use_kernels and torch.is_grad_enabled():
+            return bn(kernels.Conv1x1.apply(x, conv.matrix().to(x.dtype)))
+        return conv(x, bn)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fuse:
+        grad = torch.is_grad_enabled()
+        if self.fuse and not grad and not self.training:
             n_seg, fold = (self.shift[0], x.shape[-1] // self.shift[1]) \
                 if self.shift is not None else (1, 0)
             fn = kernels.fused_bottleneck if self.use_kernels \
@@ -225,19 +311,28 @@ class Bottleneck(nn.Module):
             return fn(x.contiguous(), self.fused_params(x.dtype),
                       n_segment=n_seg, fold=fold)
         if self.shift is not None:
-            w1 = cached(self, "w1", [self.conv1.weight], x.dtype,
-                        lambda: self.conv1.matrix().to(x.dtype).contiguous())
-            fn = kernels.shift_matmul if self.use_kernels \
-                else kernels.shift_matmul_plain
-            y = self.bn1(fn(x.contiguous(), w1, *self.shift))
+            if self.use_kernels and grad:
+                w1 = self.conv1.matrix().to(x.dtype).contiguous()
+                y = kernels.ShiftConv1x1.apply(x, w1, *self.shift)
+            else:
+                w1 = cached(self, "w1", [self.conv1.weight], x.dtype,
+                            lambda: self.conv1.matrix().to(x.dtype).contiguous())
+                fn = kernels.shift_matmul if self.use_kernels \
+                    else kernels.shift_matmul_plain
+                y = fn(x.contiguous(), w1, *self.shift)
+            y = self.bn1(y)
         else:
-            y = self.conv1(x, self.bn1)
+            y = self._pointwise(self.conv1, x, self.bn1)
         y = torch.relu(y)
         y = torch.relu(self.conv2(y, self.bn2))
-        y = self.conv3(y, self.bn3)
+        y = self._pointwise(self.conv3, y, self.bn3)
         residual = x
         if self.downsample:
-            residual = self.downsample_conv(x, self.downsample_bn)
+            if self.downsample_conv.stride == 1:
+                residual = self._pointwise(self.downsample_conv, x,
+                                           self.downsample_bn)
+            else:
+                residual = self.downsample_conv(x, self.downsample_bn)
         return torch.relu(y + residual)
 
 
@@ -251,8 +346,11 @@ class ResNet(nn.Module):
             the WHOLE block input, identity path included.
         stage_hook: fn(x, stage) → x at each stage input.
         fuse_spec: fn(stage, block) → bool: whole-block fused kernel
-            (bottleneck archs, stride-1 blocks).
+            (bottleneck archs, stride-1 blocks; inference only).
         use_kernels: False runs every kernel's plain version.
+        partial_bn: every BN but the stem's runs on its running statistics
+            and never updates them, in train mode too (flax's
+            ``FrozenAwareBatchNorm(frozen=True)``).
     """
 
     def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True,
@@ -261,7 +359,8 @@ class ResNet(nn.Module):
                  pre_shift: Optional[Callable[[int, int], ShiftSpec]] = None,
                  stage_hook: Optional[Callable] = None,
                  fuse_spec: Optional[Callable[[int, int], bool]] = None,
-                 use_kernels: bool = True, eps: float = 1e-5):
+                 use_kernels: bool = True, eps: float = 1e-5,
+                 partial_bn: bool = False):
         super().__init__()
         self.conv1 = Conv(3, width, 7, 2, 3)
         self.bn1 = BatchNorm(width, eps)
@@ -276,7 +375,8 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 kw = dict(shift=shift_spec(i, j) if shift_spec else None,
-                          use_kernels=use_kernels, eps=eps)
+                          use_kernels=use_kernels, eps=eps,
+                          frozen_bn=partial_bn)
                 if bottleneck:
                     kw["fuse"] = bool(fuse_spec and fuse_spec(i, j))
                 name = f"layer{i + 1}_{j}"
@@ -298,8 +398,6 @@ class ResNet(nn.Module):
                 if self.stage_hook is not None:
                     x = self.stage_hook(x, i)
             if pre is not None:
-                shift = kernels.temporal_shift if self.use_kernels \
-                    else kernels.temporal_shift_plain
-                x = shift(x.contiguous(), *pre)
+                x = shift_input(x, pre, self.use_kernels)
             x = getattr(self, name)(x)
         return x.mean(dim=(1, 2))

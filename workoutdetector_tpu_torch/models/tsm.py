@@ -1,28 +1,45 @@
-"""TSM — Temporal Shift Module video classifier, inference.
+"""TSM — Temporal Shift Module video classifier.
 
 Port of ``workoutdetector_tpu/models/tsm.py``: a ResNet trunk with the
 temporal shift at residual-branch inputs (``'blockres'``: every block, or
 every ``shift_round``-th; every other block when stage 3 has ≥ 23 blocks)
 or whole-block inputs (``'block'``, identity path shifted too), optional
-temporal max-pool before stage 2, a linear head and average (or identity)
-consensus in fp32.
+temporal max-pool before stage 2, dropout and a linear head, and average
+(or identity) consensus in fp32.
+
+The module is built in eval mode, as the JAX module's call defaults to
+``train=False``; ``model.train()`` selects training (BN batch statistics
+except under ``partial_bn``, dropout before ``fc``).
 
 Input (B, T, H, W, C) normalized float; the trunk runs on the flat
 (B·T, H, W, C) batch in ``dtype``. On the main path (bottleneck archs,
 ``fused_block=True``) the stride-1 blocks of ``fused_stages`` are single
 fused-block kernels and every other shifted conv1 is a shift-matmul
 kernel; ``shift_place='block'`` shifts through the shift kernel.
+Training runs every block unfused, with the 1×1 backward kernels.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from workoutdetector_tpu_torch.models.resnet import (BOTTLENECK, STAGE_SIZES,
                                                      Dense, ResNet)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 − rate, scale the kept
+    values by 1 / (1 − rate) in x's dtype, zero the rest."""
+    keep = 1.0 - rate
+    if keep <= 0.0:
+        return torch.zeros_like(x)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class TSM(nn.Module):
@@ -35,7 +52,8 @@ class TSM(nn.Module):
                  dtype: torch.dtype = torch.float32, shift_round: int = 0,
                  fused_block: bool = True,
                  fused_stages: Sequence[int] = (0, 1),
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dropout: float = 0.5,
+                 partial_bn: bool = True):
         super().__init__()
         if shift_place not in ("blockres", "block"):
             raise ValueError(f"shift_place {shift_place!r}")
@@ -46,6 +64,7 @@ class TSM(nn.Module):
         self.consensus_type = consensus_type
         self.temporal_pool = temporal_pool
         self.dtype = dtype
+        self.dropout = dropout
         n_round = shift_round or (2 if STAGE_SIZES[base_model][2] >= 23 else 1)
 
         def spec(stage: int, block: int, every: int):
@@ -70,8 +89,10 @@ class TSM(nn.Module):
                                bottleneck=BOTTLENECK[base_model],
                                shift_spec=shift_spec, pre_shift=pre_shift,
                                stage_hook=self._stage_hook,
-                               fuse_spec=fuse_spec, use_kernels=use_kernels)
+                               fuse_spec=fuse_spec, use_kernels=use_kernels,
+                               partial_bn=partial_bn)
         self.fc = Dense(self.backbone.num_features, num_class)
+        self.eval()
 
     def _seg_at_stage(self, stage_idx: int) -> int:
         """Segments alive at a stage: temporal_pool halves T after stage 1."""
@@ -95,11 +116,17 @@ class TSM(nn.Module):
                                xp[:, 2::2])
         return pooled.reshape(b * (t // 2), h, w, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Logits of (B, T, H, W, C) clips. In train mode dropout draws its
+        mask from ``dropout_generator`` (the trainer seeds one per step)."""
         b, t, h, w, c = x.shape
         if t != self.num_segments:
             raise ValueError(f"expected T={self.num_segments}, got {t}")
         feat = self.backbone(x.reshape(b * t, h, w, c).to(self.dtype))
+        if self.training and self.dropout > 0:
+            feat = dropout(feat, self.dropout, dropout_generator)
         logits = self.fc(feat)
         t_out = t // 2 if self.temporal_pool else t
         logits = logits.reshape(b, t_out, self.num_class).float()

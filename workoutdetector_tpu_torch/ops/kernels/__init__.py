@@ -6,14 +6,18 @@ counts its launches in ``<wrapper>.launches``. Nothing is built or
 loaded at import: ``_build.load()`` runs at the first CUDA launch.
 """
 
+from workoutdetector_tpu_torch.ops.kernels.conv1x1 import (
+    Conv1x1, ShiftConv1x1, conv1x1_dw, conv1x1_dw_plain, conv1x1_dx,
+    conv1x1_dx_plain)
 from workoutdetector_tpu_torch.ops.kernels.fused_block import (
     FusedBlockParams, fold_bn, fused_bottleneck, fused_bottleneck_plain)
 from workoutdetector_tpu_torch.ops.kernels.shift import (
-    temporal_shift, temporal_shift_clips, temporal_shift_plain)
+    TemporalShift, temporal_shift, temporal_shift_clips, temporal_shift_plain)
 from workoutdetector_tpu_torch.ops.kernels.shift_matmul import (
     shift_matmul, shift_matmul_plain)
 
-WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck)
+WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck, conv1x1_dx,
+            conv1x1_dw)
 
 
 def reset_launches() -> None:
@@ -22,9 +26,16 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every kernel wrapper."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
 __all__ = [
-    "FusedBlockParams", "fold_bn", "fused_bottleneck",
-    "fused_bottleneck_plain", "temporal_shift", "temporal_shift_clips",
-    "temporal_shift_plain", "shift_matmul", "shift_matmul_plain",
-    "WRAPPERS", "reset_launches",
+    "Conv1x1", "ShiftConv1x1", "conv1x1_dw", "conv1x1_dw_plain",
+    "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
+    "fused_bottleneck", "fused_bottleneck_plain", "TemporalShift",
+    "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",
+    "shift_matmul", "shift_matmul_plain", "WRAPPERS", "reset_launches",
+    "launch_counts",
 ]

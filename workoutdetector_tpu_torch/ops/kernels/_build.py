@@ -37,9 +37,11 @@ I = ctypes.c_int
 L = ctypes.c_int64
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES: Dict[str, List] = {
-    "wd_temporal_shift": [P, P, L, L, I, I, I, I, I, P],
+    "wd_temporal_shift": [P, P, L, L, I, I, I, I, I, I, P],
     "wd_shift_matmul_bf16": [P, P, P, L, L, I, I, I, I, I, P],
     "wd_fused_bottleneck_bf16": [P] * 10 + [I] * 9 + [P],
+    "wd_conv1x1_dx_bf16": [P, P, P, L, I, I, L, I, I, I, P],
+    "wd_conv1x1_dw_bf16": [P, P, P, P, L, I, I, L, I, I, L, I, P],
 }
 
 

@@ -3,7 +3,9 @@
 Port of ``workoutdetector_tpu/ops/pallas/shift.py`` (``temporal_shift_pallas``).
 The model uses it where the shift is not fused into a conv: the whole-block
 input under ``shift_place='block'`` and the 3×3 shift sites of BasicBlock
-networks. Bound and design: see the note at the top of the CUDA source.
+networks. ``TemporalShift`` makes it differentiable: its backward is the
+transpose Sᵀ (the two directions swapped) on the same kernel. Bound and
+design: see the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -11,20 +13,24 @@ from __future__ import annotations
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
-from workoutdetector_tpu_torch.ops.temporal_shift import temporal_shift_flat
+from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
 _ELEM_BYTES = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
 
-# the plain version: shift a flat (B·T, H, W, C) batch
-temporal_shift_plain = temporal_shift_flat
+
+def temporal_shift_plain(x: torch.Tensor, n_segment: int, fold_div: int = 8,
+                         reverse: bool = False) -> torch.Tensor:
+    """The plain version: shift a flat (B·T, H, W, C) batch (Sᵀ when
+    ``reverse``)."""
+    return shift_folds(x, n_segment, x.shape[-1] // fold_div, reverse)
 
 
-def temporal_shift(x: torch.Tensor, n_segment: int,
-                   fold_div: int = 8) -> torch.Tensor:
-    """Shift a flat (B·T, H, W, C) batch: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+def temporal_shift(x: torch.Tensor, n_segment: int, fold_div: int = 8,
+                   reverse: bool = False) -> torch.Tensor:
+    """Shift a flat (B·T, H, W, C) batch (Sᵀ when ``reverse``): the kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return temporal_shift_plain(x, n_segment, fold_div)
+        return temporal_shift_plain(x, n_segment, fold_div, reverse)
     if x.device.type != "cuda":
         raise ValueError(f"temporal_shift: unsupported device {x.device}")
     if x.dtype not in _ELEM_BYTES:
@@ -39,13 +45,28 @@ def temporal_shift(x: torch.Tensor, n_segment: int,
     lib = _build.load()
     lib.check(lib.lib.wd_temporal_shift(
         x.data_ptr(), y.data_ptr(), x.shape[0], inner, n_segment, c,
-        c // fold_div, _ELEM_BYTES[x.dtype], x.device.index or 0,
+        c // fold_div, _ELEM_BYTES[x.dtype], int(reverse), x.device.index or 0,
         _build.stream_handle(x.device)), "temporal_shift")
     temporal_shift.launches += 1
     return y
 
 
 temporal_shift.launches = 0
+
+
+class TemporalShift(torch.autograd.Function):
+    """Differentiable shift: forward S, backward Sᵀ, both on the wrapper
+    (kernel for CUDA tensors, plain version for CPU ones)."""
+
+    @staticmethod
+    def forward(ctx, x, n_segment: int, fold_div: int):
+        ctx.shift = (n_segment, fold_div)
+        return temporal_shift(x.contiguous(), n_segment, fold_div)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (temporal_shift(g.contiguous(), *ctx.shift, reverse=True),
+                None, None)
 
 
 def temporal_shift_clips(x: torch.Tensor, fold_div: int = 8) -> torch.Tensor:

@@ -19,16 +19,26 @@ import torch
 from workoutdetector_tpu_torch.ops.conv import conv2d_nhwc
 
 
-def shift_folds(x: torch.Tensor, n_segment: int, fold: int) -> torch.Tensor:
-    """Shift ``fold`` channels each way on a flat (B·T, ..., C) batch."""
+def shift_folds(x: torch.Tensor, n_segment: int, fold: int,
+                reverse: bool = False) -> torch.Tensor:
+    """Shift ``fold`` channels each way on a flat (B·T, ..., C) batch.
+    ``reverse`` swaps the two directions — the transpose Sᵀ, the shift's
+    backward."""
     if fold == 0:
         return x
     bt = x.shape[0]
     v = x.reshape(bt // n_segment, n_segment, *x.shape[1:])
     zeros = torch.zeros_like(v[:, :1, ..., :fold])
-    left = torch.cat([v[:, 1:, ..., :fold], zeros], dim=1)
-    right = torch.cat([zeros, v[:, :-1, ..., fold:2 * fold]], dim=1)
-    out = torch.cat([left, right, v[..., 2 * fold:]], dim=-1)
+
+    def ahead(part):  # frame t takes frame t+1, zero at t = T−1
+        return torch.cat([part[:, 1:], zeros], dim=1)
+
+    def behind(part):  # frame t takes frame t−1, zero at t = 0
+        return torch.cat([zeros, part[:, :-1]], dim=1)
+
+    first, second = (behind, ahead) if reverse else (ahead, behind)
+    out = torch.cat([first(v[..., :fold]), second(v[..., fold:2 * fold]),
+                     v[..., 2 * fold:]], dim=-1)
     return out.reshape(x.shape)
 
 
