@@ -11,10 +11,12 @@ not printed; no CUDA device → exit 2):
   3. each kernel against its plain PyTorch version at every TSM-R50 224²
      shape of its main path, bf16 — the inference kernels at window batch
      16 (128 frames), dx and dW at the 12 backward site shapes of a
-     batch-32 train step (256 frames), beside ``torch.matmul``: max error,
-     kernel / plain / library time and the bound (per site, the larger of
-     the call's bytes over the H100's 3.35 TB/s and its operations over
-     989 TFLOP/s bf16);
+     batch-32 train step (256 frames), beside ``torch.matmul``; the
+     attention kernel at TimeSformer-B/16's spatial attention, (n, h, l,
+     dh) = (128, 12, 197, 64) cut from a packed qkv, beside
+     ``scaled_dot_product_attention``: max error, kernel / plain / library
+     time and the bound (per site, the larger of the call's bytes over the
+     H100's 3.35 TB/s and its operations over 989 TFLOP/s bf16);
   4. the main path: TSM-R50 224², 8 segments, 12 classes, bf16, random
      numpy-seeded flax weights through ``load_flax_variables``;
      ``InferenceEngine.score_video`` on a synthetic ~300-frame uint8 video
@@ -37,16 +39,26 @@ not printed; no CUDA device → exit 2):
      on two planted wiring faults of the shifted backward, which it must
      catch; two identical
      2-step runs compared bit for bit; train clips/s and one profiled step;
-  7. one JSON line of per-kernel numbers, the card line again, and the
+  7. TimeSformer-B/16 inference (``workoutdetector_tpu/configs/
+     timesformer.yaml``: ViT-B/16 224², 8 segments, 12 classes,
+     divided space-time attention, bf16, window batch 16), random
+     numpy-seeded flax weights through ``load_flax_variables``, t_fc folded
+     by the engine: ``score_video`` and ``count_by_video_model`` on the
+     phase-4 video with the launch counts checked (12 attention launches
+     per forward, no other kernel), the logits held against the unfolded
+     plain fp32 model on the card by phase 4's rule, one profiled batch;
+  8. one JSON line of per-kernel numbers, the card line again, and the
      contract line ``{"ok": true, "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
 over the kernel's launch sites) for the inference kernels and per train
-step (batch 32, the sum over the 33 backward sites) for dx and dW. No
-single PyTorch call computes the shift, the shift-matmul or the fused
-block, so their ``library_ms`` is null; dx and dW are timed beside
-``torch.matmul`` of the same operands (g @ Wᵀ, xᵀ @ g, no shift).
+step (batch 32, the sum over the 33 backward sites) for dx and dW, per
+TimeSformer-B/16 forward (12 launches) for the attention. No single
+PyTorch call computes the shift, the shift-matmul or the fused block, so
+their ``library_ms`` is null; dx and dW are timed beside ``torch.matmul``
+of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
+``scaled_dot_product_attention`` on the same q, k, v views.
 """
 
 from __future__ import annotations
@@ -67,6 +79,9 @@ NUM_CLASS = 12
 BLOCK_BATCH = 4
 TRAIN_BATCH = 32
 TRAIN_STEPS = 4
+# TimeSformer-B/16 (vit_base_patch16_224): layers, heads, head width
+TS_LAYERS, TS_HEADS, TS_DH = 12, 12, 64
+TS_TOKENS = (SIZE // 16) ** 2 + 1  # 196 patches + the cls token
 TOL = 1.0 / 64  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 # dW entries are sums of up to 802,816 bf16 products, taken in fp32 in
 # another order (tensor-core partial sums, then the row splits) than the
@@ -259,8 +274,36 @@ def kernel_phase(torch, kernels, g) -> dict:
         add("fused_bottleneck", err, ms, pms, tb, to, count)
         log(f"  fused_bottleneck x{tuple(x.shape)} F={f} O={o} ds={ds} err={err} "
             f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={max(tb, to):.4f} ms")
+    attention_row(torch, kernels, randn, add)
     backward_rows(torch, kernels, randn, add)
     return rows
+
+
+def attention_row(torch, kernels, randn, add) -> None:
+    """The attention kernel at TimeSformer-B/16's spatial attention: q, k,
+    v are the strided thirds of a packed (frames, 197, 3·768) projection,
+    as the model passes them."""
+    import torch.nn.functional as F
+    n, h, l, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_TOKENS, TS_DH
+    d = h * dh
+    qkv = randn(n, l, 3 * d)
+    q, k, v = (t.view(n, l, h, dh).transpose(1, 2) for t in qkv.split(d, -1))
+    scale = dh ** -0.5
+    got = kernels.attention(q, k, v, scale)
+    want = kernels.attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = check_close(torch, f"attention {(n, h, l, dh)}", got, want)
+    del got, want
+    ms = time_ms(torch, lambda: kernels.attention(q, k, v, scale), 20)
+    pms = time_ms(torch, lambda: kernels.attention_plain(q, k, v, scale), 5)
+    lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), 20)
+    # q, k, v read once, o written once; two products of 2·l·l·dh each
+    tb, to = bound_ms(4 * n * h * l * dh * 2, 4.0 * n * h * l * l * dh)
+    add("attention", err, ms, pms, tb, to, TS_LAYERS, lms)
+    log(f"  attention (n, h, l, dh)={(n, h, l, dh)} packed qkv err={err} "
+        f"kernel={ms:.4f} ms plain={pms:.4f} ms library={lms:.4f} ms "
+        f"bound={max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
 
 
 def backward_rows(torch, kernels, randn, add) -> None:
@@ -349,7 +392,8 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         launches = kernels.launch_counts()
         want = {"conv1x1_dx": 33 * TRAIN_STEPS, "conv1x1_dw": 33 * TRAIN_STEPS,
                 "shift_matmul": 16 * TRAIN_STEPS + 10 * val_forwards,
-                "fused_bottleneck": 6 * val_forwards, "temporal_shift": 0}
+                "fused_bottleneck": 6 * val_forwards, "temporal_shift": 0,
+                "attention": 0}
         log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
             f"{seconds:.2f} s, launches={launches}")
         if launches != want:
@@ -530,7 +574,7 @@ def profile_call(torch, fn, top: int = 10) -> None:
             if any(n in k for n in ("shift_kernel", "shift_matmul_kernel",
                                     "fused_bottleneck_kernel",
                                     "conv1x1_dx_kernel", "conv1x1_dw_kernel",
-                                    "dw_reduce_kernel"))}
+                                    "dw_reduce_kernel", "attention_kernel"))}
     log(f"    profile: device span {wall_ms:.3f} ms, busy {device_ms:.3f} ms "
         f"(idle share {max(0.0, 1 - device_ms / wall_ms):.3f}), hand kernels "
         f"{sum(hand.values()):.3f} ms, other {device_ms - sum(hand.values()):.3f} ms")
@@ -539,6 +583,82 @@ def profile_call(torch, fn, top: int = 10) -> None:
             f"{n[:40]} {ms:.3f} ms" for n, ms in sorted(skipped.items())))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"      {ms:9.3f} ms {calls[name]:4d}x  {name[:160]}")
+
+
+def timesformer_phase(np, torch, kernels, video, card: str):
+    """Phase 7: TimeSformer-B/16 inference on the card. Returns (the
+    attention kernel's launches, clips/s)."""
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 count_by_video_model)
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    # workoutdetector_tpu/configs/timesformer.yaml's model, built in code
+    cfg = Config().model
+    cfg.model_type, cfg.base_model = "timesformer", "vit_base_patch16_224"
+    cfg.num_class, cfg.num_segments, cfg.image_size = NUM_CLASS, FRAMES, SIZE
+    cfg.attention_type, cfg.dtype = "divided_space_time", "bfloat16"
+    model = build_model(cfg)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    engine = InferenceEngine(model, FRAMES, WINDOW_BATCH, device="cuda")
+    if not engine.model.fold_temporal_fc:
+        raise AssertionError("the engine did not fold t_fc")
+    engine.score_video(video[:24], step=8, stride=2)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    starts, logits = engine.score_video(video, step=8, stride=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    count, reps = count_by_video_model(engine, video)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    forwards = math.ceil(len(starts) / WINDOW_BATCH) + \
+        math.ceil((len(video) // 8) / WINDOW_BATCH)
+    log(f"    windows={len(starts)} forwards={forwards} launches={launches}")
+    want = {name: 0 for name in launches}
+    want["attention"] = TS_LAYERS * forwards
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if logits.shape != (len(starts), NUM_CLASS) or not np.isfinite(logits).all():
+        raise AssertionError(f"bad logits: shape {logits.shape}")
+    clips_per_s = len(starts) / seconds
+    log(f"    score_video: {len(starts)} windows in {seconds:.4f} s = "
+        f"{clips_per_s:.2f} clips/s on {card}")
+    log(f"    count_by_video_model: count={count} reps={reps}")
+    batch = engine.gather_windows(video, starts[:WINDOW_BATCH], stride=2)
+    profile_call(torch, lambda: engine.score_windows(batch))
+
+    ref_cfg = cfg.clone()
+    ref_cfg.dtype = "float32"
+    ref_model = build_model(ref_cfg, use_kernels=False)
+    load_flax_variables(ref_model, variables)
+    ref_engine = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH,
+                                 device="cuda", optimize=False)
+    _, ref = ref_engine.score_video(video, step=8, stride=2)
+    logit_rule(np, logits, ref, "TimeSformer main path")
+    return launches["attention"], clips_per_s
+
+
+def logit_rule(np, logits, ref, what: str) -> None:
+    """bf16 logits against the fp32 plain path: max |diff| within
+    0.05·(1 + max|logit|), argmax equal on every window whose fp32 top-2
+    margin exceeds twice that diff."""
+    err = float(np.abs(logits - ref).max())
+    scale = float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * err
+    agree = logits.argmax(1) == ref.argmax(1)
+    log(f"    vs plain fp32 path: max |logit diff| {err:.5f} "
+        f"(max |logit| {scale:.4f}); argmax agrees on {int(agree.sum())}/"
+        f"{len(agree)} windows, required on the {int(decided.sum())} whose "
+        "fp32 top-2 margin exceeds 2x that diff")
+    if err > 0.05 * (1 + scale) or not agree[decided].all():
+        raise AssertionError(f"{what} disagrees with the fp32 plain path")
 
 
 def synthetic_video(np, frames: int, seed: int):
@@ -612,7 +732,8 @@ def main() -> int:
         math.ceil((len(video) // 8) / WINDOW_BATCH)
     log(f"    windows={len(starts)} forwards={forwards} launches={launches}")
     want = {"shift_matmul": 10 * forwards, "fused_bottleneck": 6 * forwards,
-            "temporal_shift": 0, "conv1x1_dx": 0, "conv1x1_dw": 0}
+            "temporal_shift": 0, "conv1x1_dx": 0, "conv1x1_dw": 0,
+            "attention": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if logits.shape != (len(starts), NUM_CLASS) or not np.isfinite(logits).all():
@@ -630,17 +751,7 @@ def main() -> int:
     ref_engine = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH,
                                  device="cuda")
     _, ref = ref_engine.score_video(video, step=8, stride=2)
-    err = float(np.abs(logits - ref).max())
-    scale = float(np.abs(ref).max())
-    top2 = np.sort(ref, axis=1)[:, -2:]
-    decided = (top2[:, 1] - top2[:, 0]) > 2 * err
-    agree = logits.argmax(1) == ref.argmax(1)
-    log(f"    vs plain fp32 path: max |logit diff| {err:.5f} "
-        f"(max |logit| {scale:.4f}); argmax agrees on {int(agree.sum())}/"
-        f"{len(agree)} windows, required on the {int(decided.sum())} whose "
-        "fp32 top-2 margin exceeds 2x that diff")
-    if err > 0.05 * (1 + scale) or not agree[decided].all():
-        raise AssertionError("main path disagrees with the fp32 plain path")
+    logit_rule(np, logits, ref, "main path")
 
     log(f"[5] shift_place='block' TSM-R50, {BLOCK_BATCH} clips")
     block = TSM(NUM_CLASS, FRAMES, "resnet50", shift_place="block",
@@ -656,7 +767,7 @@ def main() -> int:
     log(f"    launches={blk_launches}")
     if blk_launches != {"temporal_shift": 16, "shift_matmul": 0,
                         "fused_bottleneck": 6, "conv1x1_dx": 0,
-                        "conv1x1_dw": 0}:
+                        "conv1x1_dw": 0, "attention": 0}:
         raise AssertionError(f"block path launch counts {blk_launches}")
     block_ref = TSM(NUM_CLASS, FRAMES, "resnet50", shift_place="block",
                     dtype=torch.float32, use_kernels=False)
@@ -676,6 +787,12 @@ def main() -> int:
     train_launches, clips_s = train_phase(np, torch, kernels, variables, repo,
                                           card)
 
+    torch.cuda.empty_cache()
+    log(f"[7] TimeSformer-B/16 224, {FRAMES} segments, {NUM_CLASS} classes, "
+        f"bf16, window_batch {WINDOW_BATCH}")
+    attention_launches, ts_clips_s = timesformer_phase(np, torch, kernels,
+                                                       video, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -687,13 +804,16 @@ def main() -> int:
                        "workoutdetector_tpu/ops/pallas/conv1x1.py:52"),
         "conv1x1_dw": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
                        "workoutdetector_tpu/ops/pallas/conv1x1.py:92"),
+        "attention": ("workoutdetector_tpu_torch/csrc/attention.cu",
+                      "workoutdetector_tpu/models/timesformer.py:73"),
     }
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
-    # the 1x1 backward kernels
+    # the 1x1 backward kernels, TimeSformer inference (7) for the attention
     main_launches = dict(launches, temporal_shift=blk_launches["temporal_shift"],
                          conv1x1_dx=train_launches["conv1x1_dx"],
-                         conv1x1_dw=train_launches["conv1x1_dw"])
+                         conv1x1_dw=train_launches["conv1x1_dw"],
+                         attention=attention_launches)
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
@@ -706,7 +826,8 @@ def main() -> int:
             "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
             "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": out, "clips_per_s": clips_per_s,
-                    "train_clips_per_s": clips_s, "card": card}))
+                    "train_clips_per_s": clips_s,
+                    "timesformer_clips_per_s": ts_clips_s, "card": card}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

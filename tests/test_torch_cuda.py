@@ -6,9 +6,11 @@ runs without the JAX package's test harness:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the shift is a copy (exact). The GEMM kernels round once per
-stored tensor like their plain versions but sum in another order, so they
-may differ by a few bf16 ulps: |kernel − plain| ≤ (1 + |plain|) / 64.
+Tolerance: the shift is a copy (exact). The GEMM and attention kernels
+round once per stored tensor like their plain versions but sum in another
+order (the attention kernel also rounds its unnormalised probabilities,
+the plain version the normalised ones), so they may differ by a few bf16
+ulps: |kernel − plain| ≤ (1 + |plain|) / 64.
 """
 
 import numpy as np
@@ -168,3 +170,87 @@ def test_cuda_train_steps_repeat_bit_for_bit(cuda_device):
 
     a, b = run(), run()
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _qkv(g, n, h, l, dh, packed):
+    """q, k, v (n, h, l, dh) bf16: thirds of a packed (n, l, 3·h·dh)
+    projection as strided views (TimeSformer's MHA), or contiguous."""
+    d = h * dh
+    if packed:
+        qkv = torch.randn(n, l, 3 * d, generator=g, device=g.device).bfloat16()
+        return [t.view(n, l, h, dh).transpose(1, 2)
+                for t in qkv.split(d, dim=-1)]
+    return [torch.randn(n, h, l, dh, generator=g, device=g.device).bfloat16()
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("l", [1, 8, 17, 197, 300])
+def test_cuda_attention_vs_plain(cuda_device, l, packed):
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    q, k, v = _qkv(g, 3, 4, l, 64, packed)
+    before = kernels.attention.launches
+    got = kernels.attention(q, k, v, 0.125)
+    assert kernels.attention.launches == before + 1
+    assert got.shape == (3, 4, l, 64)
+    assert got.transpose(1, 2).is_contiguous()  # (n, l, h, dh) buffer
+    _close(got, kernels.attention_plain(q, k, v, 0.125))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 128])
+def test_cuda_attention_head_widths(cuda_device, dh):
+    g = torch.Generator(device=cuda_device).manual_seed(dh)
+    q, k, v = _qkv(g, 2, 3, 197, dh, True)
+    _close(kernels.attention(q, k, v, dh ** -0.5),
+           kernels.attention_plain(q, k, v, dh ** -0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_unsupported(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = _qkv(g, 2, 2, 9, 24, False)
+    with pytest.raises(ValueError, match="head width"):
+        kernels.attention(q, k, v, 0.2)
+    q, k, v = _qkv(g, 2, 2, 9, 64, False)
+    with pytest.raises(TypeError):
+        kernels.attention(q.float(), k.float(), v.float(), 0.125)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.attention(q, k, v, 0.125)
+    with torch.no_grad():  # inference under no_grad launches
+        kernels.attention(q, k, v, 0.125)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_is_deterministic(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = _qkv(g, 16, 12, 197, 64, True)
+    assert torch.equal(kernels.attention(q, k, v, 0.125),
+                       kernels.attention(q, k, v, 0.125))
+
+
+@pytest.mark.cuda
+def test_cuda_timesformer_runs_the_attention_kernel(cuda_device):
+    """A small divided TimeSformer (bf16) on the card: one attention launch
+    per block, logits within bf16 rounding of the plain bf16 model."""
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (TimeSformer,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    def engine(use_kernels):
+        m = TimeSformer(3, 4, 32, 8, 128, 2, 2, dtype=torch.bfloat16,
+                        use_kernels=use_kernels)
+        load_flax_variables(m, random_flax_variables(m, seed=0))
+        return InferenceEngine(m, 4, 2, device=cuda_device)
+
+    clips = np.random.default_rng(0).integers(0, 256, (2, 4, 32, 32, 3),
+                                              dtype=np.uint8)
+    before = kernels.attention.launches
+    got = engine(True).score_windows(clips)
+    assert kernels.attention.launches == before + 2
+    want = engine(False).score_windows(clips)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 0.05 * (1 + np.abs(want).max())

@@ -30,6 +30,13 @@ video = np.random.default_rng(0).integers(0, 256, (13, 32, 32, 3), np.uint8)
 starts, logits = engine.score_video(video, step=4, stride=1)
 assert logits.shape == (4, 3) and np.isfinite(logits).all()
 assert count_by_video_model(engine, video)[0] == 0  # one 8-frame chunk
+from workoutdetector_tpu_torch.models import TimeSformer
+ts = TimeSformer(3, 4, 32, 8, 64, 2, 2)
+load_flax_variables(ts, random_flax_variables(ts, seed=0))
+ts_engine = InferenceEngine(ts, num_segments=4, window_batch=2, device="cpu")
+assert ts_engine.model.fold_temporal_fc
+starts, logits = ts_engine.score_video(video, step=4, stride=1)
+assert logits.shape == (4, 3) and np.isfinite(logits).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "workoutdetector_tpu" or m.startswith("workoutdetector_tpu."))
 assert not bad, bad

@@ -10,12 +10,14 @@ Layer map:
   ops.preprocess     — on-device window gather + fused normalize
   ops.temporal_shift — plain TSM shift / shift-conv
   ops.kernels        — hand kernels (shift, shift-matmul, fused bottleneck,
-                       1×1-conv backward dx / dW), each with its plain
-                       PyTorch version beside it, and the autograd
-                       Functions built on them
+                       1×1-conv backward dx / dW, attention), each with
+                       its plain PyTorch version beside it, and the
+                       autograd Functions built on them
   models             — ResNet / TSM (NHWC at the public surface, train and
-                       eval modes), the flax-variable loader, build_model
-  infer              — InferenceEngine, count_by_video_model
+                       eval modes), TimeSformer (inference; the t_fc
+                       fold), the flax-variable loader, build_model
+  infer              — InferenceEngine (inference rewrites with
+                       optimize=True), count_by_video_model
   counting           — pred_to_count (rep counting state machine)
   config             — typed config, load_config (the repo's YAMLs)
   data               — DebugDataset, the deterministic DataLoader

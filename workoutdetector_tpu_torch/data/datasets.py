@@ -14,10 +14,10 @@ import numpy as np
 
 # dataset_type → where the port will bring it (ROADMAP.md §1)
 LATER = {
-    "FrameDataset": "the decoder slice (JPEG frames, ROADMAP §1 slice 3)",
-    "ImageDataset": "the decoder slice (ROADMAP §1 slice 3)",
-    "TDNDataset": "the decoder slice, with TDN (ROADMAP §1 slices 3-4)",
-    "SyntheticPeriodic": "the RepNet slice (ROADMAP §1 item 4)",
+    "FrameDataset": "the decoder slice (JPEG frames, ROADMAP §1 slice 4)",
+    "ImageDataset": "the decoder slice (ROADMAP §1 slice 4)",
+    "TDNDataset": "the decoder slice, with TDN (ROADMAP §1 slice 4 and item 6)",
+    "SyntheticPeriodic": "the RepNet slice (ROADMAP §1 item 6)",
 }
 
 

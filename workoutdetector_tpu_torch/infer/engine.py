@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from workoutdetector_tpu_torch.device import resolve_device
+from workoutdetector_tpu_torch.models.timesformer import fold_for_inference
 from workoutdetector_tpu_torch.ops.preprocess import (normalize_clip,
                                                       preprocess_windows)
 
@@ -28,12 +29,18 @@ class InferenceEngine:
         window_batch: windows scored per device call.
         device: ``"cuda"`` (default) or ``"cpu"``; raises when CUDA is
             asked for and absent.
+        optimize: apply the exact inference rewrites first (a TimeSformer's
+            t_fc folded into t_attn.proj on a copy, in fp32; other models
+            are left as they are), as the JAX engine does.
     """
 
     def __init__(self, model: torch.nn.Module, num_segments: int = 8,
                  window_batch: int = 16,
-                 device: Union[str, torch.device, None] = "cuda"):
+                 device: Union[str, torch.device, None] = "cuda",
+                 optimize: bool = True):
         self.device = resolve_device(device)
+        if optimize:
+            model = fold_for_inference(model)
         self.model = model.to(self.device).eval()
         self.num_segments = num_segments
         self.window_batch = window_batch

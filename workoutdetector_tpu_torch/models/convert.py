@@ -7,8 +7,10 @@ at this package's module names, which follow the flax tree:
   * conv ``kernel`` HWIO → ``weight`` OIHW (the 1×1 kernels are turned into
     the kernels' (C, O) layout at the call, ``Conv.matrix``);
   * Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
-  * BN ``scale`` → ``weight``, ``mean`` → ``running_mean``,
-    ``var`` → ``running_var``; ``bias`` stays ``bias``.
+  * BN and LayerNorm ``scale`` → ``weight``, ``mean`` → ``running_mean``,
+    ``var`` → ``running_var``; ``bias`` stays ``bias``;
+  * the TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
+    parameters keep their names and shapes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var",
          "bias": "bias", "kernel": "weight"}
+_RAW = ("cls_token", "pos_embed", "time_embed")  # carried as they are
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -36,9 +39,12 @@ def flax_to_port_state(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     for coll in ("params", "batch_stats"):
         for path, v in _flatten(variables.get(coll, {})):
             leaf = path[-1]
+            a = np.asarray(v)
+            if leaf in _RAW:
+                out[".".join(path)] = a
+                continue
             if leaf not in _LEAF:
                 raise KeyError(f"unknown flax leaf {'/'.join(path)}")
-            a = np.asarray(v)
             if leaf == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             out[".".join(path[:-1] + (_LEAF[leaf],))] = a
@@ -84,7 +90,7 @@ def port_state_to_flax(state: Mapping[str, Any]) -> Dict[str, Any]:
                 a, leaf = a.T, "kernel"
             else:
                 leaf = "scale"
-        else:
+        elif leaf not in _RAW:
             leaf = _FLAX_LEAF[leaf]
         node = tree[coll]
         for m in mods:
@@ -93,16 +99,32 @@ def port_state_to_flax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def _truncated_normal(rng: np.random.Generator, shape, std: float
+                      ) -> np.ndarray:
+    """std · N(0, 1) redrawn outside ±2 (flax's truncated normal)."""
+    a = rng.standard_normal(shape)
+    out = np.abs(a) > 2
+    while out.any():
+        a[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(a) > 2
+    return a * std
+
+
 def random_flax_variables(model: torch.nn.Module, seed: int = 0
                           ) -> Dict[str, Any]:
     """A numpy-seeded flax-layout variable tree for ``model``: He-normal
-    convs, small dense head, randomised BN affine and running statistics."""
+    convs, N(0, 1/fan_in) dense kernels (a TimeSformer's ``t_fc``
+    included: its JAX init is zero, which would hide the temporal branch),
+    randomised BN/LayerNorm affine and BN running statistics, and
+    truncated-normal(0.02) TimeSformer embeddings."""
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
     for key, t in model.state_dict().items():
         shape = tuple(t.shape)
         leaf = key.rsplit(".", 1)[-1]
-        if leaf == "weight" and len(shape) == 4:
+        if leaf in _RAW:
+            a = _truncated_normal(rng, shape, 0.02)
+        elif leaf == "weight" and len(shape) == 4:
             fan_in = shape[1] * shape[2] * shape[3]
             a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
         elif leaf == "weight" and len(shape) == 2:
@@ -134,12 +156,7 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
         if leaf == "weight" and len(shape) == 4:
             std = np.sqrt(1.0 / (shape[1] * shape[2] * shape[3])) \
                 / 0.87962566103423978  # stddev of N(0, 1) cut at ±2
-            a = rng.standard_normal(shape)
-            out = np.abs(a) > 2
-            while out.any():  # redraw outside ±2: a truncated normal
-                a[out] = rng.standard_normal(int(out.sum()))
-                out = np.abs(a) > 2
-            a = a * std
+            a = _truncated_normal(rng, shape, std)
         elif leaf == "weight" and len(shape) == 2:
             a = rng.normal(0.0, 0.001, shape)
         elif leaf in ("weight", "running_var"):

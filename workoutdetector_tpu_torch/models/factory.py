@@ -1,14 +1,16 @@
 """Model construction from a ``ModelConfig``.
 
 Port of ``workoutdetector_tpu/models/factory.py`` (``build_model``) for
-the model families the port has: TSM. The others come with later slices
-(ROADMAP §1 item 4).
+the model families the port has: TSM and TimeSformer (inference). The
+others come with later slices (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from workoutdetector_tpu_torch.models.timesformer import (VIT_VARIANTS,
+                                                          TimeSformer)
 from workoutdetector_tpu_torch.models.tsm import TSM
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -18,15 +20,30 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
     """The model ``cfg.model_type`` names (cfg: ``ModelConfig``).
 
-    The hand kernels are the main path: ``fused_block`` is on unless the
-    config says ``'false'``, and the 1×1 backward kernels run whatever
+    The hand kernels are the main path: ``fused_block`` (TSM) and
+    ``flash_attention`` (TimeSformer) are on unless the config says
+    ``'false'``, and the 1×1 backward kernels run whatever
     ``pallas_conv_bwd`` says. ``use_kernels=False`` builds the plain
     reference instead.
     """
-    if cfg.model_type.lower() != "tsm":
+    mt = cfg.model_type.lower()
+    if mt == "timesformer":
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "TimeSformer MoE MLPs (moe_experts > 0) are not in the "
+                "PyTorch port yet (ROADMAP §1 item 6)")
+        embed, depth, heads = VIT_VARIANTS.get(
+            cfg.base_model, (cfg.embed_dims, cfg.num_layers, cfg.num_heads))
+        return TimeSformer(
+            cfg.num_class, cfg.num_segments, cfg.image_size, cfg.patch_size,
+            embed, depth, heads, cfg.mlp_ratio, cfg.attention_type,
+            dtype=DTYPES[cfg.dtype],
+            flash=str(cfg.flash_attention).lower() != "false",
+            use_kernels=use_kernels)
+    if mt != "tsm":
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not in the PyTorch port yet "
-            "(ROADMAP §1 item 4)")
+            "(ROADMAP §1 item 6)")
     return TSM(cfg.num_class, cfg.num_segments, cfg.base_model,
                is_shift=cfg.is_shift, shift_div=cfg.shift_div,
                shift_place=cfg.shift_place,

@@ -6,6 +6,8 @@ counts its launches in ``<wrapper>.launches``. Nothing is built or
 loaded at import: ``_build.load()`` runs at the first CUDA launch.
 """
 
+from workoutdetector_tpu_torch.ops.kernels.attention import (
+    attention, attention_plain)
 from workoutdetector_tpu_torch.ops.kernels.conv1x1 import (
     Conv1x1, ShiftConv1x1, conv1x1_dw, conv1x1_dw_plain, conv1x1_dx,
     conv1x1_dx_plain)
@@ -17,7 +19,7 @@ from workoutdetector_tpu_torch.ops.kernels.shift_matmul import (
     shift_matmul, shift_matmul_plain)
 
 WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck, conv1x1_dx,
-            conv1x1_dw)
+            conv1x1_dw, attention)
 
 
 def reset_launches() -> None:
@@ -32,8 +34,8 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "Conv1x1", "ShiftConv1x1", "conv1x1_dw", "conv1x1_dw_plain",
-    "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
+    "attention", "attention_plain", "Conv1x1", "ShiftConv1x1",
+    "conv1x1_dw", "conv1x1_dw_plain", "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
     "fused_bottleneck", "fused_bottleneck_plain", "TemporalShift",
     "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",
     "shift_matmul", "shift_matmul_plain", "WRAPPERS", "reset_launches",

@@ -42,6 +42,8 @@ SIGNATURES: Dict[str, List] = {
     "wd_fused_bottleneck_bf16": [P] * 10 + [I] * 9 + [P],
     "wd_conv1x1_dx_bf16": [P, P, P, L, I, I, L, I, I, I, P],
     "wd_conv1x1_dw_bf16": [P, P, P, P, L, I, I, L, I, I, L, I, P],
+    "wd_attention_bf16": [P, P, P, P, ctypes.POINTER(L), I, I, I, I,
+                          ctypes.c_float, I, P],
 }
 
 
