@@ -14,9 +14,12 @@ not printed; no CUDA device → exit 2):
      batch-32 train step (256 frames), beside ``torch.matmul``; the
      attention kernel at TimeSformer-B/16's spatial attention, (n, h, l,
      dh) = (128, 12, 197, 64) cut from a packed qkv, beside
-     ``scaled_dot_product_attention``: max error, kernel / plain / library
-     time and the bound (per site, the larger of the call's bytes over the
-     H100's 3.35 TB/s and its operations over 989 TFLOP/s bf16);
+     ``scaled_dot_product_attention``, and its dK/dV and dQ backward
+     kernels at the same shape, writing into a packed gradient, beside the
+     backward alone of ``scaled_dot_product_attention``: max
+     error, kernel / plain / library time and the bound (per site, the
+     larger of the call's bytes over the H100's 3.35 TB/s and its
+     operations over 989 TFLOP/s bf16);
   4. the main path: TSM-R50 224², 8 segments, 12 classes, bf16, random
      numpy-seeded flax weights through ``load_flax_variables``;
      ``InferenceEngine.score_video`` on a synthetic ~300-frame uint8 video
@@ -47,7 +50,17 @@ not printed; no CUDA device → exit 2):
      phase-4 video with the launch counts checked (12 attention launches
      per forward, no other kernel), the logits held against the unfolded
      plain fp32 model on the card by phase 4's rule, one profiled batch;
-  8. one JSON line of per-kernel numbers, the card line again, and the
+  8. TimeSformer-B/16 training (``timesformer.yaml``'s model and
+     optimizer: drop_path 0.1, SGD Nesterov, wd 1e-4 with the embeddings
+     exempt, clip 40, bf16, batch 16) on a ``DebugDataset``: ``Trainer.fit``
+     from the port's flax initializers for 4 steps and one validation pass,
+     with the launch counts checked (per step 12 attention, 12 dK/dV and 12
+     dQ launches; 12 attention launches per validation forward) and finite
+     losses; one batch's gradients against the fp32 plain path with the
+     same drop-path masks, and the same check on a planted fault (dS
+     without its −D term), which it must catch; train clips/s and one
+     profiled step;
+  9. one JSON line of per-kernel numbers, the card line again, and the
      contract line ``{"ok": true, "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
@@ -58,11 +71,19 @@ TimeSformer-B/16 forward (12 launches) for the attention. No single
 PyTorch call computes the shift, the shift-matmul or the fused block, so
 their ``library_ms`` is null; dx and dW are timed beside ``torch.matmul``
 of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
-``scaled_dot_product_attention`` on the same q, k, v views.
+``scaled_dot_product_attention`` on the same q, k, v views. The dK/dV and
+dQ rows are per TimeSformer-B/16 train step (12 launches each); their
+``plain_ms`` and ``library_ms`` are each one call that computes dQ, dK and
+dV together (``attention_bwd_plain``; the backward alone of
+``scaled_dot_product_attention`` on contiguous q, k, v, the fastest of its
+backends), the same number in both rows; the library's call also computes
+D = rowsum(dO ∘ O), which the kernels read, so phase 3 prints the time of
+dK/dV + dQ + D beside it.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -82,6 +103,7 @@ TRAIN_STEPS = 4
 # TimeSformer-B/16 (vit_base_patch16_224): layers, heads, head width
 TS_LAYERS, TS_HEADS, TS_DH = 12, 12, 64
 TS_TOKENS = (SIZE // 16) ** 2 + 1  # 196 patches + the cls token
+TS_TRAIN_BATCH = 16  # timesformer.yaml's batch
 TOL = 1.0 / 64  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 # dW entries are sums of up to 802,816 bf16 products, taken in fp32 in
 # another order (tensor-core partial sums, then the row splits) than the
@@ -136,6 +158,13 @@ BWD_SITES = [
 ]
 
 
+# the hand kernels' __global__ functions, as ptxas and the profiler name them
+HAND_KERNELS = ("shift_matmul_kernel", "shift_kernel", "fused_bottleneck_kernel",
+                "conv1x1_dx_kernel", "conv1x1_dw_kernel", "dw_reduce_kernel",
+                "attention_dkv_kernel", "attention_dq_kernel",
+                "attention_kernel")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -146,6 +175,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel (head width as <dh> where templated):
+    its registers and its spills, from the build's ``ptxas -v`` report."""
+    import re
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = next((k for k in HAND_KERNELS if k in mangled), mangled)
+            width = re.search(r"ILi(\d+)E", mangled)
+            name += f"<{width.group(1)}>" if width else ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            row = f"{name}: {line.split('Used ', 1)[1].strip()}; {spill}"
+            if row not in out:
+                out.append(row)
+            name = None
+    return out
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -275,6 +326,7 @@ def kernel_phase(torch, kernels, g) -> dict:
         log(f"  fused_bottleneck x{tuple(x.shape)} F={f} O={o} ds={ds} err={err} "
             f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={max(tb, to):.4f} ms")
     attention_row(torch, kernels, randn, add)
+    attention_bwd_rows(torch, kernels, randn, add)
     backward_rows(torch, kernels, randn, add)
     return rows
 
@@ -304,6 +356,87 @@ def attention_row(torch, kernels, randn, add) -> None:
     log(f"  attention (n, h, l, dh)={(n, h, l, dh)} packed qkv err={err} "
         f"kernel={ms:.4f} ms plain={pms:.4f} ms library={lms:.4f} ms "
         f"bound={max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
+
+
+def attention_bwd_rows(torch, kernels, randn, add) -> None:
+    """The dK/dV and dQ kernels at TimeSformer-B/16's spatial attention,
+    reading the strided thirds of a packed (frames, 197, 3·768) projection
+    and writing into the thirds of a packed gradient, as the model's
+    backward does. Residuals (o, lse) from the forward kernel. The plain
+    version (attention_bwd_plain) and the library yardstick (the backward
+    of scaled_dot_product_attention alone) each compute dQ, dK and dV (and
+    D) in one call: both rows carry that one call's time."""
+    from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
+    n, h, l, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_TOKENS, TS_DH
+    d = h * dh
+    scale = dh ** -0.5
+    qkv = randn(n, l, 3 * d)
+    q, k, v = kernels.split_heads(qkv, h)
+    o, lse = kernels.attention_lse(q, k, v, scale)
+    (do,) = kernels.split_heads(randn(n, l, d), h, parts=1)
+    delta = attention_delta(o, do)
+    dq, dk, dv = kernels.split_heads(torch.empty_like(qkv), h)
+    kernels.attention_dkv(q, k, v, do, lse, delta, scale, dk, dv)
+    kernels.attention_dq(q, k, v, do, lse, delta, scale, dq)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    err_dkv = max(check_close(torch, f"attention_dkv {name} {(n, h, l, dh)}",
+                              got, ref)
+                  for name, got, ref in (("dk", dk, want[1]), ("dv", dv, want[2])))
+    err_dq = check_close(torch, f"attention_dq {(n, h, l, dh)}", dq, want[0])
+    del want
+    ms_dkv = time_ms(torch, lambda: kernels.attention_dkv(
+        q, k, v, do, lse, delta, scale, dk, dv), 20)
+    ms_dq = time_ms(torch, lambda: kernels.attention_dq(
+        q, k, v, do, lse, delta, scale, dq), 20)
+    dms = time_ms(torch, lambda: attention_delta(o, do), 20)
+    pms = time_ms(torch, lambda: kernels.attention_bwd_plain(
+        q, k, v, o, lse, do, scale), 5)
+    lms, backend = library_attention_bwd(torch, q, k, v, do, scale)
+    # each (n, h, l, dh) bf16 tensor read or written once, lse and D read
+    # once; dK/dV: four products of 2·l·l·dh (S, dP, dV, dK), dQ: three
+    elems, vec = n * h * l * dh * 2, n * h * l * 4
+    tb, to = bound_ms(6 * elems + 2 * vec, 8.0 * n * h * l * l * dh)
+    add("attention_dkv", err_dkv, ms_dkv, pms, tb, to, TS_LAYERS, lms)
+    log(f"  attention_dkv (n, h, l, dh)={(n, h, l, dh)} packed err={err_dkv} "
+        f"kernel={ms_dkv:.4f} ms plain (dq, dk, dv)={pms:.4f} ms library "
+        f"(sdpa backward, {backend}, D included)={lms:.4f} ms "
+        f"bound={max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
+    tb, to = bound_ms(5 * elems + 2 * vec, 6.0 * n * h * l * l * dh)
+    add("attention_dq", err_dq, ms_dq, pms, tb, to, TS_LAYERS, lms)
+    log(f"  attention_dq (n, h, l, dh)={(n, h, l, dh)} packed err={err_dq} "
+        f"kernel={ms_dq:.4f} ms bound={max(tb, to):.4f} ms (bytes {tb:.4f}, "
+        f"ops {to:.4f})")
+    log(f"  attention backward per launch: D = rowsum(dO o O) {dms:.4f} ms, "
+        f"dK/dV + dQ + D {ms_dkv + ms_dq + dms:.4f} ms against the library's "
+        f"{lms:.4f} ms")
+
+
+def library_attention_bwd(torch, q, k, v, do, scale):
+    """The backward of ``scaled_dot_product_attention`` alone: autograd
+    from its output to contiguous (n, h, l, dh) q, k, v leaves with a
+    contiguous dO, the forward run once outside the timing. Each backend
+    that takes the shape is timed; returns (the fastest's ms, its name).
+    Every backend computes D = rowsum(dO ∘ O) inside its backward."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    do = do.contiguous()
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            times[backend.name] = time_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 20)
+        except RuntimeError as exc:  # the backend does not take the shape
+            log(f"    sdpa backend {backend.name}: {str(exc)[:120]}")
+        out = None
+    log("    sdpa backward alone: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in times.items()))
+    name = min(times, key=times.get)
+    return times[name], name
 
 
 def backward_rows(torch, kernels, randn, add) -> None:
@@ -393,7 +526,7 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         want = {"conv1x1_dx": 33 * TRAIN_STEPS, "conv1x1_dw": 33 * TRAIN_STEPS,
                 "shift_matmul": 16 * TRAIN_STEPS + 10 * val_forwards,
                 "fused_bottleneck": 6 * val_forwards, "temporal_shift": 0,
-                "attention": 0}
+                "attention": 0, "attention_dkv": 0, "attention_dq": 0}
         log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
             f"{seconds:.2f} s, launches={launches}")
         if launches != want:
@@ -414,8 +547,20 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         del trainer, state
         torch.cuda.empty_cache()
 
+    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
+
+    def drop_shift(real):  # the wrapper without its shift arguments
+        def fault(a, b, *shift):
+            return real(a, b)
+        fault.launches = 0  # the real wrapper counts on its module's name
+        return fault
+
+    # ShiftConv1x1.backward calls the module's wrappers, so swapping one for
+    # a version that drops the shift miswires all 16 sites
     grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
-               cfg, variables)
+               cfg, variables, TRAIN_BATCH,
+               {"dx without S^T": (c1, "conv1x1_dx", drop_shift),
+                "dW over unshifted x": (c1, "conv1x1_dw", drop_shift)})
 
     def two_steps():
         c = train_config(Config, 2, 2 * TRAIN_BATCH, "unused")
@@ -455,20 +600,22 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
 
 
 def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
-               cfg, variables) -> None:
+               cfg, variables, batch: int, faults: dict) -> None:
     """One batch's gradients of the main path (bf16, kernels) against the
     port's plain path in fp32 on the card, per leaf, with the bf16 plain
-    path's own error beside. The batch is numpy-seeded noise, different in
-    every frame (a DebugDataset clip repeats one colour, so a fault in the
-    shift's direction would barely show). Then the same check on two
-    planted wiring faults, each of which it must catch."""
-    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
+    path's own error beside; the three runs draw the same dropout and
+    drop-path masks (one generator seed, masks drawn in fp32). The batch
+    is numpy-seeded noise, different in every frame (a DebugDataset clip
+    repeats one colour, so a fault in a temporal direction would barely
+    show). Then the same check with each planted fault, which it must
+    catch: ``faults`` maps a label to (module, attribute, make), and the
+    attribute is replaced by ``make(real)`` for that run."""
     from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
 
     rng = np.random.default_rng(5)
     x = normalize_clip(torch.from_numpy(rng.integers(
-        0, 256, (TRAIN_BATCH, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)).cuda())
-    yt = torch.from_numpy(rng.integers(0, NUM_CLASS, TRAIN_BATCH)).cuda()
+        0, 256, (batch, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)).cuda())
+    yt = torch.from_numpy(rng.integers(0, NUM_CLASS, batch)).cuda()
 
     def grads(dtype, use_kernels):
         c = cfg.clone()
@@ -514,22 +661,13 @@ def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
         raise AssertionError(f"gradients of {bad[:5]} beyond {GRAD_RATIO} x "
                              f"the bf16 plain path's error + {GRAD_FLOOR}")
 
-    # planted faults: ShiftConv1x1.backward calls the module's wrappers, so
-    # swapping one for a version that drops the shift miswires all 16 sites
-    # (the real wrapper then counts its launches on the stand-in's counter)
-    faults = {"dx without S^T": "conv1x1_dx", "dW over unshifted x": "conv1x1_dw"}
-    for label, name in faults.items():
-        real = getattr(c1, name)
-
-        def fault(a, b, *shift, real=real):
-            return real(a, b)
-
-        fault.launches = 0
-        setattr(c1, name, fault)
+    for label, (module, name, make) in faults.items():
+        real = getattr(module, name)
+        setattr(module, name, make(real))
         try:
             e = rel(grads("bfloat16", True))
         finally:
-            setattr(c1, name, real)
+            setattr(module, name, real)
         caught = beyond(e)
         log(f"    planted fault '{label}': max rel err {max(e.values()):.5f}, "
             f"largest ratio {ratio(e):.3f}, {len(caught)}/{len(e)} leaves "
@@ -571,12 +709,10 @@ def profile_call(torch, fn, top: int = 10) -> None:
     wall_ms = (max(ends) - min(starts)) / 1e3
     device_ms = sum(by_name.values())
     hand = {k: v for k, v in by_name.items()
-            if any(n in k for n in ("shift_kernel", "shift_matmul_kernel",
-                                    "fused_bottleneck_kernel",
-                                    "conv1x1_dx_kernel", "conv1x1_dw_kernel",
-                                    "dw_reduce_kernel", "attention_kernel"))}
+            if any(n in k for n in HAND_KERNELS)}
     log(f"    profile: device span {wall_ms:.3f} ms, busy {device_ms:.3f} ms "
-        f"(idle share {max(0.0, 1 - device_ms / wall_ms):.3f}), hand kernels "
+        f"(idle share {max(0.0, 1 - device_ms / wall_ms):.3f}) in "
+        f"{sum(calls.values())} device activities, hand kernels "
         f"{sum(hand.values()):.3f} ms, other {device_ms - sum(hand.values()):.3f} ms")
     if skipped:
         log("    not device work (left out): " + ", ".join(
@@ -644,6 +780,109 @@ def timesformer_phase(np, torch, kernels, video, card: str):
     return launches["attention"], clips_per_s
 
 
+def ts_train_config(repo: Path, steps: int, dataset_size: int, root: str):
+    """workoutdetector_tpu/configs/timesformer.yaml as the CLI loads it
+    (ViT-B/16 224², 8 segments, 12 classes, divided attention, drop_path
+    0.1, bf16; SGD Nesterov, wd 1e-4 with the embeddings exempt, clip 40,
+    multistep; batch 16) with a DebugDataset of 12 classes in place of its
+    FrameDataset, which needs data the repo lacks, and the run's step
+    count and paths."""
+    from workoutdetector_tpu_torch.config import load_config
+    cfg = load_config(str(repo / "workoutdetector_tpu" / "configs"
+                          / "timesformer.yaml"))
+    d, t = cfg.data, cfg.trainer
+    d.dataset_type, d.debug_num_class, d.debug_size = "DebugDataset", \
+        cfg.model.num_class, dataset_size
+    t.max_steps, t.log_every_n_steps, t.default_root_dir = steps, 1, root
+    cfg.log.tensorboard_enable = False
+    cfg.callbacks.modelcheckpoint.dirpath = root + "/ckpt"
+    return cfg
+
+
+def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
+    """Phase 8: TimeSformer-B/16 training at full width. Returns (the fit's
+    launch counts, train clips/s)."""
+    import csv
+    import tempfile
+
+    from workoutdetector_tpu_torch.models import build_model, load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import Trainer, cross_entropy
+
+    # 4 train batches (tail dropped) and 5 val batches, the last one 8 real
+    # clips and 8 pad rows; the weights from the port's flax initializers
+    size = TRAIN_STEPS * TS_TRAIN_BATCH + 8
+    val_forwards = -(-size // TS_TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".smoke-ts-train-") as root:
+        cfg = ts_train_config(repo, TRAIN_STEPS, size, root)
+        if cfg.data.batch_size != TS_TRAIN_BATCH:
+            raise AssertionError(f"timesformer.yaml's batch is "
+                                 f"{cfg.data.batch_size}, not {TS_TRAIN_BATCH}")
+        trainer = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, history = trainer.fit()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = {name: 0 for name in launches}
+        want.update(attention=TS_LAYERS * (TRAIN_STEPS + val_forwards),
+                    attention_dkv=TS_LAYERS * TRAIN_STEPS,
+                    attention_dq=TS_LAYERS * TRAIN_STEPS)
+        log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
+            f"{seconds:.2f} s, launches={launches}")
+        if launches != want:
+            raise AssertionError(f"training launch counts {launches} != {want}")
+        runs = [p for p in Path(root).iterdir() if p.name != "ckpt"]
+        with open(runs[0] / "csv" / "metrics.csv") as f:
+            losses = [float(r["train/loss"]) for r in csv.DictReader(f)
+                      if r.get("train/loss")]
+        log(f"    train losses {losses}; val {history}")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or \
+                not math.isfinite(history["val/loss"]):
+            raise AssertionError("training gave a non-finite or missing loss")
+        if not (Path(root) / "ckpt" / "last").exists():
+            raise AssertionError("fit wrote no 'last' checkpoint")
+        batches = iter(trainer._loader("train", shuffle=True))
+        x_u8, y = next(batches)
+        batches.close()  # stops the loader's thread
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    # random weights give t_fc non-zero values (its init is zero, which
+    # would hide the temporal branch's gradients)
+    variables = random_flax_variables(build_model(cfg.model), seed=0)
+
+    def no_delta(real):  # dS = P dP: the -D term left out of both kernels
+        return lambda o, do: torch.zeros_like(real(o, do))
+
+    # the module (the package's name ``attention`` is its wrapper function)
+    ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
+
+    grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
+               cfg, variables, TS_TRAIN_BATCH,
+               {"dS without -D": (ka, "attention_delta", no_delta)})
+
+    trainer = Trainer(ts_train_config(repo, 0, 0, "unused"), device="cuda")
+    state = trainer.init_state(steps_per_epoch=10, variables=variables)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, x_u8, y)  # first step: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.train_step(state, x_u8, y)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    clips_s = TS_TRAIN_BATCH / step_s
+    log(f"    train step {step_s * 1e3:.2f} ms = {clips_s:.2f} clips/s at batch "
+        f"{TS_TRAIN_BATCH} on {card}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_call(torch, lambda: trainer.train_step(state, x_u8, y), top=20)
+    return launches, clips_s
+
+
 def logit_rule(np, logits, ref, what: str) -> None:
     """bf16 logits against the fp32 plain path: max |diff| within
     0.05·(1 + max|logit|), argmax equal on every window whose fp32 top-2
@@ -702,9 +941,8 @@ def main() -> int:
     lib = _build.load()
     log(f"[2] kernels built in {lib.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s) -> {lib.path.name}")
-    for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log("    " + line.strip())
+    for line in ptxas_summary(lib.ptxas_log):
+        log("    " + line)
 
     log("[3] kernels vs plain versions (bf16, TSM-R50 224 main-path shapes)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -731,9 +969,8 @@ def main() -> int:
     forwards = math.ceil(len(starts) / WINDOW_BATCH) + \
         math.ceil((len(video) // 8) / WINDOW_BATCH)
     log(f"    windows={len(starts)} forwards={forwards} launches={launches}")
-    want = {"shift_matmul": 10 * forwards, "fused_bottleneck": 6 * forwards,
-            "temporal_shift": 0, "conv1x1_dx": 0, "conv1x1_dw": 0,
-            "attention": 0}
+    want = {name: 0 for name in launches}
+    want.update(shift_matmul=10 * forwards, fused_bottleneck=6 * forwards)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if logits.shape != (len(starts), NUM_CLASS) or not np.isfinite(logits).all():
@@ -765,9 +1002,8 @@ def main() -> int:
     torch.cuda.synchronize()
     blk_launches = kernels.launch_counts()
     log(f"    launches={blk_launches}")
-    if blk_launches != {"temporal_shift": 16, "shift_matmul": 0,
-                        "fused_bottleneck": 6, "conv1x1_dx": 0,
-                        "conv1x1_dw": 0, "attention": 0}:
+    if blk_launches != dict({name: 0 for name in blk_launches},
+                            temporal_shift=16, fused_bottleneck=6):
         raise AssertionError(f"block path launch counts {blk_launches}")
     block_ref = TSM(NUM_CLASS, FRAMES, "resnet50", shift_place="block",
                     dtype=torch.float32, use_kernels=False)
@@ -793,6 +1029,12 @@ def main() -> int:
     attention_launches, ts_clips_s = timesformer_phase(np, torch, kernels,
                                                        video, card)
 
+    torch.cuda.empty_cache()
+    log(f"[8] TimeSformer-B/16 training: 224, {FRAMES} segments, {NUM_CLASS} "
+        f"classes, bf16, batch {TS_TRAIN_BATCH}, {TRAIN_STEPS} steps")
+    ts_train_launches, ts_train_clips_s = timesformer_train_phase(
+        np, torch, kernels, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -806,14 +1048,23 @@ def main() -> int:
                        "workoutdetector_tpu/ops/pallas/conv1x1.py:92"),
         "attention": ("workoutdetector_tpu_torch/csrc/attention.cu",
                       "workoutdetector_tpu/models/timesformer.py:73"),
+        # the library Pallas flash attention's backward kernels, which
+        # _flash_mha (timesformer.py:73) reaches under jax.grad
+        "attention_dkv": ("workoutdetector_tpu_torch/csrc/attention_bwd.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+        "attention_dq": ("workoutdetector_tpu_torch/csrc/attention_bwd.cu",
+                         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
     }
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
-    # the 1x1 backward kernels, TimeSformer inference (7) for the attention
+    # the 1x1 backward kernels, TimeSformer inference (7) for the attention,
+    # TimeSformer training (8) for its backward kernels
     main_launches = dict(launches, temporal_shift=blk_launches["temporal_shift"],
                          conv1x1_dx=train_launches["conv1x1_dx"],
                          conv1x1_dw=train_launches["conv1x1_dw"],
-                         attention=attention_launches)
+                         attention=attention_launches,
+                         attention_dkv=ts_train_launches["attention_dkv"],
+                         attention_dq=ts_train_launches["attention_dq"])
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
@@ -827,7 +1078,9 @@ def main() -> int:
             "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": out, "clips_per_s": clips_per_s,
                     "train_clips_per_s": clips_s,
-                    "timesformer_clips_per_s": ts_clips_s, "card": card}))
+                    "timesformer_clips_per_s": ts_clips_s,
+                    "timesformer_train_clips_per_s": ts_train_clips_s,
+                    "card": card}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,10 @@ Tolerance: the shift is a copy (exact). The GEMM and attention kernels
 round once per stored tensor like their plain versions but sum in another
 order (the attention kernel also rounds its unnormalised probabilities,
 the plain version the normalised ones), so they may differ by a few bf16
-ulps: |kernel − plain| ≤ (1 + |plain|) / 64.
+ulps: |kernel − plain| ≤ (1 + |plain|) / 64. The attention backward
+kernels round P and dS to bf16 where their plain version does, sum in
+another order and recompute the scores in another operand order, and are
+held to the same rule; the forward's fp32 log-sum-exp to 1e-3.
 """
 
 import numpy as np
@@ -216,11 +219,17 @@ def test_cuda_attention_refuses_unsupported(cuda_device):
     q, k, v = _qkv(g, 2, 2, 9, 64, False)
     with pytest.raises(TypeError):
         kernels.attention(q.float(), k.float(), v.float(), 0.125)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.attention(q, k.cpu(), v, 0.125)
+    # forward only: under autograd the caller runs Attention on the packed
+    # projection (test_cuda_attention_function_packed_gradient)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Attention.apply"):
         kernels.attention(q, k, v, 0.125)
     with torch.no_grad():  # inference under no_grad launches
+        before = kernels.attention.launches
         kernels.attention(q, k, v, 0.125)
+        assert kernels.attention.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -254,3 +263,149 @@ def test_cuda_timesformer_runs_the_attention_kernel(cuda_device):
     want = engine(False).score_windows(clips)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 0.05 * (1 + np.abs(want).max())
+
+
+def launches():
+    return (kernels.attention.launches, kernels.attention_dkv.launches,
+            kernels.attention_dq.launches)
+
+
+def _residuals(g, n, h, l, dh, packed, scale):
+    """q, k, v (packed or contiguous), the plain forward's o and lse, an
+    output gradient and D = rowsum(dO ∘ O)."""
+    from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
+    q, k, v = _qkv(g, n, h, l, dh, packed)
+    o, lse = kernels.attention_lse_plain(q, k, v, scale)
+    do = torch.randn(n, h, l, dh, generator=g, device=g.device).bfloat16()
+    return q, k, v, o, lse, do, attention_delta(o, do)
+
+
+def _grads_out(n, h, l, dh, packed, device):
+    """dq, dk, dv to write into: thirds of one packed (n, l, 3·h·dh)
+    gradient (the model's layout), or None (the wrappers allocate)."""
+    if not packed:
+        return None, None, None
+    return kernels.split_heads(
+        torch.empty(n, l, 3 * h * dh, dtype=torch.bfloat16, device=device), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("l", [1, 8, 17, 197, 300])
+def test_cuda_attention_bwd_vs_plain(cuda_device, l, packed):
+    """dK/dV and dQ kernels against attention_bwd_plain on the same
+    residuals, reading strided thirds of a packed qkv and writing into the
+    thirds of a packed gradient, or contiguous tensors."""
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    q, k, v, o, lse, do, delta = _residuals(g, 3, 4, l, 64, packed, 0.125)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    dq, dk, dv = _grads_out(3, 4, l, 64, packed, cuda_device)
+    before = launches()
+    dk, dv = kernels.attention_dkv(q, k, v, do, lse, delta, 0.125, dk, dv)
+    dq = kernels.attention_dq(q, k, v, do, lse, delta, 0.125, dq)
+    assert launches() == (before[0], before[1] + 1, before[2] + 1)
+    for got, ref in zip((dq, dk, dv), want):
+        _close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_cuda_attention_bwd_head_widths(cuda_device, dh):
+    g = torch.Generator(device=cuda_device).manual_seed(dh)
+    s = dh ** -0.5
+    q, k, v, o, lse, do, delta = _residuals(g, 2, 3, 197, dh, True, s)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, s)
+    got = (kernels.attention_dq(q, k, v, do, lse, delta, s),
+           *kernels.attention_dkv(q, k, v, do, lse, delta, s))
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 17, 197, 300])
+def test_cuda_attention_lse_vs_plain(cuda_device, l):
+    """The forward's log-sum-exp (fp32 sums in another order, exp2/log2)
+    within 1e-3 of the plain version's; its o as the inference forward's."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + l)
+    q, k, v = _qkv(g, 3, 4, l, 64, True)
+    o, lse = kernels.attention_lse(q, k, v, 0.125)
+    o_ref, lse_ref = kernels.attention_lse_plain(q, k, v, 0.125)
+    assert lse.shape == (3, 4, l) and lse.dtype == torch.float32
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    assert torch.equal(o, kernels.attention(q, k, v, 0.125))
+    _close(o, o_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_is_deterministic(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, o, lse, do, delta = _residuals(g, 16, 12, 197, 64, True, 0.125)
+
+    def run():
+        return (kernels.attention_dq(q, k, v, do, lse, delta, 0.125),
+                *kernels.attention_dkv(q, k, v, do, lse, delta, 0.125))
+
+    assert all(torch.equal(a, b) for a, b in zip(run(), run()))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_refuses_unsupported(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, o, lse, do, delta = _residuals(g, 2, 2, 9, 24, False, 0.2)
+    with pytest.raises(ValueError, match="head width"):
+        kernels.attention_dkv(q, k, v, do, lse, delta, 0.2)
+    q, k, v, o, lse, do, delta = _residuals(g, 2, 2, 9, 64, False, 0.125)
+    with pytest.raises(TypeError):
+        kernels.attention_dq(q.float(), k.float(), v.float(), do.float(),
+                             lse, delta, 0.125)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.attention_dkv(q, k, v.cpu(), do, lse, delta, 0.125)
+    with pytest.raises(ValueError, match="lse and delta"):
+        kernels.attention_dq(q, k, v, do, lse.cpu(), delta, 0.125)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_function_packed_gradient(cuda_device):
+    """``Attention`` on a packed qkv: one launch of each kernel, dqkv the
+    packed layout of attention_bwd_plain's gradients on the kernel's own
+    residuals."""
+    from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    n, h, l, dh = 4, 12, 197, 64
+    qkv = torch.randn(n, l, 3 * h * dh, generator=g,
+                      device=cuda_device).bfloat16().requires_grad_(True)
+    before = launches()
+    out = kernels.Attention.apply(qkv, h, 0.125)
+    do = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    out.backward(do)
+    assert launches() == tuple(b + 1 for b in before)
+    q, k, v = kernels.split_heads(qkv.detach(), h)
+    o, lse = kernels.attention_lse(q, k, v, 0.125)
+    (do4,) = kernels.split_heads(do, h, parts=1)
+    assert attention_delta(o, do4).shape == (n, h, l)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do4, 0.125)
+    for got, ref in zip(kernels.split_heads(qkv.grad, h), want):
+        _close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_timesformer_train_step_runs_the_backward_kernels(cuda_device):
+    """A small divided TimeSformer train step (bf16) on the card: per block
+    one attention, one dK/dV and one dQ launch, finite nonzero gradients."""
+    from workoutdetector_tpu_torch.models import (TimeSformer,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    m = TimeSformer(3, 4, 32, 8, 128, 2, 2, dtype=torch.bfloat16,
+                    drop_path_rate=0.1)
+    load_flax_variables(m, random_flax_variables(m, seed=0))
+    m = m.to(cuda_device).train()
+    x = torch.randn(2, 4, 32, 32, 3, device=cuda_device)
+    before = launches()
+    logits = m(x, dropout_generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    logits.sum().backward()
+    assert launches() == tuple(b + 2 for b in before)
+    for name, p in m.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name

@@ -371,6 +371,9 @@ def test_build_model_sizes_without_a_variant():
     model = build_model(m)
     assert len(model.blocks()) == 2 and model.pos_embed.shape == (1, 17, 64)
     assert tts.vit_patch_size("vit_base_patch32_224") == 32
+    # train mode runs, with the yaml's drop_path_rate 0.1 over the layers
+    assert [b.drop_path for b in model.blocks()] == [0.0, 0.1]
     model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, T, SIZE, SIZE, 3))
+    logits = model(torch.zeros(1, T, SIZE, SIZE, 3),
+                   dropout_generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (1, 12) and torch.isfinite(logits).all()

@@ -10,12 +10,15 @@ Layer map:
   ops.preprocess     — on-device window gather + fused normalize
   ops.temporal_shift — plain TSM shift / shift-conv
   ops.kernels        — hand kernels (shift, shift-matmul, fused bottleneck,
-                       1×1-conv backward dx / dW, attention), each with
-                       its plain PyTorch version beside it, and the
-                       autograd Functions built on them
+                       1×1-conv backward dx / dW, attention forward and
+                       its dK/dV and dQ backward), each with its plain
+                       PyTorch version beside it, and the autograd
+                       Functions built on them
   models             — ResNet / TSM (NHWC at the public surface, train and
-                       eval modes), TimeSformer (inference; the t_fc
-                       fold), the flax-variable loader, build_model
+                       eval modes), TimeSformer (train and eval modes:
+                       stochastic depth, dropout; the t_fc fold for
+                       inference), the flax-variable loader and
+                       initializers, build_model
   infer              — InferenceEngine (inference rewrites with
                        optimize=True), count_by_video_model
   counting           — pred_to_count (rep counting state machine)

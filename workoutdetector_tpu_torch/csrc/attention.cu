@@ -4,7 +4,9 @@
 // Replaces the library Pallas TPU flash attention that
 // workoutdetector_tpu/models/timesformer.py: _flash_mha calls
 // (jax/experimental/pallas/ops/tpu/flash_attention.py: flash_attention ->
-// _flash_attention_impl), forward only. The TPU kernel pads l to a multiple
+// _flash_attention_impl), the forward; its backward (dK/dV and dQ) is in
+// attention_bwd.cu and reads the log-sum-exp this kernel writes under
+// autograd. The TPU kernel pads l to a multiple
 // of 128 and masks the pad keys with segment ids; here no padding exists in
 // memory: key columns >= l are set to -inf before the softmax, and rows past
 // l are zero-filled in shared memory and never stored.
@@ -26,88 +28,17 @@
 // accumulator layout of S is reused as the A operand of P V, so P never
 // leaves registers. O is divided by the row sum once and rounded to bf16
 // once. All 4 query tiles of a head re-read its K and V, from L2.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BM = 64;       // query rows per block (16 per warp)
-constexpr int BN = 64;       // keys per streamed tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  // src-size 0 writes 16 zero bytes and reads nothing
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [r0, r0 + 64) of one (n, h) slice, row stride sl elements,
-// into a 64 x LD tile; rows >= l are zero.
-template <int DH, int LD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* base,
-                                           int64_t sl, int r0, int l) {
-  constexpr int VPR = DH / 8;  // 16-byte vectors per row
-  for (int v = threadIdx.x; v < 64 * VPR; v += NTHREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    const bool ok = r0 + r < l;
-    cp_async16(dst + r * LD + c, ok ? base + (int64_t)(r0 + r) * sl + c : base,
-               ok);
-  }
-}
+using namespace wdattn;
 
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H,
                  int l, int64_t qsn, int64_t qsh, int64_t qsl, int64_t ksn,
                  int64_t ksh, int64_t ksl, int64_t vsn, int64_t vsh,
                  int64_t vsl, float scale_log2) {
@@ -132,9 +63,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group, column pair
   const int nt = (l + BN - 1) / BN;
 
-  stage_rows<DH, LD>(sQ, qb, qsl, q0, l);
-  stage_rows<DH, LD>(sK, kb, ksl, 0, l);
-  stage_rows<DH, LD>(sV, vb, vsl, 0, l);
+  stage_rows<DH>(sQ, qb, qsl, q0, l);
+  stage_rows<DH>(sK, kb, ksl, 0, l);
+  stage_rows<DH>(sV, vb, vsl, 0, l);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -152,8 +83,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < nt; ++j) {
     if (j + 1 < nt) {
       const int b = (j + 1) & 1;
-      stage_rows<DH, LD>(sK + b * TILE, kb, ksl, (j + 1) * BN, l);
-      stage_rows<DH, LD>(sV + b * TILE, vb, vsl, (j + 1) * BN, l);
+      stage_rows<DH>(sK + b * TILE, kb, ksl, (j + 1) * BN, l);
+      stage_rows<DH>(sV + b * TILE, vb, vsl, (j + 1) * BN, l);
       cp_async_commit();
       cp_async_wait<1>();  // tile j (and Q) landed; tile j + 1 in flight
     } else {
@@ -251,7 +182,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // buffer j & 1 is free for tile j + 2
   }
 
-  // full row sums, then one division and one rounding per output
+  // full row sums, then one division and one rounding per output; under
+  // autograd the row's log-sum-exp in natural log for the backward,
+  // ln sum exp(s scale) = ln 2 (max + log2 sum), max and sum in base 2
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -259,6 +192,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     inv[r] = 1.0f / sum;
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < l)
+      lse[((int64_t)nn * H + hh) * l + row] = (mrow[r] + log2f(sum)) * LN2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -276,17 +212,17 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int N, int H, int l, const int64_t* st, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int N, int H, int l, const int64_t* st,
+                   float scale, cudaStream_t stream) {
   constexpr int SMEM = 5 * 64 * (DH + 8) * 2;  // Q + 2 K + 2 V tiles
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((l + BM - 1) / BM), (unsigned)H, (unsigned)N);
   attention_kernel<DH><<<grid, NTHREADS, SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, l, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale * 1.4426950408889634f);  // log2(e): exp(x) = exp2(x log2 e)
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, l,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -294,24 +230,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v: (N, H, l, dh) bf16 with unit last stride; strides = the (n, h, l)
 // element strides of q, then k, then v (multiples of 8, 16-byte aligned
-// bases). o: contiguous (N, l, H, dh) bf16. dh in {16, 32, ..., 128}.
+// bases). o: contiguous (N, l, H, dh) bf16. lse: null, or a contiguous
+// (N, H, l) fp32 buffer for the rows' log-sum-exp (natural log) that the
+// backward kernels read. dh in {16, 32, ..., 128}.
 extern "C" int wd_attention_bf16(const void* q, const void* k, const void* v,
-                                 void* o, const int64_t* strides, int N, int H,
-                                 int l, int dh, float scale, int device,
-                                 void* stream) {
+                                 void* o, float* lse, const int64_t* strides,
+                                 int N, int H, int l, int dh, float scale,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N == 0 || H == 0 || l == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
-    case 16: return (int)launch<16>(q, k, v, o, N, H, l, strides, scale, s);
-    case 32: return (int)launch<32>(q, k, v, o, N, H, l, strides, scale, s);
-    case 48: return (int)launch<48>(q, k, v, o, N, H, l, strides, scale, s);
-    case 64: return (int)launch<64>(q, k, v, o, N, H, l, strides, scale, s);
-    case 80: return (int)launch<80>(q, k, v, o, N, H, l, strides, scale, s);
-    case 96: return (int)launch<96>(q, k, v, o, N, H, l, strides, scale, s);
-    case 112: return (int)launch<112>(q, k, v, o, N, H, l, strides, scale, s);
-    case 128: return (int)launch<128>(q, k, v, o, N, H, l, strides, scale, s);
+    case 16: return (int)launch<16>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 48: return (int)launch<48>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 80: return (int)launch<80>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 96: return (int)launch<96>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 112: return (int)launch<112>(q, k, v, o, lse, N, H, l, strides, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, lse, N, H, l, strides, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -143,25 +143,36 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
 
 def init_flax_variables(model: torch.nn.Module, seed: int = 0
                         ) -> Dict[str, Any]:
-    """A fresh model's variables with flax's default initializers, drawn
-    from a numpy seed: conv kernels ``lecun_normal`` (truncated normal,
-    fan-in scaling), the dense head normal(0.001) with a zero bias (the
-    JAX TSM's ``fc``), BN scale 1 and bias 0, running mean 0 and var 1.
-    The distributions are flax's; the draws are not jax.random's."""
+    """A fresh model's variables with the JAX models' initializers, drawn
+    from a numpy seed. Conv and Dense kernels ``lecun_normal`` (truncated
+    normal, fan-in scaling) unless the model's ``FLAX_KERNEL_INIT`` names
+    the module (``("normal", std)`` or ``("zeros", 0)``, its bias zero as
+    every bias); BN and LayerNorm scale 1 and bias 0, running mean 0 and
+    var 1; TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
+    truncated normal(0.02). The distributions are flax's; the draws are
+    not jax.random's."""
+    kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
     for key, t in model.state_dict().items():
         shape = tuple(t.shape)
-        leaf = key.rsplit(".", 1)[-1]
-        if leaf == "weight" and len(shape) == 4:
-            std = np.sqrt(1.0 / (shape[1] * shape[2] * shape[3])) \
-                / 0.87962566103423978  # stddev of N(0, 1) cut at ±2
-            a = _truncated_normal(rng, shape, std)
-        elif leaf == "weight" and len(shape) == 2:
-            a = rng.normal(0.0, 0.001, shape)
-        elif leaf in ("weight", "running_var"):
+        *mods, leaf = key.split(".")
+        if leaf in _RAW:
+            a = _truncated_normal(rng, shape, 0.02)
+        elif leaf == "weight" and len(shape) in (2, 4):
+            kind, std = kernel_init.get(mods[-1], ("lecun_normal", None))
+            if kind == "normal":
+                a = rng.normal(0.0, std, shape)
+            elif kind == "zeros":
+                a = np.zeros(shape)
+            else:
+                fan_in = int(np.prod(shape[1:]))
+                # std of N(0, 1) cut at ±2 is 0.8796...
+                a = _truncated_normal(
+                    rng, shape, np.sqrt(1.0 / fan_in) / 0.87962566103423978)
+        elif leaf in ("weight", "running_var") and len(shape) == 1:
             a = np.ones(shape)
-        else:  # bias, running_mean
+        else:  # biases, running means
             a = np.zeros(shape)
         state[key] = a.astype(np.float32)
     return port_state_to_flax(state)

@@ -1,8 +1,8 @@
 """Model construction from a ``ModelConfig``.
 
 Port of ``workoutdetector_tpu/models/factory.py`` (``build_model``) for
-the model families the port has: TSM and TimeSformer (inference). The
-others come with later slices (ROADMAP §1 item 6).
+the model families the port has: TSM and TimeSformer. The others come
+with later slices (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
             embed, depth, heads, cfg.mlp_ratio, cfg.attention_type,
             dtype=DTYPES[cfg.dtype],
             flash=str(cfg.flash_attention).lower() != "false",
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, dropout=cfg.dropout,
+            drop_path_rate=cfg.drop_path_rate)
     if mt != "tsm":
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not in the PyTorch port yet "

@@ -45,6 +45,10 @@ def dropout(x: torch.Tensor, rate: float,
 class TSM(nn.Module):
     """Temporal Shift Module network: logits = model(x), x (B, T, H, W, C)."""
 
+    # kernels whose JAX initializer is not lecun_normal, by module name
+    # (``init_flax_variables``): the head, normal(0.001)
+    FLAX_KERNEL_INIT = {"fc": ("normal", 0.001)}
+
     def __init__(self, num_class: int, num_segments: int = 8,
                  base_model: str = "resnet50", is_shift: bool = True,
                  shift_div: int = 8, shift_place: str = "blockres",

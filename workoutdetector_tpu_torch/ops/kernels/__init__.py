@@ -7,7 +7,8 @@ loaded at import: ``_build.load()`` runs at the first CUDA launch.
 """
 
 from workoutdetector_tpu_torch.ops.kernels.attention import (
-    attention, attention_plain)
+    Attention, attention, attention_bwd_plain, attention_dkv, attention_dq,
+    attention_lse, attention_lse_plain, attention_plain, split_heads)
 from workoutdetector_tpu_torch.ops.kernels.conv1x1 import (
     Conv1x1, ShiftConv1x1, conv1x1_dw, conv1x1_dw_plain, conv1x1_dx,
     conv1x1_dx_plain)
@@ -19,7 +20,7 @@ from workoutdetector_tpu_torch.ops.kernels.shift_matmul import (
     shift_matmul, shift_matmul_plain)
 
 WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck, conv1x1_dx,
-            conv1x1_dw, attention)
+            conv1x1_dw, attention, attention_dkv, attention_dq)
 
 
 def reset_launches() -> None:
@@ -34,7 +35,9 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "attention", "attention_plain", "Conv1x1", "ShiftConv1x1",
+    "Attention", "attention", "attention_bwd_plain", "attention_dkv",
+    "attention_dq", "attention_lse", "attention_lse_plain", "attention_plain",
+    "split_heads", "Conv1x1", "ShiftConv1x1",
     "conv1x1_dw", "conv1x1_dw_plain", "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
     "fused_bottleneck", "fused_bottleneck_plain", "TemporalShift",
     "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",

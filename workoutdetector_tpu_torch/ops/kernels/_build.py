@@ -42,8 +42,12 @@ SIGNATURES: Dict[str, List] = {
     "wd_fused_bottleneck_bf16": [P] * 10 + [I] * 9 + [P],
     "wd_conv1x1_dx_bf16": [P, P, P, L, I, I, L, I, I, I, P],
     "wd_conv1x1_dw_bf16": [P, P, P, P, L, I, I, L, I, I, L, I, P],
-    "wd_attention_bf16": [P, P, P, P, ctypes.POINTER(L), I, I, I, I,
-                          ctypes.c_float, I, P],
+    "wd_attention_bf16": [P] * 5 + [ctypes.POINTER(L), I, I, I, I,
+                                    ctypes.c_float, I, P],
+    "wd_attention_dkv_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
+                                        ctypes.c_float, I, P],
+    "wd_attention_dq_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
+                                       ctypes.c_float, I, P],
 }
 
 

@@ -1,25 +1,32 @@
 """Softmax attention over one sequence per (sample, head):
-o = softmax(q kᵀ · scale) v.
+o = softmax(q kᵀ · scale) v, and its gradient.
 
 Port of the library Pallas TPU flash attention that
-``workoutdetector_tpu/models/timesformer.py`` (``_flash_mha``) calls,
-forward only: the hand kernel in ``csrc/attention.cu`` and its plain
-version. In TimeSformer it runs the spatial attention of every divided
-block (12 launches per ViT-B forward). Bound and design: see the note at
-the top of the CUDA source.
+``workoutdetector_tpu/models/timesformer.py`` (``_flash_mha``) calls: the
+forward kernel in ``csrc/attention.cu`` (which also writes each query
+row's log-sum-exp under autograd), the backward kernels in
+``csrc/attention_bwd.cu`` (dK/dV and dQ, the library's
+``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``), and the
+plain versions of all three. In TimeSformer they run the spatial attention
+of every divided block: per ViT-B train step 12 forward, 12 dK/dV and 12
+dQ launches. Bounds and designs: see the notes at the top of the CUDA
+sources.
 
-Layout: q, k, v are (n, h, l, dh), the JAX package's head-major layout.
+Layout: q, k, v are (n, h, l, dh), the JAX package's head-major layout;
+``Attention`` takes the packed (n, l, 3·h·dh) qkv projection and returns
+its gradient in the same packed layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
 
-HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernel takes
+HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernels take
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,52 +39,235 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p.float() @ v.float()).to(v.dtype)
 
 
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward under autograd: (o, lse) with lse the
+    fp32 (n, h, l) log-sum-exp of each query row's scaled scores (natural
+    log); o as ``attention_plain``'s, its probabilities exp(s − lse)."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]).to(v.dtype)
+    return (p.float() @ v.float()).to(v.dtype), lse
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO ∘ O) in fp32, contiguous (n, h, l): the term both
+    backward kernels subtract from dP (a jnp op outside the TPU kernels)."""
+    return (o.float() * do.float()).sum(-1).contiguous()
+
+
+def _bwd_plain(q, k, v, do, lse, delta, scale):
+    """(dq, dk, dv) from the residuals, in fp32, as the kernels compute
+    them: P recomputed from the log-sum-exp, P and dS rounded to q's dtype
+    before the products that take them, each output rounded once."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None])
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ dof
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+          ).to(q.dtype).float()
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward: (dq, dk, dv) of o = softmax(q kᵀ ·
+    scale) v for the output gradient ``do``, from the forward's residuals
+    (o and the fp32 log-sum-exp), not through autograd."""
+    return _bwd_plain(q, k, v, do, lse, attention_delta(o, do), scale)
+
+
+def _check(what: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Refuse what the kernels do not take: tensors off q's CUDA device,
+    dtypes other than bf16, unequal (n, h, l, dh) shapes, head widths
+    outside HEAD_DIMS, strides that are not multiples of 8 over a unit last
+    stride, bases not 16-byte aligned."""
+    q = tensors[0]
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: tensors on "
+                         f"{', '.join(str(t.device) for t in tensors)}")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{what} kernel takes bf16, got "
+                        f"{'/'.join(str(t.dtype) for t in tensors)}")
+    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
+        raise ValueError(f"{what} kernel: shapes "
+                         f"{[tuple(t.shape) for t in tensors]}: needs equal "
+                         "(n, h, l, dh) shapes")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel: head width {q.shape[3]} not in "
+                         f"{HEAD_DIMS}")
+    for t in tensors:
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or \
+                t.data_ptr() % 16:
+            raise ValueError(
+                f"{what} kernel: strides {t.stride()} at offset "
+                f"{t.data_ptr() % 16}: needs a unit last stride, the others "
+                "multiples of 8 and a 16-byte aligned base")
+    return tuple(q.shape)
+
+
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_int64 * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+
+
+def _launch(q, k, v, scale, with_lse: bool):
+    """Launch the forward kernel: o, the (n, h, l, dh) view of a contiguous
+    (n, l, h, dh) buffer, and with ``with_lse`` the fp32 (n, h, l)
+    log-sum-exp (else None)."""
+    n, h, l, dh = _check("attention", q, k, v)
+    out = torch.empty((n, l, h, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, h, l), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    lib = _build.load()
+    lib.check(lib.lib.wd_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None, _strides(q, k, v),
+        n, h, l, dh, float(scale), q.device.index or 0,
+        _build.stream_handle(q.device)), "attention")
+    attention.launches += 1
+    return out.transpose(1, 2), lse
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): the forward kernel with the log-sum-exp the backward
+    kernels read, for CUDA tensors (bf16; one ``attention`` launch), the
+    plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return attention_lse_plain(q, k, v, scale)
+    return _launch(q, k, v, scale, with_lse=True)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """The kernel for CUDA tensors (bf16), the plain version for CPU ones.
 
     q, k, v may be any views with a unit last stride (e.g. thirds of a
     packed qkv projection); the kernel's result is the (n, h, l, dh) view
-    of a contiguous (n, l, h, dh) buffer. Forward only: under autograd
-    on CUDA it raises (the backward kernels are ROADMAP's TimeSformer
-    training slice)."""
+    of a contiguous (n, l, h, dh) buffer. Forward only: under autograd on
+    CUDA it raises, and the caller runs ``Attention`` on the packed qkv
+    projection, whose backward launches the dK/dV and dQ kernels."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"attention: q on {q.device}, k on {k.device}, "
-                         f"v on {v.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "attention kernel is forward only: its backward (dQ, dK, dV) is "
-            "queued with the TimeSformer training slice (ROADMAP §1 slice 6)")
-    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"attention kernel takes bf16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention kernel: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: needs equal "
-                         "(n, h, l, dh) shapes")
-    n, h, l, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention kernel: head width {dh} not in "
-                         f"{HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16:
-            raise ValueError(
-                f"attention kernel: {name} strides {t.stride()} at offset "
-                f"{t.data_ptr() % 16}: needs a unit last stride, the others "
-                "multiples of 8 and a 16-byte aligned base")
-    out = torch.empty((n, l, h, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 9)(*(s for t in (q, k, v)
-                                     for s in t.stride()[:3]))
-    lib = _build.load()
-    lib.check(lib.lib.wd_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        n, h, l, dh, float(scale), q.device.index or 0,
-        _build.stream_handle(q.device)), "attention")
-    attention.launches += 1
-    return out.transpose(1, 2)
+            "attention() is forward only; under autograd run "
+            "Attention.apply(qkv, num_heads, scale) on the packed projection")
+    return _launch(q, k, v, scale, with_lse=False)[0]
 
 
 attention.launches = 0
+
+
+def _backward(which: str, q, k, v, do, lse, delta, scale, dq, dk, dv):
+    n, h, l, dh = _check(which, q, k, v, do, *(t for t in (dq, dk, dv)
+                                              if t is not None))
+    if lse.shape != (n, h, l) or delta.shape != (n, h, l) or \
+            lse.dtype != torch.float32 or delta.dtype != torch.float32 or \
+            not (lse.is_contiguous() and delta.is_contiguous()) or \
+            lse.device != q.device or delta.device != q.device:
+        raise ValueError(f"{which} kernel: lse and delta must be contiguous "
+                         f"fp32 {(n, h, l)} on {q.device}")
+    stand_in = q  # strides of an output the entry point does not write
+    lib = _build.load()
+    fn = getattr(lib.lib, f"wd_{which}_bf16")
+    lib.check(fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in (dq, dk, dv)),
+        _strides(q, k, v, do, *(t if t is not None else stand_in
+                                for t in (dq, dk, dv))),
+        n, h, l, dh, float(scale), q.device.index or 0,
+        _build.stream_handle(q.device)), which)
+
+
+def _out(like: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    return torch.empty(like.shape, dtype=like.dtype, device=like.device) \
+        if out is None else out
+
+
+def attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  scale: float, dk: Optional[torch.Tensor] = None,
+                  dv: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of the attention, the dK/dV kernel for CUDA tensors (bf16)
+    and the plain version for CPU ones. lse, delta: fp32 (n, h, l) from
+    the forward and ``attention_delta``. Written into ``dk`` and ``dv``
+    when given (any views with a unit last stride, e.g. thirds of a
+    packed gradient), else into new (n, h, l, dh) tensors."""
+    dk, dv = _out(k, dk), _out(v, dv)
+    if q.device.type == "cpu":
+        _, gk, gv = _bwd_plain(q, k, v, do, lse, delta, scale)
+        return dk.copy_(gk), dv.copy_(gv)
+    _backward("attention_dkv", q, k, v, do, lse, delta, scale, None, dk, dv)
+    attention_dkv.launches += 1
+    return dk, dv
+
+
+attention_dkv.launches = 0
+
+
+def attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 scale: float, dq: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """dQ of the attention, the dQ kernel for CUDA tensors (bf16) and the
+    plain version for CPU ones; arguments as ``attention_dkv``'s."""
+    dq = _out(q, dq)
+    if q.device.type == "cpu":
+        return dq.copy_(_bwd_plain(q, k, v, do, lse, delta, scale)[0])
+    _backward("attention_dq", q, k, v, do, lse, delta, scale, dq, None, None)
+    attention_dq.launches += 1
+    return dq
+
+
+attention_dq.launches = 0
+
+
+def split_heads(x: torch.Tensor, num_heads: int, parts: int = 3):
+    """(n, l, parts·h·dh) → ``parts`` views (n, h, l, dh), one per
+    contiguous h·dh slice of the last dim (3 for a packed qkv projection)."""
+    n, l, c = x.shape
+    return [t.view(n, l, num_heads, -1).transpose(1, 2)
+            for t in x.split(c // parts, dim=-1)]
+
+
+class Attention(torch.autograd.Function):
+    """softmax(q kᵀ · scale) v over a packed (n, l, 3·h·dh) qkv projection
+    → (n, l, h·dh), with its gradient in the packed layout.
+
+    On CUDA (bf16) the forward kernel writes o and the log-sum-exp, which
+    are saved with qkv; the backward computes D = rowsum(dO ∘ O) and runs
+    the dK/dV and dQ kernels, which write into the thirds of one packed
+    gradient, so the qkv projection's backward reads it as it is. On the
+    CPU the same steps run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float
+                ) -> torch.Tensor:
+        n, l, _ = qkv.shape
+        q, k, v = split_heads(qkv, num_heads)
+        o, lse = attention_lse(q, k, v, scale)
+        o = o.transpose(1, 2).reshape(n, l, -1)  # a view of the kernel's buffer
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        qkv, o, lse = ctx.saved_tensors
+        h = ctx.num_heads
+        q, k, v = split_heads(qkv, h)
+        (o4,) = split_heads(o, h, parts=1)
+        (do4,) = split_heads(do.contiguous(), h, parts=1)
+        delta = attention_delta(o4, do4)
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        dq, dk, dv = split_heads(dqkv, h)
+        attention_dkv(q, k, v, do4, lse, delta, ctx.scale, dk, dv)
+        attention_dq(q, k, v, do4, lse, delta, ctx.scale, dq)
+        return dqkv, None, None
