@@ -26,8 +26,12 @@ not printed; no CUDA device → exit 2):
      and ``count_by_video_model`` on the same video, with the kernel launch
      counts checked (10 shift-matmul and 6 fused-block launches per
      forward) and the logits held against the port's plain path in fp32 on
-     the card; then one ``score_windows`` batch under torch.profiler
-     (device time by kernel and the device's idle share);
+     the card; one ``score_windows`` batch under torch.profiler (device
+     time by kernel and the device's idle share); and the count check
+     (``count_check``: a head bias set per block of windows makes the
+     argmax run through the states, the bf16 kernel path's argmax sequence
+     and count must equal the fp32 plain path's, and a planted swap of two
+     windows' logits must fail the same rule);
   5. ``shift_place='block'`` TSM-R50 on 4 clips, which runs the shift
      kernel (16 launches per forward);
   6. training, the flagship configuration at full width
@@ -49,7 +53,8 @@ not printed; no CUDA device → exit 2):
      by the engine: ``score_video`` and ``count_by_video_model`` on the
      phase-4 video with the launch counts checked (12 attention launches
      per forward, no other kernel), the logits held against the unfolded
-     plain fp32 model on the card by phase 4's rule, one profiled batch;
+     plain fp32 model on the card by phase 4's rule, phase 4's count check,
+     one profiled batch;
   8. TimeSformer-B/16 training (``timesformer.yaml``'s model and
      optimizer: drop_path 0.1, SGD Nesterov, wd 1e-4 with the embeddings
      exempt, clip 40, bf16, batch 16) on a ``DebugDataset``: ``Trainer.fit``
@@ -178,7 +183,8 @@ def card_line() -> str:
 
 
 def ptxas_summary(text: str) -> list:
-    """One line per compiled kernel (head width as <dh> where templated):
+    """One line per compiled kernel (its template arguments, e.g. the head
+    width <dh> or the dW kernel's <warpgroups,N>, where templated):
     its registers and its spills, from the build's ``ptxas -v`` report."""
     import re
     out, name, spill = [], None, ""
@@ -187,8 +193,9 @@ def ptxas_summary(text: str) -> list:
         if entry:
             mangled = entry.group(1)
             name = next((k for k in HAND_KERNELS if k in mangled), mangled)
-            width = re.search(r"ILi(\d+)E", mangled)
-            name += f"<{width.group(1)}>" if width else ""
+            args = re.search(r"I((?:Li\d+E)+)E", mangled)
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -448,7 +455,8 @@ def backward_rows(torch, kernels, randn, add) -> None:
         spec = (FRAMES, c // 8, h * h) if shifted else (1, 0, 1)
         x = randn(r, c)
         g = randn(r, o)
-        wt = randn(o, c, scale=1 / math.sqrt(o))
+        w = randn(c, o, scale=1 / math.sqrt(o))
+        wt = w.t()  # the weight as the model's backward passes it
         site = f"R={r} C={c} O={o}{' shifted' if shifted else ''}"
         got = kernels.conv1x1_dx(g, wt, *spec)
         want = kernels.conv1x1_dx_plain(g, wt, *spec)
@@ -474,7 +482,7 @@ def backward_rows(torch, kernels, randn, add) -> None:
         add("conv1x1_dw", err, ms, pms, tb, to, count, lms)
         log(f"  conv1x1_dw {site} err={err} kernel={ms:.4f} ms plain={pms:.4f}"
             f" ms library={lms:.4f} ms bound={max(tb, to):.4f} ms")
-        del x, g, wt
+        del x, g, w, wt
         torch.cuda.empty_cache()
 
 
@@ -777,6 +785,7 @@ def timesformer_phase(np, torch, kernels, video, card: str):
                                  device="cuda", optimize=False)
     _, ref = ref_engine.score_video(video, step=8, stride=2)
     logit_rule(np, logits, ref, "TimeSformer main path")
+    count_check(np, torch, engine, ref_engine, video, "TimeSformer main path")
     return launches["attention"], clips_per_s
 
 
@@ -900,6 +909,79 @@ def logit_rule(np, logits, ref, what: str) -> None:
         raise AssertionError(f"{what} disagrees with the fp32 plain path")
 
 
+COUNT_BLOCK = 4  # windows per head-bias block of the count check
+
+
+def count_check(np, torch, engine, ref_engine, video, what: str) -> None:
+    """Counts on the card. Random weights give every window one argmax, so
+    the count check moves the head bias: count_by_video_model's windows
+    (consecutive 8-frame chunks) are scored in blocks of COUNT_BLOCK by the
+    bf16 kernel path and the fp32 plain path, the head bias of both set per
+    block to take the fp32 path's mean logit off every class and add 2 x
+    its largest deviation + 1 to the block's target class, block k's target
+    being k mod 12 (so the states run 0, 1, 2, ... and every even-to-odd
+    step is a rep). Both argmax sequences go through pred_to_count; they
+    must agree (``count_rule``) and count at least 2 reps. A planted swap
+    of two windows' kernel-path logits (blocks 0 and 1) must fail the same
+    rule."""
+    from workoutdetector_tpu_torch.counting import pred_to_count
+
+    n = len(video) // 8
+    windows = engine.gather_windows(video, np.arange(0, n * 8, 8), stride=1)
+    base = ref_engine.score_windows(windows)
+    center = base.mean(0)
+    boost = 2 * float(np.abs(base - center).max()) + 1.0
+
+    def scored(eng):
+        fc = eng.model.fc
+        orig = fc.bias.detach().clone()
+        out = []
+        try:
+            for k in range(0, n, COUNT_BLOCK):
+                shift = -center.copy()
+                shift[(k // COUNT_BLOCK) % len(shift)] += boost
+                fc.bias.data = orig + torch.from_numpy(shift).to(orig)
+                out.append(eng.score_windows(windows[k:k + COUNT_BLOCK]))
+        finally:
+            fc.bias.data = orig
+        return np.concatenate(out)
+
+    got, ref = scored(engine), scored(ref_engine)
+    err = float(np.abs(got - ref).max())
+    counts = count_rule(np, pred_to_count, got, ref, err, what)
+    log(f"    count check ({n} windows, blocks of {COUNT_BLOCK}, boost "
+        f"{boost:.3f}): kernel path count {counts[0]}, fp32 plain path "
+        f"{counts[1]}, max |logit diff| {err:.5f}")
+    planted = got.copy()
+    planted[[1, 1 + COUNT_BLOCK]] = planted[[1 + COUNT_BLOCK, 1]]
+    try:
+        count_rule(np, pred_to_count, planted, ref, err, what)
+    except AssertionError as exc:
+        log(f"    planted swap of windows 1 and {1 + COUNT_BLOCK}: caught ({exc})")
+    else:
+        raise AssertionError(f"{what}: the count check misses a planted swap "
+                             "of two windows' logits")
+
+
+def count_rule(np, pred_to_count, logits, ref, err: float, what: str):
+    """The argmax of ``logits`` equals the fp32 path's on every window whose
+    fp32 top-2 margin exceeds 2 x err (logit_rule's limit), the two counts
+    are equal, and the fp32 path counts at least 2 reps. Returns the two
+    counts."""
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * err
+    seq, ref_seq = logits.argmax(1), ref.argmax(1)
+    count, _ = pred_to_count([int(a) for a in seq], step=8)
+    ref_count, _ = pred_to_count([int(a) for a in ref_seq], step=8)
+    wrong = np.flatnonzero(decided & (seq != ref_seq))
+    if len(wrong) or count != ref_count or ref_count < 2:
+        raise AssertionError(
+            f"{what} counts: argmax differs on decided windows "
+            f"{wrong.tolist()[:8]} ({int(decided.sum())}/{len(decided)} "
+            f"decided), count {count} vs the fp32 path's {ref_count}")
+    return count, ref_count
+
+
 def synthetic_video(np, frames: int, seed: int):
     """uint8 (frames, 224, 224, 3): a bright square moving up and down
     (a slow periodic 'exercise') over a noisy background."""
@@ -989,6 +1071,7 @@ def main() -> int:
                                  device="cuda")
     _, ref = ref_engine.score_video(video, step=8, stride=2)
     logit_rule(np, logits, ref, "main path")
+    count_check(np, torch, engine, ref_engine, video, "main path")
 
     log(f"[5] shift_place='block' TSM-R50, {BLOCK_BATCH} clips")
     block = TSM(NUM_CLASS, FRAMES, "resnet50", shift_place="block",

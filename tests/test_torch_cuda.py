@@ -118,22 +118,38 @@ def _dw_close(got, want):
 BWD_SHAPES = [(8, 7, 5, 64, 256, 4, True), (16, 14, 14, 256, 64, 8, True),
               (3, 5, 5, 64, 32, 1, False), (8, 7, 7, 2048, 512, 8, True),
               (2, 28, 28, 128, 512, 1, False)]
+# two clips of 8 frames at every frame size of the TSM-R50 224² path (HW =
+# 3136, 784, 196, 49), so row tiles and K chunks cross frame and clip ends;
+# folds of 8, 32, 64, 128 and 256 columns (and TSM-R18's 16 at C = 128);
+# C = O = 64 (narrow tiles, a single 64-deep K step for dx); 490 rows,
+# which leave a ragged last tile
+BWD_PATH_SHAPES = [(16, 56, 56, 64, 64, 8, True), (16, 56, 56, 256, 128, 8, True),
+                   (16, 28, 28, 128, 128, 8, True),
+                   (16, 28, 28, 512, 128, 8, True),
+                   (16, 14, 14, 1024, 256, 8, True),
+                   (16, 7, 7, 2048, 512, 8, True), (16, 7, 7, 512, 2048, 1, False),
+                   (10, 7, 7, 256, 1024, 1, False)]
+
+
+def _bwd_inputs(seed, r, c, o):
+    """x (R, C), g (R, O) and W (C, O), bf16 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(r, c, generator=g, device="cuda").bfloat16()
+    gy = torch.randn(r, o, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(c, o, generator=g, device="cuda") / o ** 0.5).bfloat16()
+    return x, gy, w
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frames,h,w,c,o,t,shifted", BWD_SHAPES)
+@pytest.mark.parametrize("frames,h,w,c,o,t,shifted", BWD_SHAPES + BWD_PATH_SHAPES)
 def test_cuda_conv1x1_dx_dw_vs_plain(cuda_device, frames, h, w, c, o, t,
                                      shifted):
-    g = torch.Generator(device=cuda_device).manual_seed(3)
     r, fold = frames * h * w, (c // 8 if shifted else 0)
-    x = torch.randn(r, c, generator=g, device=cuda_device).bfloat16()
-    gy = torch.randn(r, o, generator=g, device=cuda_device).bfloat16()
-    wt = (torch.randn(o, c, generator=g, device=cuda_device)
-          / o ** 0.5).bfloat16()
+    x, gy, wgt = _bwd_inputs(3, r, c, o)
     spec = (t, fold, h * w)
     before = (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches)
-    _close(kernels.conv1x1_dx(gy, wt, *spec),
-           kernels.conv1x1_dx_plain(gy, wt, *spec))
+    _close(kernels.conv1x1_dx(gy, wgt.t(), *spec),
+           kernels.conv1x1_dx_plain(gy, wgt.t(), *spec))
     _dw_close(kernels.conv1x1_dw(x, gy, *spec),
               kernels.conv1x1_dw_plain(x, gy, *spec))
     assert (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches) == \
@@ -143,12 +159,31 @@ def test_cuda_conv1x1_dx_dw_vs_plain(cuda_device, frames, h, w, c, o, t,
 @pytest.mark.cuda
 def test_cuda_conv1x1_dw_is_deterministic(cuda_device):
     """The row splits are summed in a fixed order: equal bits every call."""
-    g = torch.Generator(device=cuda_device).manual_seed(4)
-    x = torch.randn(8 * 56 * 56, 64, generator=g, device=cuda_device).bfloat16()
-    gy = torch.randn(8 * 56 * 56, 256, generator=g, device=cuda_device).bfloat16()
+    x, gy, _ = _bwd_inputs(4, 8 * 56 * 56, 64, 256)
     first = kernels.conv1x1_dw(x, gy, 8, 8, 56 * 56)
     for _ in range(3):
         assert torch.equal(kernels.conv1x1_dw(x, gy, 8, 8, 56 * 56), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 64), (1024, 256)])
+def test_cuda_conv1x1_dx_is_deterministic(cuda_device, c, o):
+    """Each dx element is summed by one warpgroup in a fixed order and
+    stored by one writer: equal bits every call."""
+    _, gy, w = _bwd_inputs(6, 16 * 14 * 14, c, o)
+    first = kernels.conv1x1_dx(gy, w.t(), 8, c // 8, 14 * 14)
+    for _ in range(3):
+        assert torch.equal(kernels.conv1x1_dx(gy, w.t(), 8, c // 8, 14 * 14),
+                           first)
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_dx_reads_the_weight_as_it_lies(cuda_device):
+    """The dx kernel takes W (C, O) through ``w.t()``; a contiguous (O, C)
+    Wᵀ, whose transpose is not contiguous, is refused, not copied."""
+    _, gy, w = _bwd_inputs(7, 64, 64, 32)
+    with pytest.raises(ValueError):
+        kernels.conv1x1_dx(gy, w.t().contiguous())
 
 
 @pytest.mark.cuda

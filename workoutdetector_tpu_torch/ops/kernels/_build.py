@@ -10,6 +10,13 @@ cross the boundary as ``ctypes.c_void_p``; every entry returns the
 The library is cached by the content of ``csrc/`` under
 ``workoutdetector_tpu_torch/_build/`` (ignored by git): the first use in
 a checkout builds it, later uses load it.
+
+The TMA kernels (``conv1x1_bwd.cu``) describe their tiles with tensor
+maps made by the CUDA driver API's ``cuTensorMapEncodeTiled``. The
+library takes that entry point from the runtime
+(``cudaGetDriverEntryPointByVersion``, see ``csrc/wd_wgmma.cuh``), so it
+links against nothing but the CUDA runtime nvcc adds: no ``-lcuda``.
+``sm_90a`` (not ``sm_90``) is what lets the kernels issue ``wgmma``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ Port of ``workoutdetector_tpu/ops/pallas/conv1x1.py``:
 * ``conv1x1_dx(g, wt)`` — ``_dx_pallas``: (R, O) @ (O, C) → (R, C) in g's
   dtype; with a shift spec it also applies Sᵀ (the fold shift's
   transpose) to the result, as ``make_shift_conv1x1``'s backward does.
+  On the card the kernel reads W (C, O) as it lies, so ``wt`` is passed
+  as ``w.t()``.
 * ``conv1x1_dw(x, g)`` — ``_dw_pallas``: xᵀ @ g → (C, O) in fp32; with a
   shift spec x's fold columns are shifted first (shift(x)ᵀ @ g).
 * ``Conv1x1`` — ``make_conv1x1``: y = x @ W with a plain matmul forward
@@ -30,8 +32,7 @@ from workoutdetector_tpu_torch.ops.kernels import _build
 from workoutdetector_tpu_torch.ops.kernels.shift_matmul import shift_matmul
 from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
-DW_TILE = 128  # (C, O) tile edge of the dW kernel
-DW_CHUNK_ALIGN = 32  # rows of one staged K chunk
+DW_CHUNK = 64  # rows of one K step of the dW kernel
 
 
 def _frames(a: torch.Tensor, frame_rows: int) -> torch.Tensor:
@@ -84,23 +85,38 @@ def _shift_ok(rows: int, c: int, n_segment: int, fold: int,
             and n_segment > 0 and rows % (frame_rows * n_segment) == 0)
 
 
+# The dx kernel's tile width for (C, O), and the folds it takes inside its
+# first tile (2·fold ≤ width); any other fold must be a whole number of tiles
+DX_FOLDS = {64: (8, 16), 128: (16, 32, 64), 256: (32, 64)}
+
+
+def _dx_fold_ok(c: int, o: int, fold: int) -> bool:
+    width = 64 if c <= 64 else 256 if 128 < c <= 256 and o <= 64 else 128
+    return fold % width == 0 or fold in DX_FOLDS[width]
+
+
 def conv1x1_dx(g: torch.Tensor, wt: torch.Tensor, n_segment: int = 1,
                fold: int = 0, frame_rows: int = 1) -> torch.Tensor:
     """dx = g @ wt (then Sᵀ when fold > 0): the kernel for CUDA tensors
-    (bf16), the plain version for CPU ones. g (R, O), wt (O, C)."""
+    (bf16), the plain version for CPU ones. g (R, O), wt (O, C). The
+    kernel reads the weight W (C, O) as it lies, so on the card wt must be
+    ``w.t()`` of a contiguous W: no transposed copy is made."""
     if g.device.type == "cpu":
         return conv1x1_dx_plain(g, wt, n_segment, fold, frame_rows)
     r, o = g.shape
     c = wt.shape[1]
-    _check("conv1x1_dx", [g, wt],
+    w = wt.t()
+    _check("conv1x1_dx", [g, w],
            _shift_ok(r, c, n_segment, fold, frame_rows))
-    if wt.shape[0] != o or o % 8 or c % 16:
+    if wt.shape[0] != o or o % 8 or c % 8 or not _dx_fold_ok(c, o, fold):
         raise ValueError(f"conv1x1_dx kernel: g {tuple(g.shape)}, wt "
-                         f"{tuple(wt.shape)}: needs O % 8 == 0, C % 16 == 0")
+                         f"{tuple(wt.shape)}, fold {fold}: needs O % 8 == 0, "
+                         "C % 8 == 0 and a fold of whole tiles or one of "
+                         f"{DX_FOLDS}")
     dx = torch.empty((r, c), dtype=g.dtype, device=g.device)
     lib = _build.load()
     lib.check(lib.lib.wd_conv1x1_dx_bf16(
-        g.data_ptr(), wt.data_ptr(), dx.data_ptr(), r, o, c, frame_rows,
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), r, o, c, frame_rows,
         n_segment, fold, g.device.index or 0, _build.stream_handle(g.device)),
         "conv1x1_dx")
     conv1x1_dx.launches += 1
@@ -112,17 +128,18 @@ conv1x1_dx.launches = 0
 _SM_COUNT = {}
 
 
-def dw_chunk_rows(device: torch.device, r: int, c: int, o: int) -> int:
-    """Rows per split of the dW kernel: enough splits that the (C, O) tiles
-    times the splits put about two blocks on every SM, each split at least
-    256 rows and a multiple of 32."""
+def dw_splits(device: torch.device, r: int, c: int, o: int,
+              clip_rows: int) -> int:
+    """Row splits of the dW kernel: its (C, O) tiles (64 or 128 channels of
+    C, as C ≤ 64 or not, by 64 or 128 of O) times the splits fill the SMs
+    once; no split is shorter than one 64-row chunk (chunks are cut inside
+    each clip of ``clip_rows`` rows)."""
     if device not in _SM_COUNT:
         _SM_COUNT[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    tiles = -(-c // DW_TILE) * -(-o // DW_TILE)
-    splits = max(1, min(-(-2 * _SM_COUNT[device] // tiles), -(-r // 256)))
-    per = -(-r // splits)
-    return -(-per // DW_CHUNK_ALIGN) * DW_CHUNK_ALIGN
+    tiles = -(-c // (64 if c <= 64 else 128)) * -(-o // (64 if o <= 64 else 128))
+    chunks = (r // clip_rows) * -(-clip_rows // DW_CHUNK)
+    return max(1, min(chunks, _SM_COUNT[device] // tiles))
 
 
 def conv1x1_dw(x: torch.Tensor, g: torch.Tensor, n_segment: int = 1,
@@ -135,18 +152,18 @@ def conv1x1_dw(x: torch.Tensor, g: torch.Tensor, n_segment: int = 1,
     r, c = x.shape
     o = g.shape[1]
     _check("conv1x1_dw", [x, g], _shift_ok(r, c, n_segment, fold, frame_rows))
-    if g.shape[0] != r or c % 16 or o % 16:
+    if g.shape[0] != r or c % 8 or o % 8:
         raise ValueError(f"conv1x1_dw kernel: x {tuple(x.shape)}, g "
-                         f"{tuple(g.shape)}: needs C % 16 == 0, O % 16 == 0")
+                         f"{tuple(g.shape)}: needs C % 8 == 0, O % 8 == 0")
     dw = torch.empty((c, o), dtype=torch.float32, device=x.device)
-    chunk = dw_chunk_rows(x.device, r, c, o) if r else DW_CHUNK_ALIGN
-    splits = -(-r // chunk)
+    splits = dw_splits(x.device, r, c, o,
+                       frame_rows * n_segment if fold else r) if r else 1
     work = torch.empty((splits, c, o), dtype=torch.float32, device=x.device) \
         if splits > 1 else dw
     lib = _build.load()
     lib.check(lib.lib.wd_conv1x1_dw_bf16(
         x.data_ptr(), g.data_ptr(), dw.data_ptr(), work.data_ptr(), r, c, o,
-        frame_rows, n_segment, fold, chunk, x.device.index or 0,
+        frame_rows, n_segment, fold, splits, x.device.index or 0,
         _build.stream_handle(x.device)), "conv1x1_dw")
     conv1x1_dw.launches += 1
     return dw
@@ -175,7 +192,7 @@ class Conv1x1(torch.autograd.Function):
         g2 = _rows(g).to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv1x1_dx(g2, w.t().contiguous()).reshape(x.shape)
+            dx = conv1x1_dx(g2, w.contiguous().t()).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             dw = conv1x1_dw(_rows(x), g2).to(w.dtype)
         return dx, dw
@@ -198,7 +215,7 @@ class ShiftConv1x1(torch.autograd.Function):
         g2 = _rows(g).to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv1x1_dx(g2, w.t().contiguous(), *ctx.shift).reshape(x.shape)
+            dx = conv1x1_dx(g2, w.contiguous().t(), *ctx.shift).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             dw = conv1x1_dw(_rows(x), g2, *ctx.shift).to(w.dtype)
         return dx, dw, None, None
