@@ -14,12 +14,14 @@ not printed; no CUDA device → exit 2):
      batch-32 train step (256 frames), beside ``torch.matmul``; the
      attention kernel at TimeSformer-B/16's spatial attention, (n, h, l,
      dh) = (128, 12, 197, 64) cut from a packed qkv, beside
-     ``scaled_dot_product_attention``, and its dK/dV and dQ backward
-     kernels at the same shape, writing into a packed gradient, beside the
-     backward alone of ``scaled_dot_product_attention``: max
-     error, kernel / plain / library time and the bound (per site, the
-     larger of the call's bytes over the H100's 3.35 TB/s and its
-     operations over 989 TFLOP/s bf16);
+     ``scaled_dot_product_attention``; the one-launch attention backward
+     (D, dQ, dK and dV) at the same shape, o and lse from the forward
+     kernel, writing into a packed gradient, beside the backward alone of
+     ``scaled_dot_product_attention``; and the tiled dK/dV and dQ kernels,
+     the backward's route for sequences too long for one block, at l =
+     300: max error, kernel / plain / library time and the bound (per
+     site, the larger of the call's bytes over the H100's 3.35 TB/s and
+     its operations over 989 TFLOP/s bf16);
   4. the main path: TSM-R50 224², 8 segments, 12 classes, bf16, random
      numpy-seeded flax weights through ``load_flax_variables``;
      ``InferenceEngine.score_video`` on a synthetic ~300-frame uint8 video
@@ -59,12 +61,16 @@ not printed; no CUDA device → exit 2):
      optimizer: drop_path 0.1, SGD Nesterov, wd 1e-4 with the embeddings
      exempt, clip 40, bf16, batch 16) on a ``DebugDataset``: ``Trainer.fit``
      from the port's flax initializers for 4 steps and one validation pass,
-     with the launch counts checked (per step 12 attention, 12 dK/dV and 12
-     dQ launches; 12 attention launches per validation forward) and finite
-     losses; one batch's gradients against the fp32 plain path with the
-     same drop-path masks, and the same check on a planted fault (dS
-     without its −D term), which it must catch; train clips/s and one
-     profiled step;
+     with the launch counts checked (per step 12 attention and 12
+     attention_bwd launches, no tiled dK/dV or dQ; 12 attention launches
+     per validation forward) and finite losses; one batch's gradients
+     against the fp32 plain path with the same drop-path masks, and the
+     same check on a planted fault (the backward handed the neighbouring
+     head's dO), which it must catch; train clips/s and one profiled
+     step; then the tiled route through the model: one train step of
+     TimeSformer-B/16 on 288² frames (l = 325 tokens, beyond the
+     one-launch kernel's shared memory) with 12 attention, 12 dK/dV and
+     12 dQ launches and a finite loss;
   9. one JSON line of per-kernel numbers, the card line again, and the
      contract line ``{"ok": true, "device": {...}}`` last.
 
@@ -76,13 +82,14 @@ TimeSformer-B/16 forward (12 launches) for the attention. No single
 PyTorch call computes the shift, the shift-matmul or the fused block, so
 their ``library_ms`` is null; dx and dW are timed beside ``torch.matmul``
 of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
-``scaled_dot_product_attention`` on the same q, k, v views. The dK/dV and
-dQ rows are per TimeSformer-B/16 train step (12 launches each); their
-``plain_ms`` and ``library_ms`` are each one call that computes dQ, dK and
-dV together (``attention_bwd_plain``; the backward alone of
-``scaled_dot_product_attention`` on contiguous q, k, v, the fastest of its
-backends), the same number in both rows; the library's call also computes
-D = rowsum(dO ∘ O), which the kernels read, so phase 3 prints the time of
+``scaled_dot_product_attention`` on the same q, k, v views. The
+attention backward rows are per train step (12 launches each): the
+one-launch kernel's at TimeSformer-B/16's l = 197, the tiled dK/dV and dQ
+kernels' at l = 300. Their ``plain_ms`` and ``library_ms`` are each one
+call that computes dQ, dK and dV together (``attention_bwd_plain``; the
+backward alone of ``scaled_dot_product_attention`` on contiguous q, k, v,
+the fastest of its backends, which also computes D = rowsum(dO ∘ O)), the
+same number in the dK/dV and dQ rows; phase 3 prints the tiled route's
 dK/dV + dQ + D beside it.
 """
 
@@ -109,6 +116,8 @@ TRAIN_STEPS = 4
 TS_LAYERS, TS_HEADS, TS_DH = 12, 12, 64
 TS_TOKENS = (SIZE // 16) ** 2 + 1  # 196 patches + the cls token
 TS_TRAIN_BATCH = 16  # timesformer.yaml's batch
+TS_LONG_SIZE = 288   # frames whose 325 tokens take the tiled backward route
+TILED_L = 300        # the tiled route's check in phase 3 (beyond l = 224)
 TOL = 1.0 / 64  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 # dW entries are sums of up to 802,816 bf16 products, taken in fp32 in
 # another order (tensor-core partial sums, then the row splits) than the
@@ -166,8 +175,8 @@ BWD_SITES = [
 # the hand kernels' __global__ functions, as ptxas and the profiler name them
 HAND_KERNELS = ("shift_matmul_kernel", "shift_kernel", "fused_bottleneck_kernel",
                 "conv1x1_dx_kernel", "conv1x1_dw_kernel", "dw_reduce_kernel",
-                "attention_dkv_kernel", "attention_dq_kernel",
-                "attention_kernel")
+                "attention_bwd_short_kernel", "attention_dkv_kernel",
+                "attention_dq_kernel", "attention_kernel")
 
 
 def log(msg: str) -> None:
@@ -193,9 +202,9 @@ def ptxas_summary(text: str) -> list:
         if entry:
             mangled = entry.group(1)
             name = next((k for k in HAND_KERNELS if k in mangled), mangled)
-            args = re.search(r"I((?:Li\d+E)+)E", mangled)
+            args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
             if args:
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -366,57 +375,82 @@ def attention_row(torch, kernels, randn, add) -> None:
 
 
 def attention_bwd_rows(torch, kernels, randn, add) -> None:
-    """The dK/dV and dQ kernels at TimeSformer-B/16's spatial attention,
-    reading the strided thirds of a packed (frames, 197, 3·768) projection
-    and writing into the thirds of a packed gradient, as the model's
-    backward does. Residuals (o, lse) from the forward kernel. The plain
-    version (attention_bwd_plain) and the library yardstick (the backward
-    of scaled_dot_product_attention alone) each compute dQ, dK and dV (and
-    D) in one call: both rows carry that one call's time."""
+    """The attention backward at TimeSformer-B/16's spatial attention
+    (the one-launch kernel) and at l = TILED_L (the tiled dK/dV and dQ
+    kernels, with D formed beside them): q, k, v the strided thirds of a
+    packed (frames, l, 3·768) projection, o and lse from the forward
+    kernel, the gradients written into the thirds of a packed gradient, as
+    the model's backward does. The plain version (attention_bwd_plain) and
+    the library yardstick (the backward of scaled_dot_product_attention
+    alone) each compute dQ, dK and dV (and D) in one call."""
     from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
-    n, h, l, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_TOKENS, TS_DH
+    n, h, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_DH
     d = h * dh
     scale = dh ** -0.5
-    qkv = randn(n, l, 3 * d)
-    q, k, v = kernels.split_heads(qkv, h)
-    o, lse = kernels.attention_lse(q, k, v, scale)
-    (do,) = kernels.split_heads(randn(n, l, d), h, parts=1)
-    delta = attention_delta(o, do)
-    dq, dk, dv = kernels.split_heads(torch.empty_like(qkv), h)
-    kernels.attention_dkv(q, k, v, do, lse, delta, scale, dk, dv)
-    kernels.attention_dq(q, k, v, do, lse, delta, scale, dq)
-    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, scale)
-    torch.cuda.synchronize()
-    err_dkv = max(check_close(torch, f"attention_dkv {name} {(n, h, l, dh)}",
-                              got, ref)
-                  for name, got, ref in (("dk", dk, want[1]), ("dv", dv, want[2])))
-    err_dq = check_close(torch, f"attention_dq {(n, h, l, dh)}", dq, want[0])
-    del want
-    ms_dkv = time_ms(torch, lambda: kernels.attention_dkv(
-        q, k, v, do, lse, delta, scale, dk, dv), 20)
-    ms_dq = time_ms(torch, lambda: kernels.attention_dq(
-        q, k, v, do, lse, delta, scale, dq), 20)
-    dms = time_ms(torch, lambda: attention_delta(o, do), 20)
-    pms = time_ms(torch, lambda: kernels.attention_bwd_plain(
-        q, k, v, o, lse, do, scale), 5)
-    lms, backend = library_attention_bwd(torch, q, k, v, do, scale)
-    # each (n, h, l, dh) bf16 tensor read or written once, lse and D read
-    # once; dK/dV: four products of 2·l·l·dh (S, dP, dV, dK), dQ: three
-    elems, vec = n * h * l * dh * 2, n * h * l * 4
-    tb, to = bound_ms(6 * elems + 2 * vec, 8.0 * n * h * l * l * dh)
-    add("attention_dkv", err_dkv, ms_dkv, pms, tb, to, TS_LAYERS, lms)
-    log(f"  attention_dkv (n, h, l, dh)={(n, h, l, dh)} packed err={err_dkv} "
-        f"kernel={ms_dkv:.4f} ms plain (dq, dk, dv)={pms:.4f} ms library "
-        f"(sdpa backward, {backend}, D included)={lms:.4f} ms "
-        f"bound={max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
-    tb, to = bound_ms(5 * elems + 2 * vec, 6.0 * n * h * l * l * dh)
-    add("attention_dq", err_dq, ms_dq, pms, tb, to, TS_LAYERS, lms)
-    log(f"  attention_dq (n, h, l, dh)={(n, h, l, dh)} packed err={err_dq} "
-        f"kernel={ms_dq:.4f} ms bound={max(tb, to):.4f} ms (bytes {tb:.4f}, "
-        f"ops {to:.4f})")
-    log(f"  attention backward per launch: D = rowsum(dO o O) {dms:.4f} ms, "
-        f"dK/dV + dQ + D {ms_dkv + ms_dq + dms:.4f} ms against the library's "
-        f"{lms:.4f} ms")
+    for l in (TS_TOKENS, TILED_L):
+        qkv = randn(n, l, 3 * d)
+        q, k, v = kernels.split_heads(qkv, h)
+        o, lse = kernels.attention_lse(q, k, v, scale)
+        (do,) = kernels.split_heads(randn(n, l, d), h, parts=1)
+        grads = kernels.split_heads(torch.empty_like(qkv), h)
+        before = kernels.launch_counts()
+        kernels.attention_bwd(q, k, v, o, lse, do, scale, *grads)
+        want = kernels.attention_bwd_plain(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        ran = {name: c - before[name] for name, c in kernels.launch_counts().items()
+               if c != before[name]}
+        route = {"attention_bwd": 1} if kernels.short_route(l, dh) else \
+            {"attention_dkv": 1, "attention_dq": 1}
+        if ran != route:
+            raise AssertionError(f"attention_bwd at l = {l} launched {ran}, "
+                                 f"not {route}")
+        errs = [check_close(torch, f"attention_bwd {name} {(n, h, l, dh)}",
+                            got, ref)
+                for name, got, ref in zip(("dq", "dk", "dv"), grads, want)]
+        del want
+        pms = time_ms(torch, lambda: kernels.attention_bwd_plain(
+            q, k, v, o, lse, do, scale), 5)
+        lms, backend = library_attention_bwd(torch, q, k, v, do, scale)
+        elems, vec = n * h * l * dh * 2, n * h * l * 4
+        if "attention_bwd" in route:
+            # q, k, v, dO, o read once, dq, dk, dv written once, lse read
+            # once; five products of 2·l·l·dh (S, dP, dV, dK, dQ)
+            ms = time_ms(torch, lambda: kernels.attention_bwd(
+                q, k, v, o, lse, do, scale, *grads), 20)
+            tb, to = bound_ms(8 * elems + vec, 10.0 * n * h * l * l * dh)
+            add("attention_bwd", max(errs), ms, pms, tb, to, TS_LAYERS, lms)
+            log(f"  attention_bwd (n, h, l, dh)={(n, h, l, dh)} packed, one "
+                f"launch: err={max(errs)} kernel={ms:.4f} ms plain (dq, dk, "
+                f"dv)={pms:.4f} ms library (sdpa backward, {backend}, D "
+                f"included)={lms:.4f} ms bound={max(tb, to):.4f} ms (bytes "
+                f"{tb:.4f}, ops {to:.4f})")
+            continue
+        dq, dk, dv = grads
+        delta = attention_delta(o, do)
+        ms_dkv = time_ms(torch, lambda: kernels.attention_dkv(
+            q, k, v, do, lse, delta, scale, dk, dv), 20)
+        ms_dq = time_ms(torch, lambda: kernels.attention_dq(
+            q, k, v, do, lse, delta, scale, dq), 20)
+        dms = time_ms(torch, lambda: attention_delta(o, do), 20)
+        # each (n, h, l, dh) bf16 tensor read or written once, lse and D read
+        # once; dK/dV: four products of 2·l·l·dh (S, dP, dV, dK), dQ: three
+        tb, to = bound_ms(6 * elems + 2 * vec, 8.0 * n * h * l * l * dh)
+        add("attention_dkv", max(errs[1:]), ms_dkv, pms, tb, to, TS_LAYERS, lms)
+        log(f"  attention_dkv (n, h, l, dh)={(n, h, l, dh)} packed, tiled "
+            f"route: err={max(errs[1:])} kernel={ms_dkv:.4f} ms plain (dq, "
+            f"dk, dv)={pms:.4f} ms library (sdpa backward, {backend}, D "
+            f"included)={lms:.4f} ms bound={max(tb, to):.4f} ms (bytes "
+            f"{tb:.4f}, ops {to:.4f})")
+        tb, to = bound_ms(5 * elems + 2 * vec, 6.0 * n * h * l * l * dh)
+        add("attention_dq", errs[0], ms_dq, pms, tb, to, TS_LAYERS, lms)
+        log(f"  attention_dq (n, h, l, dh)={(n, h, l, dh)} packed, tiled "
+            f"route: err={errs[0]} kernel={ms_dq:.4f} ms bound="
+            f"{max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
+        log(f"  tiled route per launch: D = rowsum(dO o O) {dms:.4f} ms, "
+            f"dK/dV + dQ + D {ms_dkv + ms_dq + dms:.4f} ms against the "
+            f"library's {lms:.4f} ms")
+        del qkv, q, k, v, o, lse, do, grads, dq, dk, dv, delta
+        torch.cuda.empty_cache()
 
 
 def library_attention_bwd(torch, q, k, v, do, scale):
@@ -534,7 +568,8 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         want = {"conv1x1_dx": 33 * TRAIN_STEPS, "conv1x1_dw": 33 * TRAIN_STEPS,
                 "shift_matmul": 16 * TRAIN_STEPS + 10 * val_forwards,
                 "fused_bottleneck": 6 * val_forwards, "temporal_shift": 0,
-                "attention": 0, "attention_dkv": 0, "attention_dq": 0}
+                "attention": 0, "attention_bwd": 0, "attention_dkv": 0,
+                "attention_dq": 0}
         log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
             f"{seconds:.2f} s, launches={launches}")
         if launches != want:
@@ -837,8 +872,7 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
         launches = kernels.launch_counts()
         want = {name: 0 for name in launches}
         want.update(attention=TS_LAYERS * (TRAIN_STEPS + val_forwards),
-                    attention_dkv=TS_LAYERS * TRAIN_STEPS,
-                    attention_dq=TS_LAYERS * TRAIN_STEPS)
+                    attention_bwd=TS_LAYERS * TRAIN_STEPS)
         log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
             f"{seconds:.2f} s, launches={launches}")
         if launches != want:
@@ -863,15 +897,19 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
     # would hide the temporal branch's gradients)
     variables = random_flax_variables(build_model(cfg.model), seed=0)
 
-    def no_delta(real):  # dS = P dP: the -D term left out of both kernels
-        return lambda o, do: torch.zeros_like(real(o, do))
+    def neighbour_head(real):  # the kernel reads the next head's dO
+        def fault(q, k, v, o, lse, do, *rest, **kw):
+            return real(q, k, v, o, lse, do.roll(1, dims=1), *rest, **kw)
+        fault.launches = 0  # the wrapper counts on its module's name
+        return fault
 
     # the module (the package's name ``attention`` is its wrapper function)
     ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
 
     grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
                cfg, variables, TS_TRAIN_BATCH,
-               {"dS without -D": (ka, "attention_delta", no_delta)})
+               {"dO of the neighbouring head":
+                (ka, "attention_bwd", neighbour_head)})
 
     trainer = Trainer(ts_train_config(repo, 0, 0, "unused"), device="cuda")
     state = trainer.init_state(steps_per_epoch=10, variables=variables)
@@ -889,7 +927,49 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
         f"{TS_TRAIN_BATCH} on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_call(torch, lambda: trainer.train_step(state, x_u8, y), top=20)
+    del trainer, state
+    torch.cuda.empty_cache()
     return launches, clips_s
+
+
+def tiled_route_phase(np, torch, kernels, repo: Path) -> dict:
+    """Phase 8, tiled route: one train step of TimeSformer-B/16 on
+    TS_LONG_SIZE² frames (18² + 1 = 325 tokens, more than the one-launch
+    backward's shared memory takes), so each attention backward runs the
+    tiled dK/dV and dQ kernels. Returns the step's launch counts."""
+    from workoutdetector_tpu_torch.models import build_model
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    cfg = ts_train_config(repo, 0, 0, "unused")
+    cfg.data.image_size = cfg.model.image_size = TS_LONG_SIZE
+    l = (TS_LONG_SIZE // 16) ** 2 + 1
+    if kernels.short_route(l, TS_DH):
+        raise AssertionError(f"l = {l} takes the one-launch route")
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=10, variables=random_flax_variables(
+        build_model(cfg.model), seed=0))
+    rng = np.random.default_rng(6)
+    x_u8 = rng.integers(0, 256, (TS_TRAIN_BATCH, FRAMES, TS_LONG_SIZE,
+                                 TS_LONG_SIZE, 3), dtype=np.uint8)
+    y = rng.integers(0, NUM_CLASS, TS_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    loss = float(trainer.train_step(state, x_u8, y)["loss"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {name: 0 for name in launches}
+    want.update(attention=TS_LAYERS, attention_dkv=TS_LAYERS,
+                attention_dq=TS_LAYERS)
+    log(f"    {TS_LONG_SIZE}² frames (l = {l}): one train step, loss {loss:.4f}, "
+        f"launches={launches}")
+    if launches != want:
+        raise AssertionError(f"tiled-route launch counts {launches} != {want}")
+    if not math.isfinite(loss):
+        raise AssertionError("the tiled-route train step gave a non-finite loss")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def logit_rule(np, logits, ref, what: str) -> None:
@@ -1117,6 +1197,8 @@ def main() -> int:
         f"classes, bf16, batch {TS_TRAIN_BATCH}, {TRAIN_STEPS} steps")
     ts_train_launches, ts_train_clips_s = timesformer_train_phase(
         np, torch, kernels, repo, card)
+    torch.cuda.empty_cache()
+    tiled_launches = tiled_route_phase(np, torch, kernels, repo)
 
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
@@ -1132,7 +1214,10 @@ def main() -> int:
         "attention": ("workoutdetector_tpu_torch/csrc/attention.cu",
                       "workoutdetector_tpu/models/timesformer.py:73"),
         # the library Pallas flash attention's backward kernels, which
-        # _flash_mha (timesformer.py:73) reaches under jax.grad
+        # _flash_mha (timesformer.py:73) reaches under jax.grad: both in one
+        # launch, and as the tiled route for longer sequences
+        "attention_bwd": ("workoutdetector_tpu_torch/csrc/attention_bwd_short.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:941,1287"),
         "attention_dkv": ("workoutdetector_tpu_torch/csrc/attention_bwd.cu",
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
         "attention_dq": ("workoutdetector_tpu_torch/csrc/attention_bwd.cu",
@@ -1141,13 +1226,15 @@ def main() -> int:
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
     # the 1x1 backward kernels, TimeSformer inference (7) for the attention,
-    # TimeSformer training (8) for its backward kernels
+    # TimeSformer training (8) for its backward kernel, the 288² train step
+    # (8, tiled route) for the tiled dK/dV and dQ kernels
     main_launches = dict(launches, temporal_shift=blk_launches["temporal_shift"],
                          conv1x1_dx=train_launches["conv1x1_dx"],
                          conv1x1_dw=train_launches["conv1x1_dw"],
                          attention=attention_launches,
-                         attention_dkv=ts_train_launches["attention_dkv"],
-                         attention_dq=ts_train_launches["attention_dq"])
+                         attention_bwd=ts_train_launches["attention_bwd"],
+                         attention_dkv=tiled_launches["attention_dkv"],
+                         attention_dq=tiled_launches["attention_dq"])
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]

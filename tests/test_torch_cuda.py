@@ -13,14 +13,21 @@ the plain version the normalised ones), so they may differ by a few bf16
 ulps: |kernel − plain| ≤ (1 + |plain|) / 64. The attention backward
 kernels round P and dS to bf16 where their plain version does, sum in
 another order and recompute the scores in another operand order, and are
-held to the same rule; the forward's fp32 log-sum-exp to 1e-3.
+held to the same rule, on both routes of ``attention_bwd`` (the one-launch
+kernel where ``short_route`` takes the shape, the tiled dK/dV and dQ
+kernels beyond); the forward's fp32 log-sum-exp to 1e-3.
 """
+
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from workoutdetector_tpu_torch.ops import kernels
+
+# the module (the package's name ``attention`` is its wrapper function)
+ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
 
 
 @pytest.fixture
@@ -301,13 +308,14 @@ def test_cuda_timesformer_runs_the_attention_kernel(cuda_device):
 
 
 def launches():
-    return (kernels.attention.launches, kernels.attention_dkv.launches,
-            kernels.attention_dq.launches)
+    """(forward, one-launch backward, tiled dK/dV, tiled dQ) launches."""
+    return (kernels.attention.launches, kernels.attention_bwd.launches,
+            kernels.attention_dkv.launches, kernels.attention_dq.launches)
 
 
 def _residuals(g, n, h, l, dh, packed, scale):
     """q, k, v (packed or contiguous), the plain forward's o and lse, an
-    output gradient and D = rowsum(dO ∘ O)."""
+    output gradient and D = rowsum(dO ∘ O) (which the tiled kernels read)."""
     from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
     q, k, v = _qkv(g, n, h, l, dh, packed)
     o, lse = kernels.attention_lse_plain(q, k, v, scale)
@@ -328,9 +336,10 @@ def _grads_out(n, h, l, dh, packed, device):
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("l", [1, 8, 17, 197, 300])
 def test_cuda_attention_bwd_vs_plain(cuda_device, l, packed):
-    """dK/dV and dQ kernels against attention_bwd_plain on the same
-    residuals, reading strided thirds of a packed qkv and writing into the
-    thirds of a packed gradient, or contiguous tensors."""
+    """The tiled dK/dV and dQ kernels, called directly, against
+    attention_bwd_plain on the same residuals, reading strided thirds of a
+    packed qkv and writing into the thirds of a packed gradient, or
+    contiguous tensors."""
     g = torch.Generator(device=cuda_device).manual_seed(l)
     q, k, v, o, lse, do, delta = _residuals(g, 3, 4, l, 64, packed, 0.125)
     want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
@@ -338,9 +347,117 @@ def test_cuda_attention_bwd_vs_plain(cuda_device, l, packed):
     before = launches()
     dk, dv = kernels.attention_dkv(q, k, v, do, lse, delta, 0.125, dk, dv)
     dq = kernels.attention_dq(q, k, v, do, lse, delta, 0.125, dq)
-    assert launches() == (before[0], before[1] + 1, before[2] + 1)
+    assert launches() == (before[0], before[1], before[2] + 1, before[3] + 1)
     for got, ref in zip((dq, dk, dv), want):
         _close(got, ref)
+
+
+def _route(l, dh):
+    """The launches ``attention_bwd`` should add on each route: (0, 1, 0, 0)
+    for the one-launch kernel, (0, 0, 1, 1) for the tiled kernels."""
+    return (0, 1, 0, 0) if kernels.short_route(l, dh) else (0, 0, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("l", [1, 8, 16, 17, 64, 65, 197, 224, 225, 256, 257,
+                               300])
+def test_cuda_attention_bwd_routes_vs_plain(cuda_device, l, packed):
+    """``attention_bwd`` (D, dQ, dK, dV from o and lse) against
+    attention_bwd_plain at lengths up to the one-launch kernel's limits (dS
+    kept to l = 224, S and dP recomputed to 256, at dh 64), one past each
+    and beyond, on packed thirds written into a packed gradient or on
+    contiguous tensors; each call launches the route ``short_route`` names
+    and nothing else."""
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    q, k, v, o, lse, do, _ = _residuals(g, 3, 4, l, 64, packed, 0.125)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    outs = _grads_out(3, 4, l, 64, packed, cuda_device)
+    before = launches()
+    got = kernels.attention_bwd(q, k, v, o, lse, do, 0.125, *outs)
+    assert tuple(a - b for a, b in zip(launches(), before)) == _route(l, 64)
+    if packed:
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(got, outs))
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [17, 197, 240])
+def test_cuda_attention_bwd_recomputing_variant(cuda_device, l):
+    """The one-launch kernel recomputing S and dP for dQ (the variant
+    ``attention_bwd`` runs at 224 < l ≤ 256), called at the C entry at
+    lengths where dS would fit too, against attention_bwd_plain."""
+    from workoutdetector_tpu_torch.ops.kernels import _build
+    g = torch.Generator(device=cuda_device).manual_seed(50 + l)
+    q, k, v, o, lse, do, _ = _residuals(g, 3, 4, l, 64, True, 0.125)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    got = [torch.empty_like(t) for t in (q, k, v)]
+    lib = _build.load()
+    lib.check(lib.lib.wd_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, do, o, lse, *got)),
+        ka._strides(q, k, v, do, o, *got), 3, 4, l, 64, 0.125, 0,
+        q.device.index or 0, _build.stream_handle(q.device)), "attention_bwd")
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", ka.HEAD_DIMS)
+def test_cuda_attention_bwd_every_head_width(cuda_device, dh):
+    """Every head width the kernels take, at l = 197: dh 64 on the
+    one-launch kernel, the others (no 128-byte panel) on the tiled route."""
+    g = torch.Generator(device=cuda_device).manual_seed(200 + dh)
+    s = dh ** -0.5
+    q, k, v, o, lse, do, _ = _residuals(g, 2, 3, 197, dh, True, s)
+    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, s)
+    before = launches()
+    got = kernels.attention_bwd(q, k, v, o, lse, do, s)
+    assert tuple(a - b for a, b in zip(launches(), before)) == _route(197, dh)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_one_launch_is_deterministic(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, o, lse, do, _ = _residuals(g, 16, 12, 197, 64, True, 0.125)
+    first = kernels.attention_bwd(q, k, v, o, lse, do, 0.125)
+    second = kernels.attention_bwd(q, k, v, o, lse, do, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_one_launch_refuses_unsupported(cuda_device):
+    """Non-bf16 tensors, tensors on two devices and an lse of the wrong
+    shape raise before any launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, o, lse, do, _ = _residuals(g, 2, 2, 33, 64, True, 0.125)
+    before = launches()
+    with pytest.raises(TypeError):
+        kernels.attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
+                              do.float(), 0.125)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.attention_bwd(q, k, v.cpu(), o, lse, do, 0.125)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernels.attention_bwd(q, k, v, o.cpu(), lse, do, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        kernels.attention_bwd(q, k, v, o, lse.cpu(), do, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        kernels.attention_bwd(q, k, v, o, lse[:, :, :-1].contiguous(), do, 0.125)
+    assert launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_ds", [True, False])
+def test_cuda_attention_bwd_smem_rule_is_the_kernels(cuda_device, store_ds):
+    """The route rule's shared-memory sum (attention.py) is the kernel's own
+    (wd_attention_bwd_smem in csrc/attention_bwd_short.cu)."""
+    from workoutdetector_tpu_torch.ops.kernels import _build
+    lib = _build.load().lib
+    for l in (1, 16, 17, 64, 197, 208, 224, 225, 256, 300):
+        assert lib.wd_attention_bwd_smem(l, int(store_ds)) == \
+            ka.short_smem(l, store_ds), l
 
 
 @pytest.mark.cuda
@@ -401,9 +518,9 @@ def test_cuda_attention_bwd_refuses_unsupported(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_attention_function_packed_gradient(cuda_device):
-    """``Attention`` on a packed qkv: one launch of each kernel, dqkv the
-    packed layout of attention_bwd_plain's gradients on the kernel's own
-    residuals."""
+    """``Attention`` on a packed qkv at l = 197: one forward and one
+    one-launch backward, dqkv the packed layout of attention_bwd_plain's
+    gradients on the kernel's own residuals."""
     from workoutdetector_tpu_torch.ops.kernels.attention import attention_delta
     g = torch.Generator(device=cuda_device).manual_seed(4)
     n, h, l, dh = 4, 12, 197, 64
@@ -413,7 +530,7 @@ def test_cuda_attention_function_packed_gradient(cuda_device):
     out = kernels.Attention.apply(qkv, h, 0.125)
     do = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
     out.backward(do)
-    assert launches() == tuple(b + 1 for b in before)
+    assert launches() == (before[0] + 1, before[1] + 1, before[2], before[3])
     q, k, v = kernels.split_heads(qkv.detach(), h)
     o, lse = kernels.attention_lse(q, k, v, 0.125)
     (do4,) = kernels.split_heads(do, h, parts=1)
@@ -426,7 +543,8 @@ def test_cuda_attention_function_packed_gradient(cuda_device):
 @pytest.mark.cuda
 def test_cuda_timesformer_train_step_runs_the_backward_kernels(cuda_device):
     """A small divided TimeSformer train step (bf16) on the card: per block
-    one attention, one dK/dV and one dQ launch, finite nonzero gradients."""
+    one attention and one one-launch backward (l = 17), finite nonzero
+    gradients."""
     from workoutdetector_tpu_torch.models import (TimeSformer,
                                                   load_flax_variables)
     from workoutdetector_tpu_torch.models.convert import random_flax_variables
@@ -440,7 +558,7 @@ def test_cuda_timesformer_train_step_runs_the_backward_kernels(cuda_device):
     logits = m(x, dropout_generator=torch.Generator(
         device=cuda_device).manual_seed(0))
     logits.sum().backward()
-    assert launches() == tuple(b + 2 for b in before)
+    assert launches() == (before[0] + 2, before[1] + 2, before[2], before[3])
     for name, p in m.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max() > 0, name

@@ -11,7 +11,9 @@ Layer map:
   ops.temporal_shift — plain TSM shift / shift-conv
   ops.kernels        — hand kernels (shift, shift-matmul, fused bottleneck,
                        1×1-conv backward dx / dW, attention forward and
-                       its dK/dV and dQ backward), each with its plain
+                       its backward: one launch for D, dQ, dK and dV
+                       where a (sample, head) fits a block, the tiled
+                       dK/dV and dQ kernels beyond), each with its plain
                        PyTorch version beside it, and the autograd
                        Functions built on them
   models             — ResNet / TSM (NHWC at the public surface, train and

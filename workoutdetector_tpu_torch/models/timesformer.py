@@ -11,8 +11,10 @@ MLP, all pre-LayerNorm (eps 1e-6, exact GELU); ``joint_space_time`` and
 Tokens live as (B, P, T, D) in the divided blocks, as in the JAX package.
 On the main path (``flash=True``) the spatial attention of every divided
 block is the hand attention kernel (``ops.kernels``): under autograd the
-packed-qkv ``Attention`` function, whose backward runs the dK/dV and dQ
-kernels. The temporal attention (l = T) and the joint blocks' attention
+packed-qkv ``Attention`` function, whose backward is one launch of the
+kernel that computes D, dQ, dK and dV (``attention_bwd``; the tiled dK/dV
+and dQ kernels for sequences beyond its shared memory, l > 224). The
+temporal attention (l = T) and the joint blocks' attention
 are plain torch ops, as they take the XLA path in the JAX package.
 Parameters are fp32, compute runs in ``dtype``, logits come back fp32.
 
@@ -99,7 +101,8 @@ class MHA(nn.Module):
 
     ``flash=True`` runs softmax(q kᵀ) v through the ``Attention`` function
     on the packed projection (no copy): the forward kernel, and under
-    autograd the dK/dV and dQ kernels, whose gradient comes back packed;
+    autograd ``attention_bwd`` (at ViT-B/16's l = 197 one launch that
+    computes D, dQ, dK and dV), whose gradient comes back packed;
     otherwise plain torch ops in the compute dtype, as the JAX package's
     XLA path. ``proj_drop``: the hidden dropout after ``proj``.
     """

@@ -7,8 +7,9 @@ loaded at import: ``_build.load()`` runs at the first CUDA launch.
 """
 
 from workoutdetector_tpu_torch.ops.kernels.attention import (
-    Attention, attention, attention_bwd_plain, attention_dkv, attention_dq,
-    attention_lse, attention_lse_plain, attention_plain, split_heads)
+    Attention, attention, attention_bwd, attention_bwd_plain, attention_dkv,
+    attention_dq, attention_lse, attention_lse_plain, attention_plain,
+    keeps_ds, short_route, split_heads)
 from workoutdetector_tpu_torch.ops.kernels.conv1x1 import (
     Conv1x1, ShiftConv1x1, conv1x1_dw, conv1x1_dw_plain, conv1x1_dx,
     conv1x1_dx_plain)
@@ -20,7 +21,7 @@ from workoutdetector_tpu_torch.ops.kernels.shift_matmul import (
     shift_matmul, shift_matmul_plain)
 
 WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck, conv1x1_dx,
-            conv1x1_dw, attention, attention_dkv, attention_dq)
+            conv1x1_dw, attention, attention_bwd, attention_dkv, attention_dq)
 
 
 def reset_launches() -> None:
@@ -35,9 +36,9 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "Attention", "attention", "attention_bwd_plain", "attention_dkv",
-    "attention_dq", "attention_lse", "attention_lse_plain", "attention_plain",
-    "split_heads", "Conv1x1", "ShiftConv1x1",
+    "Attention", "attention", "attention_bwd", "attention_bwd_plain",
+    "attention_dkv", "attention_dq", "attention_lse", "attention_lse_plain",
+    "attention_plain", "keeps_ds", "short_route", "split_heads", "Conv1x1", "ShiftConv1x1",
     "conv1x1_dw", "conv1x1_dw_plain", "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
     "fused_bottleneck", "fused_bottleneck_plain", "TemporalShift",
     "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",

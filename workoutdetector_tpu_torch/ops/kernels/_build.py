@@ -11,7 +11,7 @@ The library is cached by the content of ``csrc/`` under
 ``workoutdetector_tpu_torch/_build/`` (ignored by git): the first use in
 a checkout builds it, later uses load it.
 
-The TMA kernels (``conv1x1_bwd.cu``) describe their tiles with tensor
+The TMA kernels (``conv1x1_bwd.cu``, ``attention_bwd_short.cu``) describe their tiles with tensor
 maps made by the CUDA driver API's ``cuTensorMapEncodeTiled``. The
 library takes that entry point from the runtime
 (``cudaGetDriverEntryPointByVersion``, see ``csrc/wd_wgmma.cuh``), so it
@@ -55,6 +55,9 @@ SIGNATURES: Dict[str, List] = {
                                         ctypes.c_float, I, P],
     "wd_attention_dq_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
                                        ctypes.c_float, I, P],
+    "wd_attention_bwd_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
+                                        ctypes.c_float, I, I, P],
+    "wd_attention_bwd_smem": [I, I],
 }
 
 

@@ -4,13 +4,17 @@ o = softmax(q kᵀ · scale) v, and its gradient.
 Port of the library Pallas TPU flash attention that
 ``workoutdetector_tpu/models/timesformer.py`` (``_flash_mha``) calls: the
 forward kernel in ``csrc/attention.cu`` (which also writes each query
-row's log-sum-exp under autograd), the backward kernels in
-``csrc/attention_bwd.cu`` (dK/dV and dQ, the library's
-``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``), and the
-plain versions of all three. In TimeSformer they run the spatial attention
-of every divided block: per ViT-B train step 12 forward, 12 dK/dV and 12
-dQ launches. Bounds and designs: see the notes at the top of the CUDA
-sources.
+row's log-sum-exp under autograd) and the backward of the library's
+``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``, with the
+plain versions of both. The backward has two routes (``attention_bwd``):
+where one (sample, head) slice fits a block's shared memory
+(``short_route``), one kernel (``csrc/attention_bwd_short.cu``) computes D =
+rowsum(dO ∘ O), dQ, dK and dV in one launch; longer sequences go to the
+tiled dK/dV and dQ kernels (``csrc/attention_bwd.cu``) with D formed by
+``attention_delta`` beside them. In TimeSformer-B/16 (l = 197, dh = 64)
+they run the spatial attention of every divided block: per train step 12
+forward and 12 ``attention_bwd`` launches. Bounds and designs: see the
+notes at the top of the CUDA sources.
 
 Layout: q, k, v are (n, h, l, dh), the JAX package's head-major layout;
 ``Attention`` takes the packed (n, l, 3·h·dh) qkv projection and returns
@@ -27,6 +31,17 @@ import torch
 from workoutdetector_tpu_torch.ops.kernels import _build
 
 HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernels take
+
+# The one-launch backward (csrc/attention_bwd_short.cu) keeps a whole
+# (sample, head) slice in shared memory, in 128-byte rows (dh 64): q, k, v,
+# dO and o in R = l rounded up to 16 rows each, lse and D in fp32 and,
+# where it fits, dS in bf16 (one R-row tile per 64 queries, over o's rows);
+# where it does not, the kernel recomputes S and dP for dQ (7 products
+# instead of 5). A block may use SHORT_SMEM_MAX bytes, and a TMA box
+# SHORT_MAX_ROWS rows.
+SHORT_HEAD_DIMS = (64,)
+SHORT_SMEM_MAX = 232448
+SHORT_MAX_ROWS = 256
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,8 +66,9 @@ def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """D = rowsum(dO ∘ O) in fp32, contiguous (n, h, l): the term both
-    backward kernels subtract from dP (a jnp op outside the TPU kernels)."""
+    """D = rowsum(dO ∘ O) in fp32, contiguous (n, h, l): the term the tiled
+    dK/dV and dQ kernels subtract from dP (a jnp op outside the TPU
+    kernels; the one-launch kernel forms it itself)."""
     return (o.float() * do.float()).sum(-1).contiguous()
 
 
@@ -150,7 +166,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     packed qkv projection); the kernel's result is the (n, h, l, dh) view
     of a contiguous (n, l, h, dh) buffer. Forward only: under autograd on
     CUDA it raises, and the caller runs ``Attention`` on the packed qkv
-    projection, whose backward launches the dK/dV and dQ kernels."""
+    projection, whose backward runs ``attention_bwd``."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -166,12 +182,7 @@ attention.launches = 0
 def _backward(which: str, q, k, v, do, lse, delta, scale, dq, dk, dv):
     n, h, l, dh = _check(which, q, k, v, do, *(t for t in (dq, dk, dv)
                                               if t is not None))
-    if lse.shape != (n, h, l) or delta.shape != (n, h, l) or \
-            lse.dtype != torch.float32 or delta.dtype != torch.float32 or \
-            not (lse.is_contiguous() and delta.is_contiguous()) or \
-            lse.device != q.device or delta.device != q.device:
-        raise ValueError(f"{which} kernel: lse and delta must be contiguous "
-                         f"fp32 {(n, h, l)} on {q.device}")
+    _check_vectors(which, (n, h, l), q.device, lse=lse, delta=delta)
     stand_in = q  # strides of an output the entry point does not write
     lib = _build.load()
     fn = getattr(lib.lib, f"wd_{which}_bf16")
@@ -185,6 +196,17 @@ def _backward(which: str, q, k, v, do, lse, delta, scale, dq, dk, dv):
         _build.stream_handle(q.device)), which)
 
 
+def _check_vectors(what: str, shape, device, **vectors) -> None:
+    """Refuse per-row fp32 vectors (lse, D) that are not contiguous fp32 of
+    ``shape`` on ``device``."""
+    for name, t in vectors.items():
+        if t.shape != shape or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{what} kernel: {' and '.join(vectors)} must be "
+                             f"contiguous fp32 {shape} on {device}, {name} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _out(like: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.empty(like.shape, dtype=like.dtype, device=like.device) \
         if out is None else out
@@ -195,8 +217,9 @@ def attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, dk: Optional[torch.Tensor] = None,
                   dv: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV of the attention, the dK/dV kernel for CUDA tensors (bf16)
-    and the plain version for CPU ones. lse, delta: fp32 (n, h, l) from
+    """dK and dV of the attention, the tiled dK/dV kernel for CUDA tensors
+    (bf16) and the plain version for CPU ones: ``attention_bwd``'s route
+    for sequences too long for one block. lse, delta: fp32 (n, h, l) from
     the forward and ``attention_delta``. Written into ``dk`` and ``dv``
     when given (any views with a unit last stride, e.g. thirds of a
     packed gradient), else into new (n, h, l, dh) tensors."""
@@ -216,8 +239,8 @@ def attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  scale: float, dq: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """dQ of the attention, the dQ kernel for CUDA tensors (bf16) and the
-    plain version for CPU ones; arguments as ``attention_dkv``'s."""
+    """dQ of the attention, the tiled dQ kernel for CUDA tensors (bf16) and
+    the plain version for CPU ones; arguments as ``attention_dkv``'s."""
     dq = _out(q, dq)
     if q.device.type == "cpu":
         return dq.copy_(_bwd_plain(q, k, v, do, lse, delta, scale)[0])
@@ -227,6 +250,80 @@ def attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention_dq.launches = 0
+
+
+def short_smem(l: int, store_ds: bool) -> int:
+    """Bytes of shared memory the one-launch backward takes for one
+    (sample, head) slice of length l at dh 64, as
+    ``csrc/attention_bwd_short.cu``'s ``short_smem``: 1024 of alignment
+    slack, q, k, v and dO (R = l rounded up to 16 rows of 128 bytes each),
+    o's R rows or, with ``store_ds``, dS (one R-row tile per 64 queries) in
+    their place, lse and D in fp32, two 8-byte mbarriers."""
+    r = -(-l // 16) * 16
+    o_or_ds = (-(-r // 64) if store_ds else 1) * r * 128
+    return 1024 + 4 * r * 128 + o_or_ds + 2 * r * 4 + 16
+
+
+def keeps_ds(l: int) -> bool:
+    """Whether the one-launch backward keeps dS in shared memory at length
+    l (five products; l ≤ 224) or recomputes S and dP for dQ (seven; 224 <
+    l ≤ 256)."""
+    return short_smem(l, True) <= SHORT_SMEM_MAX
+
+
+def short_route(l: int, dh: int) -> bool:
+    """The route rule of ``attention_bwd``: True where the one-launch kernel
+    takes (l, dh): dh in SHORT_HEAD_DIMS, l within one TMA box
+    (SHORT_MAX_ROWS) and its slice within SHORT_SMEM_MAX bytes of shared
+    memory (``short_smem``), i.e. 1 ≤ l ≤ 256 at dh 64; elsewhere the tiled
+    dK/dV and dQ kernels run."""
+    return dh in SHORT_HEAD_DIMS and 0 < l <= SHORT_MAX_ROWS and \
+        short_smem(l, keeps_ds(l)) <= SHORT_SMEM_MAX
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  scale: float, dq: Optional[torch.Tensor] = None,
+                  dk: Optional[torch.Tensor] = None,
+                  dv: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of o = softmax(q kᵀ · scale) v for the output gradient
+    ``do``, from the forward's residuals (o and the fp32 (n, h, l)
+    log-sum-exp from ``attention_lse``), written into ``dq``, ``dk``,
+    ``dv`` when given (any views with a unit last stride, e.g. the thirds
+    of a packed gradient), else into new (n, h, l, dh) tensors.
+
+    CPU tensors: ``attention_bwd_plain``. CUDA tensors (bf16): where
+    ``short_route(l, dh)``, one launch of the kernel that computes D, dQ,
+    dK and dV (counted in ``attention_bwd.launches``; dS kept in shared
+    memory where ``keeps_ds(l)``); elsewhere the tiled route,
+    ``attention_delta`` then ``attention_dkv`` and ``attention_dq``
+    (counted in theirs). Anything else raises."""
+    dq, dk, dv = _out(q, dq), _out(k, dk), _out(v, dv)
+    if q.device.type == "cpu":
+        for out, g in zip((dq, dk, dv),
+                          attention_bwd_plain(q, k, v, o, lse, do, scale)):
+            out.copy_(g)
+        return dq, dk, dv
+    n, h, l, dh = _check("attention_bwd", q, k, v, do, o, dq, dk, dv)
+    _check_vectors("attention_bwd", (n, h, l), q.device, lse=lse)
+    if not short_route(l, dh):
+        delta = attention_delta(o, do)
+        attention_dkv(q, k, v, do, lse, delta, scale, dk, dv)
+        attention_dq(q, k, v, do, lse, delta, scale, dq)
+        return dq, dk, dv
+    lib = _build.load()
+    lib.check(lib.lib.wd_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do, o, dq, dk, dv), n, h, l, dh, float(scale),
+        int(keeps_ds(l)), q.device.index or 0, _build.stream_handle(q.device)),
+        "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0
 
 
 def split_heads(x: torch.Tensor, num_heads: int, parts: int = 3):
@@ -242,10 +339,11 @@ class Attention(torch.autograd.Function):
     → (n, l, h·dh), with its gradient in the packed layout.
 
     On CUDA (bf16) the forward kernel writes o and the log-sum-exp, which
-    are saved with qkv; the backward computes D = rowsum(dO ∘ O) and runs
-    the dK/dV and dQ kernels, which write into the thirds of one packed
-    gradient, so the qkv projection's backward reads it as it is. On the
-    CPU the same steps run the plain versions."""
+    are saved with qkv; the backward is one ``attention_bwd`` call, which
+    writes dQ, dK and dV into the thirds of one packed gradient, so the
+    qkv projection's backward reads it as it is (at TimeSformer's l = 197
+    one launch that also forms D). On the CPU the same steps run the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float
@@ -265,9 +363,6 @@ class Attention(torch.autograd.Function):
         q, k, v = split_heads(qkv, h)
         (o4,) = split_heads(o, h, parts=1)
         (do4,) = split_heads(do.contiguous(), h, parts=1)
-        delta = attention_delta(o4, do4)
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        dq, dk, dv = split_heads(dqkv, h)
-        attention_dkv(q, k, v, do4, lse, delta, ctx.scale, dk, dv)
-        attention_dq(q, k, v, do4, lse, delta, ctx.scale, dq)
+        attention_bwd(q, k, v, o4, lse, do4, ctx.scale, *split_heads(dqkv, h))
         return dqkv, None, None
