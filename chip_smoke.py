@@ -18,10 +18,11 @@ not printed; no CUDA device → exit 2):
      (D, dQ, dK and dV) at the same shape, o and lse from the forward
      kernel, writing into a packed gradient, beside the backward alone of
      ``scaled_dot_product_attention``; and the tiled dK/dV and dQ kernels,
-     the backward's route for sequences too long for one block, at l =
-     300: max error, kernel / plain / library time and the bound (per
-     site, the larger of the call's bytes over the H100's 3.35 TB/s and
-     its operations over 989 TFLOP/s bf16);
+     the backward's route for sequences too long for one block, at the
+     shape phase 8's 288² step gives them (l = 325): max error, kernel /
+     plain / library time and the bound (per site, the larger of the
+     call's bytes over the H100's 3.35 TB/s and its operations over 989
+     TFLOP/s bf16);
   4. the main path: TSM-R50 224², 8 segments, 12 classes, bf16, random
      numpy-seeded flax weights through ``load_flax_variables``;
      ``InferenceEngine.score_video`` on a synthetic ~300-frame uint8 video
@@ -85,8 +86,8 @@ of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
 ``scaled_dot_product_attention`` on the same q, k, v views. The
 attention backward rows are per train step (12 launches each): the
 one-launch kernel's at TimeSformer-B/16's l = 197, the tiled dK/dV and dQ
-kernels' at l = 300. Their ``plain_ms`` and ``library_ms`` are each one
-call that computes dQ, dK and dV together (``attention_bwd_plain``; the
+kernels' at the 288² step's l = 325. Their ``plain_ms`` and
+``library_ms`` are each one call that computes dQ, dK and dV together (``attention_bwd_plain``; the
 backward alone of ``scaled_dot_product_attention`` on contiguous q, k, v,
 the fastest of its backends, which also computes D = rowsum(dO ∘ O)), the
 same number in the dK/dV and dQ rows; phase 3 prints the tiled route's
@@ -116,8 +117,10 @@ TRAIN_STEPS = 4
 TS_LAYERS, TS_HEADS, TS_DH = 12, 12, 64
 TS_TOKENS = (SIZE // 16) ** 2 + 1  # 196 patches + the cls token
 TS_TRAIN_BATCH = 16  # timesformer.yaml's batch
-TS_LONG_SIZE = 288   # frames whose 325 tokens take the tiled backward route
-TILED_L = 300        # the tiled route's check in phase 3 (beyond l = 224)
+TS_LONG_SIZE = 288   # frames whose tokens take the tiled backward route
+# their tokens (18² patches + the cls token = 325, beyond the one-launch
+# kernel's l ≤ 224): phase 3 checks and times the tiled kernels at this l
+TILED_L = (TS_LONG_SIZE // 16) ** 2 + 1
 TOL = 1.0 / 64  # |kernel - plain| <= TOL * (1 + |plain|): a few bf16 ulps
 # dW entries are sums of up to 802,816 bf16 products, taken in fp32 in
 # another order (tensor-core partial sums, then the row splits) than the
@@ -202,9 +205,9 @@ def ptxas_summary(text: str) -> list:
         if entry:
             mangled = entry.group(1)
             name = next((k for k in HAND_KERNELS if k in mangled), mangled)
-            args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+            args = re.search(r"I((?:Li\d+E)+)E", mangled)
             if args:
-                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -934,16 +937,17 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
 
 def tiled_route_phase(np, torch, kernels, repo: Path) -> dict:
     """Phase 8, tiled route: one train step of TimeSformer-B/16 on
-    TS_LONG_SIZE² frames (18² + 1 = 325 tokens, more than the one-launch
-    backward's shared memory takes), so each attention backward runs the
-    tiled dK/dV and dQ kernels. Returns the step's launch counts."""
+    TS_LONG_SIZE² frames (TILED_L = 18² + 1 = 325 tokens, more than the
+    one-launch backward's shared memory takes), so each attention backward
+    runs the tiled dK/dV and dQ kernels at the shape phase 3 checks them
+    at. Returns the step's launch counts."""
     from workoutdetector_tpu_torch.models import build_model
     from workoutdetector_tpu_torch.models.convert import random_flax_variables
     from workoutdetector_tpu_torch.train.trainer import Trainer
 
     cfg = ts_train_config(repo, 0, 0, "unused")
     cfg.data.image_size = cfg.model.image_size = TS_LONG_SIZE
-    l = (TS_LONG_SIZE // 16) ** 2 + 1
+    l = TILED_L
     if kernels.short_route(l, TS_DH):
         raise AssertionError(f"l = {l} takes the one-launch route")
     trainer = Trainer(cfg, device="cuda")

@@ -25,42 +25,35 @@ from workoutdetector_tpu_torch.ops import kernels
 ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
 
 
-@pytest.mark.parametrize("l, dh, short, keeps_ds", [
-    (1, 64, True, True),
-    (197, 64, True, True),     # TimeSformer-B/16 at 224²
-    (224, 64, True, True),     # the last length with dS kept
-    (225, 64, True, False),    # S and dP recomputed for dQ
-    (240, 64, True, False),
-    (256, 64, True, False),    # the last length in one TMA box
-    (257, 64, False, False),   # 256² frames: tiled
-    (300, 64, False, False),
-    (0, 64, False, True),
-    (197, 32, False, True),    # head widths other than 64: tiled
-    (197, 128, False, True),
+@pytest.mark.parametrize("l, dh, short", [
+    (1, 64, True),
+    (197, 64, True),      # TimeSformer-B/16 at 224²
+    (208, 64, True),
+    (224, 64, True),      # the last length whose slice fits a block
+    (225, 64, False),     # one past the limit: tiled
+    (240, 64, False),
+    (256, 64, False),
+    (257, 64, False),     # 256² frames
+    (300, 64, False),
+    (0, 64, False),
+    (197, 32, False),     # head widths other than 64: tiled
+    (197, 128, False),
 ])
-def test_short_route_rule(l, dh, short, keeps_ds):
+def test_short_route_rule(l, dh, short):
     assert ka.short_route(l, dh) is short
-    assert ka.keeps_ds(l) is keeps_ds
 
 
-@pytest.mark.parametrize("store_ds, limit", [(True, 224), (False, 256)])
-def test_short_route_limit_is_the_shared_memory_reckoning(store_ds, limit):
-    """Each variant's limit is where its shared memory (or the one-box TMA
-    load) runs out: l = limit fits a block, l = limit + 16 does not; the
-    route takes every length up to 256, dS kept up to 224."""
-    fits = [l for l in range(1, 600) if l <= ka.SHORT_MAX_ROWS
-            and ka.short_smem(l, store_ds) <= ka.SHORT_SMEM_MAX]
-    assert fits == list(range(1, limit + 1))
-    assert (ka.short_smem(limit + 16, store_ds) > ka.SHORT_SMEM_MAX
-            or limit + 16 > ka.SHORT_MAX_ROWS)
-    assert [l for l in range(1, 600) if ka.short_route(l, 64)] == \
-        list(range(1, 257))
-    assert [l for l in range(1, 257) if ka.keeps_ds(l)] == list(range(1, 225))
-    # l = 197: q, k, v, dO 4 × 208 rows of 128 bytes, dS 4 × 208 (or o
-    # 208) rows, lse and D 2 × 208 floats, 1024 + 16 bytes
-    r = 208
-    want = 1024 + 4 * r * 128 + (4 if store_ds else 1) * r * 128 + 8 * r + 16
-    assert ka.short_smem(197, store_ds) == want
+@pytest.mark.parametrize("l, rows", [(197, 208), (224, 224)])
+def test_short_route_limit_is_the_shared_memory_reckoning(l, rows):
+    """The route's limit is where the kernel's shared memory runs out: every
+    length up to 224 fits a block, none beyond; and the sum at l = 197 and
+    at the limit is q, k, v, dO (4 R rows of 128 bytes), dS (one R-row tile
+    per 64 queries), lse and D (2 R floats) and 1024 + 16 bytes."""
+    assert [n for n in range(1, 600) if ka.short_route(n, 64)] == \
+        list(range(1, 225))
+    assert ka.short_smem(224) <= ka.SHORT_SMEM_MAX < ka.short_smem(225)
+    want = 1024 + 4 * rows * 128 + -(-rows // 64) * rows * 128 + 8 * rows + 16
+    assert ka.short_smem(l) == want <= ka.SHORT_SMEM_MAX
 
 
 @pytest.mark.parametrize("packed", [True, False])

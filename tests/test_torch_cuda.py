@@ -364,11 +364,10 @@ def _route(l, dh):
                                300])
 def test_cuda_attention_bwd_routes_vs_plain(cuda_device, l, packed):
     """``attention_bwd`` (D, dQ, dK, dV from o and lse) against
-    attention_bwd_plain at lengths up to the one-launch kernel's limits (dS
-    kept to l = 224, S and dP recomputed to 256, at dh 64), one past each
-    and beyond, on packed thirds written into a packed gradient or on
-    contiguous tensors; each call launches the route ``short_route`` names
-    and nothing else."""
+    attention_bwd_plain at lengths up to the one-launch kernel's limit (l =
+    224 at dh 64), one past it and beyond, on packed thirds written into a
+    packed gradient or on contiguous tensors; each call launches the route
+    ``short_route`` names and nothing else."""
     g = torch.Generator(device=cuda_device).manual_seed(l)
     q, k, v, o, lse, do, _ = _residuals(g, 3, 4, l, 64, packed, 0.125)
     want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
@@ -378,26 +377,6 @@ def test_cuda_attention_bwd_routes_vs_plain(cuda_device, l, packed):
     assert tuple(a - b for a, b in zip(launches(), before)) == _route(l, 64)
     if packed:
         assert all(a.data_ptr() == b.data_ptr() for a, b in zip(got, outs))
-    for a, b in zip(got, want):
-        _close(a, b)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("l", [17, 197, 240])
-def test_cuda_attention_bwd_recomputing_variant(cuda_device, l):
-    """The one-launch kernel recomputing S and dP for dQ (the variant
-    ``attention_bwd`` runs at 224 < l ≤ 256), called at the C entry at
-    lengths where dS would fit too, against attention_bwd_plain."""
-    from workoutdetector_tpu_torch.ops.kernels import _build
-    g = torch.Generator(device=cuda_device).manual_seed(50 + l)
-    q, k, v, o, lse, do, _ = _residuals(g, 3, 4, l, 64, True, 0.125)
-    want = kernels.attention_bwd_plain(q, k, v, o, lse, do, 0.125)
-    got = [torch.empty_like(t) for t in (q, k, v)]
-    lib = _build.load()
-    lib.check(lib.lib.wd_attention_bwd_bf16(
-        *(t.data_ptr() for t in (q, k, v, do, o, lse, *got)),
-        ka._strides(q, k, v, do, o, *got), 3, 4, l, 64, 0.125, 0,
-        q.device.index or 0, _build.stream_handle(q.device)), "attention_bwd")
     for a, b in zip(got, want):
         _close(a, b)
 
@@ -449,15 +428,13 @@ def test_cuda_attention_bwd_one_launch_refuses_unsupported(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("store_ds", [True, False])
-def test_cuda_attention_bwd_smem_rule_is_the_kernels(cuda_device, store_ds):
+def test_cuda_attention_bwd_smem_rule_is_the_kernels(cuda_device):
     """The route rule's shared-memory sum (attention.py) is the kernel's own
     (wd_attention_bwd_smem in csrc/attention_bwd_short.cu)."""
     from workoutdetector_tpu_torch.ops.kernels import _build
     lib = _build.load().lib
     for l in (1, 16, 17, 64, 197, 208, 224, 225, 256, 300):
-        assert lib.wd_attention_bwd_smem(l, int(store_ds)) == \
-            ka.short_smem(l, store_ds), l
+        assert lib.wd_attention_bwd_smem(l) == ka.short_smem(l), l
 
 
 @pytest.mark.cuda

@@ -5,7 +5,7 @@
 //   dV = P^T dO,   dK = scale dS^T q,   dQ = scale dS k.
 //
 // attention_bwd's route for the sequences whose (sample, head) slice does not
-// fit the one-launch kernel of attention_bwd_short.cu (l > 256 at dh = 64)
+// fit the one-launch kernel of attention_bwd_short.cu (l > 224 at dh = 64)
 // and for head widths other than 64.
 //
 // Replaces the backward of the library Pallas TPU flash attention that
@@ -71,6 +71,25 @@ __device__ __forceinline__ const bf16* slice(const bf16* p,
                                              const int64_t (&s)[3], int nn,
                                              int hh) {
   return p + nn * s[0] + hh * s[1];
+}
+
+// rows [r0, r0 + 16) of a (16, DH) fp32 accumulator, times mul, rounded once
+// to bf16 into rows r < l of a strided (n, h) slice
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* base, int64_t sl,
+                                           const float (&acc)[DH / 8][4],
+                                           int r0, int l, float mul) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= l) continue;
+    bf16* out = base + row * sl + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<uint32_t*>(out + i * 8) =
+          pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+  }
 }
 
 template <int DH>

@@ -19,17 +19,15 @@
 // at 3.35 TB/s. Five products of 2 l^2 dh (S, dP, dV, dK, dQ): 3.82e10 FLOP,
 // 38.6 us at 989 TFLOP/s.
 //
-// Shared memory, and the route's limit (dh = 64, 128-byte rows). q, k, v, dO
-// and o take R = l rounded up to 16 rows each; lse log2 e and D 8 R bytes.
-// With dS kept (STORE_DS), dS^T in bf16 takes one R-row tile per 64 queries,
-// over o's rows (o is read for D before dS is written). Plus 1024 bytes to
-// align the tiles and two mbarriers. At l = 197 (R = 208): 4 x 26,624 (q, k,
-// v, dO) + 4 x 26,624 (dS^T) + 1,664 + 1,040 = 215,696 bytes. A block may use
-// 232,448: with dS kept l <= 224; recomputing S and dP for dQ instead (o's
-// tile only), l <= 256, one TMA box of at most 256 rows. short_smem() below
-// and attention.py:short_smem() compute the same sum: the wrapper keeps dS
-// where it fits, recomputes where only that fits, and routes longer
-// sequences to the tiled kernels.
+// Shared memory, and the route's limit (dh = 64, 128-byte rows). q, k, v and
+// dO take R = l rounded up to 16 rows each; dS^T in bf16 one R-row tile per
+// 64 queries, over o's rows (o is read for D before dS is written); lse log2
+// e and D 8 R bytes. Plus 1024 bytes to align the tiles and two mbarriers.
+// At l = 197 (R = 208): 4 x 26,624 (q, k, v, dO) + 4 x 26,624 (dS^T) + 1,664
+// + 1,040 = 215,696 bytes. A block may use 232,448, so l <= 224 (and a TMA
+// box of at most 224 rows, within its 256). short_smem() below and
+// attention.py:short_smem() compute the same sum: the wrapper sends a shape
+// here where it fits and routes longer sequences to the tiled kernels.
 //
 // Design. One block of two warpgroups per (n, h): 1536 blocks at the shape
 // above, one block per SM (11.6 waves).
@@ -39,7 +37,7 @@
 // read twice. q, k and v are thirds of the packed qkv projection (row stride
 // 3 h dh). The tiles land 128-byte swizzled (16-byte chunk j of row r at
 // j ^ (r % 8)): wgmma's canonical layout, and free of bank conflicts for
-// ldmatrix. dO and o arrive on one mbarrier, q, k and v on another: D =
+// the 16-byte reads that form D. dO and o arrive on one mbarrier, q, k and v on another: D =
 // rowsum(dO o O) is formed in fp32 from the two tiles while q, k and v are in
 // flight. No fp32 copy of anything goes to device memory.
 // Phase 1, keys as rows, on wgmma: each warpgroup owns 64-key M tiles (l =
@@ -51,17 +49,16 @@
 // accumulators (columns past l masked by lse = +inf) and packed to bf16 as
 // register A operands of dV += P^T dO and dK += dS^T Q (B N-major), which run
 // while the next step's S^T and dP^T are issued. dK and dV stay in fp32
-// registers through the sweep. With STORE_DS each step also writes dS^T (the
-// bf16 value dK used) to shared memory, swizzled as a wgmma operand. Phase 2,
-// queries as rows: with STORE_DS on wgmma, dQ = scale dS K (A = dS from the
-// dS^T tiles, M-major; B = K, N-major), five products in all; without, S and
-// dP are recomputed with queries as rows on mma.sync m16n8k16 (seven
-// products; at l = 197 0.30 against 0.24 ms a launch on the H100). dS^T
-// leaves the registers by stmatrix, two 16 x 16 tiles a step. wgmma rather
-// than mma.sync for phase 1, though its 64-row tiles pad l = 197 to 256
-// (1.30x) where mma.sync's 16-row tiles pad it to 208: a first version with
-// phase 1 on mma.sync ran 0.44 ms a launch at l = 197 on the H100, this one
-// 0.24 (tools/attention_bwd_bench.py).
+// registers through the sweep. Each step also writes dS^T (the bf16 value dK
+// used) to shared memory by stmatrix, two 16 x 16 tiles a step, swizzled as a
+// wgmma operand. Phase 2, queries as rows, on wgmma: dQ = scale dS K (A = dS
+// from the dS^T tiles, M-major; B = K, N-major), five products in all.
+// Keeping dS rather than recomputing S and dP for dQ (seven products, o's
+// tile only): at l = 197 the recomputing variant still ran one block per SM
+// and took 0.30 against 0.24 ms a launch on the H100. wgmma rather than
+// mma.sync for phase 1, though its 64-row tiles pad l = 197 to 256 (1.30x)
+// where mma.sync's 16-row tiles pad it to 208: a first version with phase 1
+// on mma.sync ran 0.44 ms a launch at l = 197 on the H100, this one 0.24.
 // Numerics as attention_bwd.cu's: P = exp2(s scale log2 e - lse log2 e), set
 // to 0 outside the l x l square; P and dS rounded to bf16 once, as A operands;
 // scale applied once in fp32; each output rounded to bf16 once. No atomics:
@@ -78,7 +75,6 @@ constexpr int NW = 8;             // warps: two warpgroups
 constexpr int NT = NW * 32;
 constexpr int STEP = 32;          // queries a phase-1 step (R % 32 is 0 or 16)
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
-constexpr int MAX_ROWS = 256;     // rows of one TMA box
 
 enum { SDQ = 0, SDK, SDV };  // rows of ShortArgs::st
 
@@ -94,17 +90,17 @@ struct ShortArgs {
   float scale, scale_log2;
 };
 
-// Bytes of the region that holds o's R rows, overlaid with STORE_DS by dS^T:
-// one R-row tile of 128-byte rows per 64 queries.
-__host__ __device__ inline int64_t o_region(int64_t R, bool store_ds) {
-  return (store_ds ? (R + 63) / 64 : 1) * R * 128;
+// Bytes of the region that holds o's R rows, then dS^T: one R-row tile of
+// 128-byte rows per 64 queries.
+__host__ __device__ inline int64_t ds_region(int64_t R) {
+  return (R + 63) / 64 * R * 128;
 }
 
 // Shared memory: k, v, q, dO (R rows each), the o / dS^T region, lse log2 e
 // and D (R floats), two mbarriers; 1024 bytes of slack to align the tiles.
-__host__ __device__ inline int64_t short_smem(int l, bool store_ds) {
+__host__ __device__ inline int64_t short_smem(int l) {
   const int64_t R = (l + 15) / 16 * 16;
-  return 1024 + 4 * R * 128 + o_region(R, store_ds) + 2 * R * 4 + 16;
+  return 1024 + 4 * R * 128 + ds_region(R) + 2 * R * 4 + 16;
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -118,23 +114,6 @@ __device__ __forceinline__ const bf16* sw(const unsigned char* tile, int r, int 
   return reinterpret_cast<const bf16*>(tile + r * 128 + (((c >> 3) ^ (r & 7)) << 4));
 }
 
-// ldmatrix addresses in a swizzled tile, as attention_common.cuh's a_addr,
-// bt_addr and b_addr for a padded one (lane supplies row lr of matrix lm).
-__device__ __forceinline__ const bf16* a_sw(const unsigned char* t, int r0,
-                                            int k0, int lane) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return sw(t, r0 + (lm & 1) * 8 + lr, k0 + (lm >> 1) * 8);
-}
-__device__ __forceinline__ const bf16* bt_sw(const unsigned char* t, int n0,
-                                             int k0, int lane) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return sw(t, n0 + (lm >> 1) * 8 + lr, k0 + (lm & 1) * 8);
-}
-__device__ __forceinline__ const bf16* b_sw(const unsigned char* t, int k0,
-                                            int n0, int lane) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return sw(t, k0 + (lm & 1) * 8 + lr, n0 + (lm >> 1) * 8);
-}
 // four 8 x 8 bf16 matrices from mma fragments (r[i]: matrix i) to shared
 // memory, lane L giving the address of row L % 8 of matrix L / 8
 __device__ __forceinline__ void stmatrix_x4(void* p, const uint32_t (&r)[4]) {
@@ -163,41 +142,16 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return s;
 }
 
-// Phase clock (tools/attention_bwd_phases.py builds this file alone with
-// -DWD_PHASE_CLOCK): thread 0 of each block writes %globaltimer at the
-// kernel's start (0), once D is formed (1), once q, k, v have landed (2),
-// after phase 1 (3) and at the end (4), and its SM's id in slot 7, to
-// wd_phase_clock[8 * block + slot]. Without the macro the marks are nothing.
-#ifdef WD_PHASE_CLOCK
-__device__ unsigned long long* wd_phase_clock;
-__device__ __forceinline__ void phase_mark(int i) {
-  if (threadIdx.x != 0 || !wd_phase_clock) return;
-  unsigned long long now;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-  wd_phase_clock[8 * blockIdx.x + i] = now;
-  if (i == 0) {
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    wd_phase_clock[8 * blockIdx.x + 7] = sm;
-  }
-}
-#define PHASE_MARK(i) phase_mark(i)
-#define PHASE_END() (__syncthreads(), phase_mark(4))
-#else
-#define PHASE_MARK(i)
-#define PHASE_END()
-#endif
-
 struct Tiles {
   const unsigned char *q, *k, *v, *dout;
   const float *L, *D;  // per query row: lse log2 e (+inf past l) and D
-  unsigned char* ds;   // dS^T (STORE_DS): per 64 queries an R-row tile
+  unsigned char* ds;   // dS^T: per 64 queries an R-row tile
 };
 
 // One step of a warpgroup's phase-1 sweep: queries [c0, c0 + N) against its
 // keys [k0, k0 + 64). t: the thread's index in its warpgroup; live: its
 // warp's 16 keys reach below l; kin: its two key rows (g, g + 8) are < l.
-template <int N, bool STORE_DS>
+template <int N>
 __device__ __forceinline__ void sweep_step(const Tiles& s, const ShortArgs& a,
                                            int k0, int c0, int t, bool live,
                                            const bool (&kin)[2],
@@ -252,7 +206,7 @@ __device__ __forceinline__ void sweep_step(const Tiles& s, const ShortArgs& a,
       pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
       da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
     }
-  if (STORE_DS && live) {
+  if (live) {
     // dS^T (the bf16 dK uses) into the tile of the 64 queries that hold c0,
     // rows = keys, swizzled (query chunk j of key row r at chunk j ^ (r %
     // 8)): each 16 x 16 A fragment by one stmatrix, lane L giving the
@@ -290,7 +244,6 @@ __device__ __forceinline__ void store_tile(bf16* base, int64_t sl,
   }
 }
 
-template <bool STORE_DS>
 __global__ void __launch_bounds__(NT, 1)
 attention_bwd_short_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -305,13 +258,12 @@ attention_bwd_short_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* sQ = sV + R * 128;
   unsigned char* sO = sQ + R * 128;                    // dO
   unsigned char* sX = sO + R * 128;                    // o, then dS^T
-  float* sL = reinterpret_cast<float*>(sX + o_region(R, STORE_DS));
+  float* sL = reinterpret_cast<float*>(sX + ds_region(R));
   float* sD = sL + R;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sD + R);  // [0]: dO, o; [1]: q, k, v
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nn = blockIdx.x / a.H, hh = blockIdx.x % a.H;
-  PHASE_MARK(0);
   if (tid == 0) {
     wd::mbar_init(&bar[0], 1);
     wd::mbar_init(&bar[1], 1);
@@ -340,9 +292,7 @@ attention_bwd_short_kernel(const __grid_constant__ CUtensorMap q_map,
     if (v % 8 == 0) sD[r] = d;
   }
   __syncthreads();  // D is in shared memory, o's tile is free for dS^T
-  PHASE_MARK(1);
   wd::mbar_wait(&bar[1], 0);
-  PHASE_MARK(2);
 
   const Tiles s{sQ, sK, sV, sO, sL, sD, sX};
   const int wg = warp / 4, t = tid % 128;
@@ -358,8 +308,8 @@ attention_bwd_short_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
     int c0 = 0;
     for (; c0 + STEP <= R; c0 += STEP)
-      sweep_step<STEP, STORE_DS>(s, a, k0, c0, t, live, kin, dk, dv);
-    if (c0 < R) sweep_step<16, STORE_DS>(s, a, k0, c0, t, live, kin, dk, dv);
+      sweep_step<STEP>(s, a, k0, c0, t, live, kin, dk, dv);
+    if (c0 < R) sweep_step<16>(s, a, k0, c0, t, live, kin, dk, dv);
     wd::wgmma_wait<0>();
     wd::acc_fence(dk);
     wd::acc_fence(dv);
@@ -369,96 +319,24 @@ attention_bwd_short_kernel(const __grid_constant__ CUtensorMap q_map,
                k0, t, l, 1.0f);
   }
 
-  if constexpr (STORE_DS) {
-    // phase 2 on wgmma, 64 queries a warpgroup tile: dQ = scale dS K, A =
-    // dS from the dS^T tiles (M-major), B = K (N-major), 16 keys a k-step.
-    // Rows past R of the last tile hold no dS; their dQ rows are not stored.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // every dS^T row is written and visible to wgmma
-    PHASE_MARK(3);
-    for (int q0 = wg * 64; q0 < R; q0 += 128) {
-      float dq[32];
-      const uint64_t da = wd::sw128_desc(sX + (q0 / 64) * R * 128, 8192, 1024);
-      const uint64_t db = wd::sw128_desc(sK, 8192, 1024);
-      wd::wgmma_fence();
-      for (int j = 0; j < R / 16; ++j)
-        wd::wgmma<64, 1, 1>(dq, wd::desc_add(da, 2048 * j), wd::desc_add(db, 2048 * j), j);
-      wd::wgmma_commit();
-      wd::wgmma_wait<0>();
-      wd::acc_fence(dq);
-      store_tile(a.dq + nn * a.st[SDQ][0] + hh * a.st[SDQ][1], a.st[SDQ][2], dq,
-                 q0, t, l, a.scale);
-    }
-    PHASE_END();
-    return;
+  // phase 2 on wgmma, 64 queries a warpgroup tile: dQ = scale dS K, A = dS
+  // from the dS^T tiles (M-major), B = K (N-major), 16 keys a k-step. Rows
+  // past R of the last tile hold no dS; their dQ rows are not stored.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // every dS^T row is written and visible to wgmma
+  for (int q0 = wg * 64; q0 < R; q0 += 128) {
+    float dq[32];
+    const uint64_t da = wd::sw128_desc(sX + (q0 / 64) * R * 128, 8192, 1024);
+    const uint64_t db = wd::sw128_desc(sK, 8192, 1024);
+    wd::wgmma_fence();
+    for (int j = 0; j < R / 16; ++j)
+      wd::wgmma<64, 1, 1>(dq, wd::desc_add(da, 2048 * j), wd::desc_add(db, 2048 * j), j);
+    wd::wgmma_commit();
+    wd::wgmma_wait<0>();
+    wd::acc_fence(dq);
+    store_tile(a.dq + nn * a.st[SDQ][0] + hh * a.st[SDQ][1], a.st[SDQ][2], dq,
+               q0, t, l, a.scale);
   }
-
-  // phase 2 recomputing S and dP, queries as rows, 16 a warp, on mma.sync
-  PHASE_MARK(3);  // thread 0's warpgroup done with phase 1
-  const int g = lane >> 2, t4 = lane & 3;
-  constexpr int KD = DH / 16, ND = DH / 8;
-  for (int q0 = warp * 16; q0 < R; q0 += NW * 16) {
-    float dq[ND][4];
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dq[i][c] = 0.0f;
-    {
-      // S = Q K^T and dP = dO V^T again, 16 keys at a time
-      uint32_t qa[KD][4], oa[KD][4];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        ldmatrix_x4(qa[kk], a_sw(sQ, q0, kk * 16, lane));
-        ldmatrix_x4(oa[kk], a_sw(sO, q0, kk * 16, lane));
-      }
-      int row[2];
-      float lrow[2], drow[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        row[r] = q0 + g + 8 * r;
-        lrow[r] = sL[row[r]];
-        drow[r] = sD[row[r]];
-      }
-      for (int j = 0; j < R; j += 16) {
-        float sc[2][4], dp[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sc[i][c] = dp[i][c] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          uint32_t b[4];
-          ldmatrix_x4(b, bt_sw(sK, j, kk * 16, lane));
-          mma_bf16(sc[0], qa[kk], b[0], b[1]);
-          mma_bf16(sc[1], qa[kk], b[2], b[3]);
-          ldmatrix_x4(b, bt_sw(sV, j, kk * 16, lane));
-          mma_bf16(dp[0], oa[kk], b[0], b[1]);
-          mma_bf16(dp[1], oa[kk], b[2], b[3]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int r = c >> 1;
-            const bool ok = j + i * 8 + 2 * t4 + (c & 1) < l && row[r] < l;
-            const float p = ok ? ex2(fmaf(sc[i][c], a.scale_log2, -lrow[r])) : 0.0f;
-            sc[i][c] = p * (dp[i][c] - drow[r]);
-          }
-        uint32_t da[4];
-        acc_to_a(da, sc[0], sc[1]);
-#pragma unroll
-        for (int dn = 0; dn < DH / 16; ++dn) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, b_sw(sK, j, dn * 16, lane));
-          mma_bf16(dq[2 * dn], da, b[0], b[1]);
-          mma_bf16(dq[2 * dn + 1], da, b[2], b[3]);
-        }
-      }
-    }
-    store_rows<DH>(a.dq + nn * a.st[SDQ][0] + hh * a.st[SDQ][1], a.st[SDQ][2],
-                   dq, q0, l, a.scale);
-  }
-  PHASE_END();
 }
 
 // a 4-D map (dh, h, l, n) of a strided (n, h, l, dh) bf16 view: one box of
@@ -472,55 +350,44 @@ bool slice_map(CUtensorMap* map, const void* base, const int64_t* st, int N,
   return wd::make_map(map, base, 4, dims, strides, box);
 }
 
-template <bool STORE_DS>
 int launch(const void* const (&in)[5], const int64_t* strides, const ShortArgs& a,
            int N, cudaStream_t stream) {
-  const int64_t smem = short_smem(a.l, STORE_DS);
-  if (smem > SMEM_MAX || a.R > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  const int64_t smem = short_smem(a.l);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[5];  // q, k, v, dO, o
   for (int t = 0; t < 5; ++t)
     if (!slice_map(&maps[t], in[t], strides + 3 * t, N, a.H, a.l, a.R))
       return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_short_kernel<STORE_DS>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_short_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_short_kernel<STORE_DS><<<(unsigned)(N * a.H), NT, (size_t)smem,
-                                         stream>>>(maps[0], maps[1], maps[2],
-                                                   maps[3], maps[4], a);
+  attention_bwd_short_kernel<<<(unsigned)(N * a.H), NT, (size_t)smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#ifdef WD_PHASE_CLOCK
-// where the phase clock writes: 8 slots a block, or nullptr for none
-extern "C" int wd_set_phase_clock(void* slots) {
-  unsigned long long* p = static_cast<unsigned long long*>(slots);
-  return (int)cudaMemcpyToSymbol(wd_phase_clock, &p, sizeof(p));
-}
-#endif
-
 // Bytes of dynamic shared memory the kernel takes for (l, dh = 64), the
-// route's rule: the wrapper sends a shape here only where this is <= 232,448
-// (and l <= 256).
-extern "C" int wd_attention_bwd_smem(int l, int store_ds) {
-  const int64_t smem = short_smem(l, store_ds != 0);
+// route's rule: the wrapper sends a shape here only where this is <= 232,448.
+extern "C" int wd_attention_bwd_smem(int l) {
+  const int64_t smem = short_smem(l);
   return smem > INT32_MAX ? INT32_MAX : (int)smem;
 }
 
 // q, k, v, dout, o: (N, H, l, 64) bf16 views with unit last stride; lse:
 // contiguous (N, H, l) fp32; dq, dk, dv: outputs of the same shape; strides:
 // the (n, h, l) element strides of q, k, v, dout, o, dq, dk, dv in that order
-// (multiples of 8, 16-byte aligned bases). l with short_smem(l, store_ds) <=
-// 232,448 and l <= 256 (else cudaErrorInvalidValue).
+// (multiples of 8, 16-byte aligned bases). l with short_smem(l) <= 232,448
+// (else cudaErrorInvalidValue).
 extern "C" int wd_attention_bwd_bf16(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* o, const float* lse,
                                      void* dq, void* dk, void* dv,
                                      const int64_t* strides, int N, int H,
-                                     int l, int dh, float scale, int store_ds,
-                                     int device, void* stream) {
+                                     int l, int dh, float scale, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N == 0 || H == 0 || l == 0) return 0;
@@ -539,7 +406,5 @@ extern "C" int wd_attention_bwd_bf16(const void* q, const void* k,
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
   const void* const in[5] = {q, k, v, dout, o};
-  cudaStream_t s = (cudaStream_t)stream;
-  return store_ds ? launch<true>(in, strides, a, N, s)
-                  : launch<false>(in, strides, a, N, s);
+  return launch(in, strides, a, N, (cudaStream_t)stream);
 }

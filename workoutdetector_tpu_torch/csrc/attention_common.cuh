@@ -135,23 +135,4 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* base,
   }
 }
 
-// rows [r0, r0 + 16) of a (16, DH) fp32 accumulator, times mul, rounded once
-// to bf16 into rows r < l of a strided (n, h) slice
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* base, int64_t sl,
-                                           const float (&acc)[DH / 8][4],
-                                           int r0, int l, float mul) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
-    if (row >= l) continue;
-    bf16* out = base + row * sl + 2 * t4;
-#pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
-      *reinterpret_cast<uint32_t*>(out + i * 8) =
-          pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
-  }
-}
-
 }  // namespace wdattn

@@ -13,7 +13,7 @@ On the main path (``flash=True``) the spatial attention of every divided
 block is the hand attention kernel (``ops.kernels``): under autograd the
 packed-qkv ``Attention`` function, whose backward is one launch of the
 kernel that computes D, dQ, dK and dV (``attention_bwd``; the tiled dK/dV
-and dQ kernels for sequences beyond its shared memory, l > 224). The
+and dQ kernels where ``short_route`` refuses it: l > 224 or dh ≠ 64). The
 temporal attention (l = T) and the joint blocks' attention
 are plain torch ops, as they take the XLA path in the JAX package.
 Parameters are fp32, compute runs in ``dtype``, logits come back fp32.

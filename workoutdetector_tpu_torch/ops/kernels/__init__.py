@@ -9,7 +9,7 @@ loaded at import: ``_build.load()`` runs at the first CUDA launch.
 from workoutdetector_tpu_torch.ops.kernels.attention import (
     Attention, attention, attention_bwd, attention_bwd_plain, attention_dkv,
     attention_dq, attention_lse, attention_lse_plain, attention_plain,
-    keeps_ds, short_route, split_heads)
+    short_route, split_heads)
 from workoutdetector_tpu_torch.ops.kernels.conv1x1 import (
     Conv1x1, ShiftConv1x1, conv1x1_dw, conv1x1_dw_plain, conv1x1_dx,
     conv1x1_dx_plain)
@@ -38,7 +38,7 @@ def launch_counts() -> dict:
 __all__ = [
     "Attention", "attention", "attention_bwd", "attention_bwd_plain",
     "attention_dkv", "attention_dq", "attention_lse", "attention_lse_plain",
-    "attention_plain", "keeps_ds", "short_route", "split_heads", "Conv1x1", "ShiftConv1x1",
+    "attention_plain", "short_route", "split_heads", "Conv1x1", "ShiftConv1x1",
     "conv1x1_dw", "conv1x1_dw_plain", "conv1x1_dx", "conv1x1_dx_plain", "FusedBlockParams", "fold_bn",
     "fused_bottleneck", "fused_bottleneck_plain", "TemporalShift",
     "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",

@@ -56,8 +56,8 @@ SIGNATURES: Dict[str, List] = {
     "wd_attention_dq_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
                                        ctypes.c_float, I, P],
     "wd_attention_bwd_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
-                                        ctypes.c_float, I, I, P],
-    "wd_attention_bwd_smem": [I, I],
+                                        ctypes.c_float, I, P],
+    "wd_attention_bwd_smem": [I],
 }
 
 

@@ -33,15 +33,12 @@ from workoutdetector_tpu_torch.ops.kernels import _build
 HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernels take
 
 # The one-launch backward (csrc/attention_bwd_short.cu) keeps a whole
-# (sample, head) slice in shared memory, in 128-byte rows (dh 64): q, k, v,
-# dO and o in R = l rounded up to 16 rows each, lse and D in fp32 and,
-# where it fits, dS in bf16 (one R-row tile per 64 queries, over o's rows);
-# where it does not, the kernel recomputes S and dP for dQ (7 products
-# instead of 5). A block may use SHORT_SMEM_MAX bytes, and a TMA box
-# SHORT_MAX_ROWS rows.
+# (sample, head) slice in shared memory, in 128-byte rows (dh 64): q, k, v
+# and dO in R = l rounded up to 16 rows each, dS in bf16 (one R-row tile per
+# 64 queries, over o's rows), lse and D in fp32. A block may use
+# SHORT_SMEM_MAX bytes.
 SHORT_HEAD_DIMS = (64,)
 SHORT_SMEM_MAX = 232448
-SHORT_MAX_ROWS = 256
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -252,33 +249,23 @@ def attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_dq.launches = 0
 
 
-def short_smem(l: int, store_ds: bool) -> int:
+def short_smem(l: int) -> int:
     """Bytes of shared memory the one-launch backward takes for one
     (sample, head) slice of length l at dh 64, as
     ``csrc/attention_bwd_short.cu``'s ``short_smem``: 1024 of alignment
     slack, q, k, v and dO (R = l rounded up to 16 rows of 128 bytes each),
-    o's R rows or, with ``store_ds``, dS (one R-row tile per 64 queries) in
-    their place, lse and D in fp32, two 8-byte mbarriers."""
+    dS in o's place (one R-row tile per 64 queries), lse and D in fp32, two
+    8-byte mbarriers."""
     r = -(-l // 16) * 16
-    o_or_ds = (-(-r // 64) if store_ds else 1) * r * 128
-    return 1024 + 4 * r * 128 + o_or_ds + 2 * r * 4 + 16
-
-
-def keeps_ds(l: int) -> bool:
-    """Whether the one-launch backward keeps dS in shared memory at length
-    l (five products; l ≤ 224) or recomputes S and dP for dQ (seven; 224 <
-    l ≤ 256)."""
-    return short_smem(l, True) <= SHORT_SMEM_MAX
+    return 1024 + 4 * r * 128 + -(-r // 64) * r * 128 + 2 * r * 4 + 16
 
 
 def short_route(l: int, dh: int) -> bool:
     """The route rule of ``attention_bwd``: True where the one-launch kernel
-    takes (l, dh): dh in SHORT_HEAD_DIMS, l within one TMA box
-    (SHORT_MAX_ROWS) and its slice within SHORT_SMEM_MAX bytes of shared
-    memory (``short_smem``), i.e. 1 ≤ l ≤ 256 at dh 64; elsewhere the tiled
-    dK/dV and dQ kernels run."""
-    return dh in SHORT_HEAD_DIMS and 0 < l <= SHORT_MAX_ROWS and \
-        short_smem(l, keeps_ds(l)) <= SHORT_SMEM_MAX
+    takes (l, dh): dh in SHORT_HEAD_DIMS and the slice within
+    SHORT_SMEM_MAX bytes of shared memory (``short_smem``), i.e.
+    1 ≤ l ≤ 224 at dh 64; elsewhere the tiled dK/dV and dQ kernels run."""
+    return dh in SHORT_HEAD_DIMS and l > 0 and short_smem(l) <= SHORT_SMEM_MAX
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -295,8 +282,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors: ``attention_bwd_plain``. CUDA tensors (bf16): where
     ``short_route(l, dh)``, one launch of the kernel that computes D, dQ,
-    dK and dV (counted in ``attention_bwd.launches``; dS kept in shared
-    memory where ``keeps_ds(l)``); elsewhere the tiled route,
+    dK and dV (counted in ``attention_bwd.launches``); elsewhere the tiled
+    route,
     ``attention_delta`` then ``attention_dkv`` and ``attention_dq``
     (counted in theirs). Anything else raises."""
     dq, dk, dv = _out(q, dq), _out(k, dk), _out(v, dv)
@@ -317,7 +304,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, do, o, dq, dk, dv), n, h, l, dh, float(scale),
-        int(keeps_ds(l)), q.device.index or 0, _build.stream_handle(q.device)),
+        q.device.index or 0, _build.stream_handle(q.device)),
         "attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv
