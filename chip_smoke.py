@@ -10,10 +10,15 @@ not printed; no CUDA device → exit 2):
   2. build the hand kernels from ``workoutdetector_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version at every TSM-R50 224²
      shape of its main path, bf16 — the inference kernels at window batch
-     16 (128 frames), dx and dW at the 12 backward site shapes of a
-     batch-32 train step (256 frames), beside ``torch.matmul``; the
-     attention kernel at TimeSformer-B/16's spatial attention, (n, h, l,
-     dh) = (128, 12, 197, 64) cut from a packed qkv, beside
+     16 (128 frames; the fused bottleneck's wgmma kernel at its three site
+     shapes, the WMMA kernel of the other route timed beside it and checked
+     at a layer3-width F = 256, where the route rule sends it), dx and dW at
+     the 12 backward site shapes of a batch-32 train step (256 frames),
+     beside ``torch.matmul``; the attention forward as the model runs it
+     (``attention_lse``, o and the log-sum-exp) at TimeSformer-B/16's
+     spatial attention, (n, h, l, dh) = (128, 12, 197, 64) cut from a
+     packed qkv, on the one-block kernel (the tiled kernel timed beside it),
+     and at the 288² step's l = 325 on the tiled kernel, each beside
      ``scaled_dot_product_attention``; the one-launch attention backward
      (D, dQ, dK and dV) at the same shape, o and lse from the forward
      kernel, writing into a packed gradient, beside the backward alone of
@@ -57,7 +62,7 @@ not printed; no CUDA device → exit 2):
      phase-4 video with the launch counts checked (12 attention launches
      per forward, no other kernel), the logits held against the unfolded
      plain fp32 model on the card by phase 4's rule, phase 4's count check,
-     one profiled batch;
+     one profiled batch (the one-block attention kernel, l = 197);
   8. TimeSformer-B/16 training (``timesformer.yaml``'s model and
      optimizer: drop_path 0.1, SGD Nesterov, wd 1e-4 with the embeddings
      exempt, clip 40, bf16, batch 16) on a ``DebugDataset``: ``Trainer.fit``
@@ -68,10 +73,11 @@ not printed; no CUDA device → exit 2):
      against the fp32 plain path with the same drop-path masks, and the
      same check on a planted fault (the backward handed the neighbouring
      head's dO), which it must catch; train clips/s and one profiled
-     step; then the tiled route through the model: one train step of
+     step; then the tiled routes through the model: one train step of
      TimeSformer-B/16 on 288² frames (l = 325 tokens, beyond the
-     one-launch kernel's shared memory) with 12 attention, 12 dK/dV and
-     12 dQ launches and a finite loss;
+     one-block forward's 256 rows and the one-launch backward's shared
+     memory) with 12 tiled forward (``attention_tiled``), 12 dK/dV and 12
+     dQ launches and a finite loss;
   9. one JSON line of per-kernel numbers, the card line again, and the
      contract line ``{"ok": true, "device": {...}}`` last.
 
@@ -79,7 +85,9 @@ Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
 over the kernel's launch sites) for the inference kernels and per train
 step (batch 32, the sum over the 33 backward sites) for dx and dW, per
-TimeSformer-B/16 forward (12 launches) for the attention. No single
+TimeSformer-B/16 forward (12 launches) for the attention forward (its
+one-block route at l = 197, its tiled route at l = 325, both with the
+log-sum-exp). No single
 PyTorch call computes the shift, the shift-matmul or the fused block, so
 their ``library_ms`` is null; dx and dW are timed beside ``torch.matmul``
 of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
@@ -177,9 +185,10 @@ BWD_SITES = [
 
 # the hand kernels' __global__ functions, as ptxas and the profiler name them
 HAND_KERNELS = ("shift_matmul_kernel", "shift_kernel", "fused_bottleneck_kernel",
-                "conv1x1_dx_kernel", "conv1x1_dw_kernel", "dw_reduce_kernel",
+                "fused_bottleneck_wmma_kernel", "conv1x1_dx_kernel",
+                "conv1x1_dw_kernel", "dw_reduce_kernel",
                 "attention_bwd_short_kernel", "attention_dkv_kernel",
-                "attention_dq_kernel", "attention_kernel")
+                "attention_dq_kernel", "attention_fwd_kernel", "attention_kernel")
 
 
 def log(msg: str) -> None:
@@ -205,9 +214,9 @@ def ptxas_summary(text: str) -> list:
         if entry:
             mangled = entry.group(1)
             name = next((k for k in HAND_KERNELS if k in mangled), mangled)
-            args = re.search(r"I((?:Li\d+E)+)E", mangled)
+            args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
             if args:
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -317,33 +326,76 @@ def kernel_phase(torch, kernels, g) -> dict:
         log(f"  shift_matmul x{tuple(x.shape)} -> {o} err={err} kernel={ms:.4f} ms "
             f"plain={pms:.4f} ms bound={max(tb, to):.4f} ms")
 
-    for h, w, c, f, o, ds, count in FUSED_SITES:
-        x = randn(bt, h, w, c)
-        p = kernels.FusedBlockParams(
+    def fused_params(c, f, o, ds):
+        return kernels.FusedBlockParams(
             w1=randn(c, f, scale=math.sqrt(2 / c)).contiguous(), sb1=sb(f),
             w2=randn(3, 3, f, f, scale=math.sqrt(2 / (9 * f))).contiguous(),
             sb2=sb(f),
             w3=randn(f, o, scale=math.sqrt(2 / f)).contiguous(), sb3=sb(o),
             wd=randn(c, o, scale=math.sqrt(2 / c)).contiguous() if ds else None,
             sbd=sb(o) if ds else None)
+
+    def fused_bound(m, c, f, o, ds):
+        wbytes = (c * f + 9 * f * f + f * o + (c * o if ds else 0)) * 2
+        sbytes = (2 * f * 2 + 2 * o * (2 if ds else 1)) * 4
+        flops = 2.0 * m * (c * f + 9 * f * f + f * o + (c * o if ds else 0))
+        return bound_ms((m * c + m * o) * 2 + wbytes + sbytes, flops)
+
+    for h, w, c, f, o, ds, count in FUSED_SITES:
+        x = randn(bt, h, w, c)
+        p = fused_params(c, f, o, ds)
         fold = c // 8
+        if not kernels.wgmma_route(c, f, o, ds):
+            raise AssertionError(f"fused site C={c} F={f} leaves the wgmma route")
         got = kernels.fused_bottleneck(x, p, n_segment=FRAMES, fold=fold)
         want = kernels.fused_bottleneck_plain(x, p, n_segment=FRAMES, fold=fold)
         torch.cuda.synchronize()
         err = check_close(torch, f"fused_bottleneck {tuple(x.shape)} F={f} O={o}",
                           got, want)
+        del got, want
         ms = time_ms(torch, lambda: kernels.fused_bottleneck(
             x, p, n_segment=FRAMES, fold=fold), 10)
         pms = time_ms(torch, lambda: kernels.fused_bottleneck_plain(
             x, p, n_segment=FRAMES, fold=fold), 3)
-        m = bt * h * w
-        wbytes = (c * f + 9 * f * f + f * o + (c * o if ds else 0)) * 2
-        sbytes = (2 * f * 2 + 2 * o * (2 if ds else 1)) * 4
-        flops = 2.0 * m * (c * f + 9 * f * f + f * o + (c * o if ds else 0))
-        tb, to = bound_ms((m * c + m * o) * 2 + wbytes + sbytes, flops)
+        # the WMMA route at the same site, for the record (not the model's)
+        ms_wmma = time_ms(torch, lambda: kernels.fused_bottleneck_wmma(
+            x, p, n_segment=FRAMES, fold=fold), 5)
+        tb, to = fused_bound(bt * h * w, c, f, o, ds)
         add("fused_bottleneck", err, ms, pms, tb, to, count)
+        # each tile pair reads every weight once from L2
+        wbytes = kernels.wgmma_tiles(bt, h, w)[1] * 2 * (
+            c * f + 9 * f * f + f * o + (c * o if ds else 0))
         log(f"  fused_bottleneck x{tuple(x.shape)} F={f} O={o} ds={ds} err={err} "
-            f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={max(tb, to):.4f} ms")
+            f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={max(tb, to):.4f} ms "
+            f"weights from L2 {wbytes / 1e6:.1f} MB "
+            f"(WMMA route at this site {ms_wmma:.4f} ms)")
+        del x, p
+    # the WMMA route where the rule sends a shape to it: F = 256 (a layer3
+    # bottleneck, which TSM-R50's fused path does not reach)
+    h, w, c, f, o = 14, 14, 1024, 256, 1024
+    if kernels.wgmma_route(c, f, o, False):
+        raise AssertionError(f"F={f} takes the wgmma route")
+    x = randn(bt, h, w, c)
+    p = fused_params(c, f, o, False)
+    before = kernels.launch_counts()
+    got = kernels.fused_bottleneck(x, p, n_segment=FRAMES, fold=c // 8)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items()
+           if n != before[k]}
+    if ran != {"fused_bottleneck_wmma": 1}:
+        raise AssertionError(f"fused_bottleneck at F={f} launched {ran}")
+    err = check_close(torch, f"fused_bottleneck_wmma {tuple(x.shape)} F={f}", got,
+                      kernels.fused_bottleneck_plain(x, p, n_segment=FRAMES,
+                                                     fold=c // 8))
+    ms = time_ms(torch, lambda: kernels.fused_bottleneck(
+        x, p, n_segment=FRAMES, fold=c // 8), 5)
+    pms = time_ms(torch, lambda: kernels.fused_bottleneck_plain(
+        x, p, n_segment=FRAMES, fold=c // 8), 3)
+    tb, to = fused_bound(bt * h * w, c, f, o, False)
+    log(f"  fused_bottleneck_wmma (WMMA route) x{tuple(x.shape)} F={f} O={o} "
+        f"err={err} kernel={ms:.4f} ms plain={pms:.4f} ms "
+        f"bound={max(tb, to):.4f} ms")
+    del x, p, got
     attention_row(torch, kernels, randn, add)
     attention_bwd_rows(torch, kernels, randn, add)
     backward_rows(torch, kernels, randn, add)
@@ -351,30 +403,52 @@ def kernel_phase(torch, kernels, g) -> dict:
 
 
 def attention_row(torch, kernels, randn, add) -> None:
-    """The attention kernel at TimeSformer-B/16's spatial attention: q, k,
-    v are the strided thirds of a packed (frames, 197, 3·768) projection,
-    as the model passes them."""
+    """The attention forward as the model runs it (``Attention.apply``
+    writes the log-sum-exp in inference too, so ``attention_lse``): q, k, v
+    the strided thirds of a packed (frames, l, 3·768) projection. At
+    TimeSformer-B/16's l = 197 the one-block kernel (``attention``), with
+    the tiled kernel at the same shape printed beside it; at the 288²
+    step's l = 325 the tiled route (``attention_tiled``), which the rule
+    sends there."""
     import torch.nn.functional as F
-    n, h, l, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_TOKENS, TS_DH
+    n, h, dh = WINDOW_BATCH * FRAMES, TS_HEADS, TS_DH
     d = h * dh
-    qkv = randn(n, l, 3 * d)
-    q, k, v = (t.view(n, l, h, dh).transpose(1, 2) for t in qkv.split(d, -1))
     scale = dh ** -0.5
-    got = kernels.attention(q, k, v, scale)
-    want = kernels.attention_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = check_close(torch, f"attention {(n, h, l, dh)}", got, want)
-    del got, want
-    ms = time_ms(torch, lambda: kernels.attention(q, k, v, scale), 20)
-    pms = time_ms(torch, lambda: kernels.attention_plain(q, k, v, scale), 5)
-    lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=scale), 20)
-    # q, k, v read once, o written once; two products of 2·l·l·dh each
-    tb, to = bound_ms(4 * n * h * l * dh * 2, 4.0 * n * h * l * l * dh)
-    add("attention", err, ms, pms, tb, to, TS_LAYERS, lms)
-    log(f"  attention (n, h, l, dh)={(n, h, l, dh)} packed qkv err={err} "
-        f"kernel={ms:.4f} ms plain={pms:.4f} ms library={lms:.4f} ms "
-        f"bound={max(tb, to):.4f} ms (bytes {tb:.4f}, ops {to:.4f})")
+    for l, name in ((TS_TOKENS, "attention"), (TILED_L, "attention_tiled")):
+        qkv = randn(n, l, 3 * d)
+        q, k, v = kernels.split_heads(qkv, h)
+        before = kernels.launch_counts()
+        got, lse = kernels.attention_lse(q, k, v, scale)
+        want, lse_want = kernels.attention_lse_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        ran = {c: m - before[c] for c, m in kernels.launch_counts().items()
+               if m != before[c]}
+        if ran != {name: 1}:
+            raise AssertionError(f"attention_lse at l = {l} launched {ran}, "
+                                 f"not {{{name!r}: 1}}")
+        err = check_close(torch, f"{name} {(n, h, l, dh)}", got, want)
+        lse_err = check_close(torch, f"{name} lse {(n, h, l, dh)}", lse, lse_want)
+        del got, want, lse, lse_want
+        ms = time_ms(torch, lambda: kernels.attention_lse(q, k, v, scale), 20)
+        pms = time_ms(torch, lambda: kernels.attention_lse_plain(q, k, v, scale), 5)
+        lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 20)
+        # q, k, v read once, o written once, lse written once; two products
+        # of 2·l·l·dh each
+        tb, to = bound_ms(4 * n * h * l * dh * 2 + n * h * l * 4,
+                          4.0 * n * h * l * l * dh)
+        add(name, max(err, lse_err), ms, pms, tb, to, TS_LAYERS, lms)
+        beside = ""
+        if name == "attention":
+            tms = time_ms(torch, lambda: kernels.attention_tiled(
+                q, k, v, scale, with_lse=True), 20)
+            beside = f" (tiled route at this l {tms:.4f} ms)"
+        log(f"  {name} (n, h, l, dh)={(n, h, l, dh)} packed qkv, with lse: "
+            f"err={err} lse err={lse_err} kernel={ms:.4f} ms{beside} plain="
+            f"{pms:.4f} ms library={lms:.4f} ms bound={max(tb, to):.4f} ms "
+            f"(bytes {tb:.4f}, ops {to:.4f})")
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
 
 
 def attention_bwd_rows(torch, kernels, randn, add) -> None:
@@ -571,7 +645,8 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         want = {"conv1x1_dx": 33 * TRAIN_STEPS, "conv1x1_dw": 33 * TRAIN_STEPS,
                 "shift_matmul": 16 * TRAIN_STEPS + 10 * val_forwards,
                 "fused_bottleneck": 6 * val_forwards, "temporal_shift": 0,
-                "attention": 0, "attention_bwd": 0, "attention_dkv": 0,
+                "fused_bottleneck_wmma": 0, "attention": 0,
+                "attention_tiled": 0, "attention_bwd": 0, "attention_dkv": 0,
                 "attention_dq": 0}
         log(f"    fit: {state.step} steps + {val_forwards} val forwards in "
             f"{seconds:.2f} s, launches={launches}")
@@ -963,7 +1038,7 @@ def tiled_route_phase(np, torch, kernels, repo: Path) -> dict:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     want = {name: 0 for name in launches}
-    want.update(attention=TS_LAYERS, attention_dkv=TS_LAYERS,
+    want.update(attention_tiled=TS_LAYERS, attention_dkv=TS_LAYERS,
                 attention_dq=TS_LAYERS)
     log(f"    {TS_LONG_SIZE}² frames (l = {l}): one train step, loss {loss:.4f}, "
         f"launches={launches}")
@@ -1215,8 +1290,11 @@ def main() -> int:
                        "workoutdetector_tpu/ops/pallas/conv1x1.py:52"),
         "conv1x1_dw": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
                        "workoutdetector_tpu/ops/pallas/conv1x1.py:92"),
-        "attention": ("workoutdetector_tpu_torch/csrc/attention.cu",
+        "attention": ("workoutdetector_tpu_torch/csrc/attention_fwd.cu",
                       "workoutdetector_tpu/models/timesformer.py:73"),
+        # the forward's route for l > 256 (or dh other than 64)
+        "attention_tiled": ("workoutdetector_tpu_torch/csrc/attention.cu",
+                            "workoutdetector_tpu/models/timesformer.py:73"),
         # the library Pallas flash attention's backward kernels, which
         # _flash_mha (timesformer.py:73) reaches under jax.grad: both in one
         # launch, and as the tiled route for longer sequences
@@ -1236,6 +1314,7 @@ def main() -> int:
                          conv1x1_dx=train_launches["conv1x1_dx"],
                          conv1x1_dw=train_launches["conv1x1_dw"],
                          attention=attention_launches,
+                         attention_tiled=tiled_launches["attention_tiled"],
                          attention_bwd=ts_train_launches["attention_bwd"],
                          attention_dkv=tiled_launches["attention_dkv"],
                          attention_dq=tiled_launches["attention_dq"])

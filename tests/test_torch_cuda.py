@@ -8,9 +8,11 @@ runs without the JAX package's test harness:
 
 Tolerance: the shift is a copy (exact). The GEMM and attention kernels
 round once per stored tensor like their plain versions but sum in another
-order (the attention kernel also rounds its unnormalised probabilities,
+order (the attention kernels also round their unnormalised probabilities,
 the plain version the normalised ones), so they may differ by a few bf16
-ulps: |kernel − plain| ≤ (1 + |plain|) / 64. The attention backward
+ulps: |kernel − plain| ≤ (1 + |plain|) / 64, on every route: the
+attention forward's one-block and tiled kernels (``fwd_route``), the
+fused bottleneck's wgmma and WMMA kernels (``wgmma_route``). The attention backward
 kernels round P and dS to bf16 where their plain version does, sum in
 another order and recompute the scores in another operand order, and are
 held to the same rule, on both routes of ``attention_bwd`` (the one-launch
@@ -66,32 +68,126 @@ def test_cuda_shift_matmul_vs_plain(cuda_device):
     _close(kernels.shift_matmul(x, w, 8), kernels.shift_matmul_plain(x, w, 8))
 
 
+def _fused_params(rng, c, f, o, ds, device):
+    def w(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                * np.sqrt(2 / np.prod(shape[:-1]))) \
+            .to(device, torch.bfloat16)
+
+    def sb(n):
+        return torch.from_numpy(np.stack(
+            [rng.uniform(0.5, 1.0, n), rng.normal(0, 0.1, n)]).astype(
+                np.float32)).to(device)
+
+    return kernels.FusedBlockParams(w(c, f), sb(f), w(3, 3, f, f), sb(f),
+                                    w(f, o), sb(o), w(c, o) if ds else None,
+                                    sb(o) if ds else None)
+
+
+def _fused_launches():
+    return (kernels.fused_bottleneck.launches,
+            kernels.fused_bottleneck_wmma.launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,f,o,ds,hw", [(64, 64, 256, True, (9, 21)),
                                          (256, 64, 256, False, (8, 16)),
                                          (512, 128, 512, False, (5, 7)),
                                          (256, 256, 256, False, (6, 6))])
 def test_cuda_fused_bottleneck_vs_plain(cuda_device, c, f, o, ds, hw):
+    """Each call launches the route ``wgmma_route`` names (F = 256: the
+    WMMA kernel) and nothing else."""
     rng = np.random.default_rng(7)
-
-    def w(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                                * np.sqrt(2 / np.prod(shape[:-1]))) \
-            .to(cuda_device, torch.bfloat16)
-
-    def sb(n):
-        return torch.from_numpy(np.stack(
-            [rng.uniform(0.5, 1.0, n), rng.normal(0, 0.1, n)]).astype(
-                np.float32)).to(cuda_device)
-
-    p = kernels.FusedBlockParams(w(c, f), sb(f), w(3, 3, f, f), sb(f),
-                                 w(f, o), sb(o), w(c, o) if ds else None,
-                                 sb(o) if ds else None)
+    p = _fused_params(rng, c, f, o, ds, cuda_device)
     x = torch.from_numpy(rng.standard_normal((2 * 4,) + hw + (c,)).astype(
         np.float32)).to(cuda_device, torch.bfloat16)
+    route = (1, 0) if kernels.wgmma_route(c, f, o, ds) else (0, 1)
     for fold in (c // 8, 0):
-        _close(kernels.fused_bottleneck(x, p, n_segment=4, fold=fold),
-               kernels.fused_bottleneck_plain(x, p, n_segment=4, fold=fold))
+        before = _fused_launches()
+        got = kernels.fused_bottleneck(x, p, n_segment=4, fold=fold)
+        assert tuple(a - b for a, b in zip(_fused_launches(), before)) == route
+        _close(got, kernels.fused_bottleneck_plain(x, p, n_segment=4, fold=fold))
+
+
+# TSM-R50's fused sites (C, F, O, downsample) at their fold C / 8 and at fold
+# 0, on ragged frames (9 x 21: a partial last row of tiles and a partial last
+# column, which also cuts the halo) and on frames of one tile, over clips of
+# 4 frames (t = 0 and t = T - 1 in every clip)
+FUSED_SITES = [(64, 64, 256, True), (256, 64, 256, False),
+               (512, 128, 512, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(9, 21), (4, 16), (56, 56)])
+@pytest.mark.parametrize("c,f,o,ds", FUSED_SITES)
+def test_cuda_fused_bottleneck_sites_on_both_routes(cuda_device, c, f, o, ds,
+                                                    hw):
+    rng = np.random.default_rng(c + f + hw[0])
+    p = _fused_params(rng, c, f, o, ds, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((3 * 4,) + hw + (c,)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    assert kernels.wgmma_route(c, f, o, ds)
+    for fold in (c // 8, 0):
+        want = kernels.fused_bottleneck_plain(x, p, n_segment=4, fold=fold)
+        before = _fused_launches()
+        _close(kernels.fused_bottleneck(x, p, n_segment=4, fold=fold), want)
+        _close(kernels.fused_bottleneck_wmma(x, p, n_segment=4, fold=fold),
+               want)
+        assert _fused_launches() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bottleneck_is_deterministic(cuda_device):
+    """Each output element has one writer and a fixed summation order:
+    equal bits every call, at layer1_1's shape."""
+    rng = np.random.default_rng(8)
+    p = _fused_params(rng, 256, 64, 256, False, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((16, 56, 56, 256)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    first = kernels.fused_bottleneck(x, p, n_segment=8, fold=32)
+    for _ in range(2):
+        assert torch.equal(kernels.fused_bottleneck(x, p, n_segment=8, fold=32),
+                           first)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bottleneck_refuses_unsupported(cuda_device):
+    """fp32 operands, F % 32, O % 16, a fold not a multiple of 8, frames
+    not a whole number of clips and weights left on the CPU raise before
+    any launch, on either route."""
+    rng = np.random.default_rng(9)
+    p = _fused_params(rng, 64, 64, 256, True, cuda_device)
+    x = torch.zeros(8, 4, 16, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = _fused_launches()
+    for fn in (kernels.fused_bottleneck, kernels.fused_bottleneck_wmma):
+        with pytest.raises(TypeError):
+            fn(x.float(), p, n_segment=4, fold=8)
+        with pytest.raises(ValueError):
+            fn(x, p, n_segment=4, fold=4)
+        with pytest.raises(ValueError):
+            fn(x[:6], p, n_segment=4, fold=8)
+        with pytest.raises(ValueError):
+            fn(x, p._replace(w1=p.w1.cpu()), n_segment=4, fold=8)
+        odd = _fused_params(rng, 64, 48, 256, True, cuda_device)
+        with pytest.raises(ValueError):
+            fn(x, odd, n_segment=4, fold=8)
+    assert _fused_launches() == before
+
+
+@pytest.mark.cuda
+def test_cuda_fused_smem_rule_is_the_kernels(cuda_device):
+    """The route rule's shared-memory sum (fused_block.py: wgmma_smem) is
+    the kernel's own (wd_fused_bottleneck_smem in csrc/fused_block.cu), 0
+    on both sides where the wgmma kernel does not take the shape."""
+    from workoutdetector_tpu_torch.ops.kernels import _build
+    from workoutdetector_tpu_torch.ops.kernels import fused_block as fb
+    lib = _build.load().lib
+    for c in (64, 72, 128, 256, 512, 1024):
+        for f in (32, 64, 128, 256):
+            for o in (64, 256, 512, 1024):
+                for ds in (False, True):
+                    assert lib.wd_fused_bottleneck_smem(c, f, o, int(ds)) == \
+                        fb.wgmma_smem(c, f, o, ds), (c, f, o, ds)
 
 
 @pytest.mark.cuda
@@ -229,27 +325,81 @@ def _qkv(g, n, h, l, dh, packed):
             for _ in range(3)]
 
 
+def _fwd_launches():
+    return kernels.attention.launches, kernels.attention_tiled.launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("l", [1, 8, 17, 197, 300])
 def test_cuda_attention_vs_plain(cuda_device, l, packed):
+    """``attention`` launches the route ``fwd_route`` names: the one-block
+    kernel up to l = 256, the tiled one beyond."""
     g = torch.Generator(device=cuda_device).manual_seed(l)
     q, k, v = _qkv(g, 3, 4, l, 64, packed)
-    before = kernels.attention.launches
+    before = _fwd_launches()
     got = kernels.attention(q, k, v, 0.125)
-    assert kernels.attention.launches == before + 1
+    route = (1, 0) if kernels.fwd_route(l, 64) else (0, 1)
+    assert tuple(a - b for a, b in zip(_fwd_launches(), before)) == route
     assert got.shape == (3, 4, l, 64)
     assert got.transpose(1, 2).is_contiguous()  # (n, l, h, dh) buffer
     _close(got, kernels.attention_plain(q, k, v, 0.125))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("l", [1, 17, 197, 208, 209, 256, 325])
+def test_cuda_attention_forward_routes_vs_plain(cuda_device, l, packed):
+    """o and lse of both forward routes against attention_lse_plain: the
+    one-block kernel where ``fwd_route`` takes l (through
+    ``attention_lse``), the tiled kernel at every l (``attention_tiled``);
+    lse within 1e-3."""
+    g = torch.Generator(device=cuda_device).manual_seed(300 + l)
+    q, k, v = _qkv(g, 3, 4, l, 64, packed)
+    o_ref, lse_ref = kernels.attention_lse_plain(q, k, v, 0.125)
+    before = _fwd_launches()
+    o, lse = kernels.attention_tiled(q, k, v, 0.125, with_lse=True)
+    assert _fwd_launches() == (before[0], before[1] + 1)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    if kernels.fwd_route(l, 64):
+        o, lse = kernels.attention_lse(q, k, v, 0.125)
+        assert _fwd_launches() == (before[0] + 1, before[1] + 1)
+        _close(o, o_ref)
+        assert (lse - lse_ref).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_attention_fwd_smem_rule_is_the_kernels(cuda_device):
+    """The forward's route rule (attention.py: fwd_smem, fwd_route) is the
+    kernel's own shared-memory reckoning (wd_attention_fwd_smem in
+    csrc/attention_fwd.cu), 0 where the one-block kernel does not take l."""
+    from workoutdetector_tpu_torch.ops.kernels import _build
+    lib = _build.load().lib
+    for l in list(range(0, 260)) + [300, 325, 400]:
+        assert lib.wd_attention_fwd_smem(l) == ka.fwd_smem(l), l
+        assert (lib.wd_attention_fwd_smem(l) > 0) is ka.fwd_route(l, 64), l
+
+
+@pytest.mark.cuda
+def test_cuda_attention_tiled_is_deterministic(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = _qkv(g, 8, 12, 325, 64, True)
+    a, la = kernels.attention_tiled(q, k, v, 0.125, with_lse=True)
+    b, lb = kernels.attention_tiled(q, k, v, 0.125, with_lse=True)
+    assert torch.equal(a, b) and torch.equal(la, lb)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dh", [16, 32, 128])
 def test_cuda_attention_head_widths(cuda_device, dh):
+    """Head widths other than 64 take the tiled route."""
     g = torch.Generator(device=cuda_device).manual_seed(dh)
     q, k, v = _qkv(g, 2, 3, 197, dh, True)
+    before = _fwd_launches()
     _close(kernels.attention(q, k, v, dh ** -0.5),
            kernels.attention_plain(q, k, v, dh ** -0.5))
+    assert _fwd_launches() == (before[0], before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -272,6 +422,11 @@ def test_cuda_attention_refuses_unsupported(cuda_device):
         before = kernels.attention.launches
         kernels.attention(q, k, v, 0.125)
         assert kernels.attention.launches == before + 1
+    for fn in (kernels.attention_tiled, kernels.attention_lse):
+        with pytest.raises(TypeError):
+            fn(q.float(), k.float(), v.float(), 0.125)
+        with pytest.raises(ValueError, match="tensors on"):
+            fn(q, k.cpu(), v, 0.125)
 
 
 @pytest.mark.cuda

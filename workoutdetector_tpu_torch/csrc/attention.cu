@@ -1,5 +1,9 @@
 // o = softmax(q k^T * scale) v over one (sample, head) per block row:
-// attention without the (l, l) score matrix in device memory.
+// attention without the (l, l) score matrix in device memory, K and V
+// streamed in 64-row tiles. The forward's tiled route: attention_fwd.cu
+// (every key of a slice in shared memory, one block per slice) takes head
+// width 64 and l <= 256; this kernel takes longer sequences (TimeSformer's
+// 288² step: l = 325) and the other head widths (attention.py: fwd_route).
 //
 // Replaces the library Pallas TPU flash attention that
 // workoutdetector_tpu/models/timesformer.py: _flash_mha calls
@@ -16,10 +20,10 @@
 // copy); o is written to a contiguous (n, l, h, dh) buffer, so the head merge
 // after the kernel is a free view.
 //
-// Bound on the H100: bytes at TimeSformer-B/16's spatial attention
-// (n = 128 frames, h = 12, l = 197, dh = 64): q, k, v read once and o
-// written once are 154.9 MB (46.2 us at 3.35 TB/s) against 1.53e10 FLOP
-// (15.4 us at 989 TFLOP/s). Design (FlashAttention-2's, on mma.sync): one
+// Bound on the H100: bytes at the 288² step's shape (n = 128 frames, h =
+// 12, l = 325, dh = 64): q, k, v read once and o written once are 255.6 MB
+// (76.3 us at 3.35 TB/s) against 4.15e10 FLOP (42.0 us at 989 TFLOP/s).
+// Design (FlashAttention-2's, on mma.sync): one
 // block of 4 warps per (n, h, 64-row query tile); each warp owns 16 query
 // rows and keeps them in registers as mma A fragments. K and V stream through
 // shared memory in 64-row tiles, double-buffered with cp.async. S = Q K^T and

@@ -1,5 +1,6 @@
-// Shared pieces of the attention kernels (attention.cu, attention_bwd.cu,
-// attention_bwd_short.cu):
+// Shared pieces of the attention kernels (attention.cu, attention_fwd.cu,
+// attention_bwd.cu, attention_bwd_short.cu; fused_block.cu takes its
+// cp.async and bf16 packing helpers):
 // cp.async staging of 64-row tiles of one (sample, head) slice, ldmatrix
 // fragment loads and the m16n8k16 bf16 tensor-core product with an fp32
 // accumulator (mma.sync).

@@ -11,7 +11,8 @@ The library is cached by the content of ``csrc/`` under
 ``workoutdetector_tpu_torch/_build/`` (ignored by git): the first use in
 a checkout builds it, later uses load it.
 
-The TMA kernels (``conv1x1_bwd.cu``, ``attention_bwd_short.cu``) describe their tiles with tensor
+The TMA kernels (``conv1x1_bwd.cu``, ``attention_bwd_short.cu``,
+``attention_fwd.cu``, ``fused_block.cu``) describe their tiles with tensor
 maps made by the CUDA driver API's ``cuTensorMapEncodeTiled``. The
 library takes that entry point from the runtime
 (``cudaGetDriverEntryPointByVersion``, see ``csrc/wd_wgmma.cuh``), so it
@@ -47,10 +48,15 @@ SIGNATURES: Dict[str, List] = {
     "wd_temporal_shift": [P, P, L, L, I, I, I, I, I, I, P],
     "wd_shift_matmul_bf16": [P, P, P, L, L, I, I, I, I, I, P],
     "wd_fused_bottleneck_bf16": [P] * 10 + [I] * 9 + [P],
+    "wd_fused_bottleneck_wmma_bf16": [P] * 10 + [I] * 9 + [P],
+    "wd_fused_bottleneck_smem": [I, I, I, I],
     "wd_conv1x1_dx_bf16": [P, P, P, L, I, I, L, I, I, I, P],
     "wd_conv1x1_dw_bf16": [P, P, P, P, L, I, I, L, I, I, L, I, P],
     "wd_attention_bf16": [P] * 5 + [ctypes.POINTER(L), I, I, I, I,
                                     ctypes.c_float, I, P],
+    "wd_attention_fwd_bf16": [P] * 5 + [ctypes.POINTER(L), I, I, I, I,
+                                        ctypes.c_float, I, P],
+    "wd_attention_fwd_smem": [I],
     "wd_attention_dkv_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,
                                         ctypes.c_float, I, P],
     "wd_attention_dq_bf16": [P] * 9 + [ctypes.POINTER(L), I, I, I, I,

@@ -3,17 +3,22 @@ o = softmax(q kᵀ · scale) v, and its gradient.
 
 Port of the library Pallas TPU flash attention that
 ``workoutdetector_tpu/models/timesformer.py`` (``_flash_mha``) calls: the
-forward kernel in ``csrc/attention.cu`` (which also writes each query
-row's log-sum-exp under autograd) and the backward of the library's
-``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``, with the
-plain versions of both. The backward has two routes (``attention_bwd``):
+forward and the backward of the library's ``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``, with the plain versions of both. The forward
+(which also writes each query row's log-sum-exp under autograd) has two
+routes: where ``fwd_route`` takes the shape (dh 64, l ≤ 256), one block
+per (sample, head) holds the slice's q, k and v in shared memory and takes
+the exact softmax in one pass (``csrc/attention_fwd.cu``, counted in
+``attention.launches``); elsewhere the tiled kernel streams K and V with an
+online softmax (``csrc/attention.cu``, counted in
+``attention_tiled.launches``). The backward has two routes (``attention_bwd``):
 where one (sample, head) slice fits a block's shared memory
 (``short_route``), one kernel (``csrc/attention_bwd_short.cu``) computes D =
 rowsum(dO ∘ O), dQ, dK and dV in one launch; longer sequences go to the
 tiled dK/dV and dQ kernels (``csrc/attention_bwd.cu``) with D formed by
 ``attention_delta`` beside them. In TimeSformer-B/16 (l = 197, dh = 64)
 they run the spatial attention of every divided block: per train step 12
-forward and 12 ``attention_bwd`` launches. Bounds and designs: see the
+``attention`` and 12 ``attention_bwd`` launches. Bounds and designs: see the
 notes at the top of the CUDA sources.
 
 Layout: q, k, v are (n, h, l, dh), the JAX package's head-major layout;
@@ -39,6 +44,13 @@ HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernels take
 # SHORT_SMEM_MAX bytes.
 SHORT_HEAD_DIMS = (64,)
 SHORT_SMEM_MAX = 232448
+
+# The one-block forward (csrc/attention_fwd.cu) loads each of q, k and v of
+# a slice as one TMA box of R rows of 128 bytes (dh 64), R the first of
+# FWD_ROWS that holds l (its compile-time instantiations; a box has at most
+# 256 rows); S keeps R key columns in registers.
+FWD_HEAD_DIMS = (64,)
+FWD_ROWS = (64, 128, 208, 256)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,37 +139,91 @@ def _strides(*tensors: torch.Tensor):
         *(s for t in tensors for s in t.stride()[:3]))
 
 
-def _launch(q, k, v, scale, with_lse: bool):
-    """Launch the forward kernel: o, the (n, h, l, dh) view of a contiguous
-    (n, l, h, dh) buffer, and with ``with_lse`` the fp32 (n, h, l)
-    log-sum-exp (else None)."""
+def fwd_rows(l: int) -> int:
+    """R, the rows of each of the one-block forward's q, k and v tiles for
+    a slice of length l: the first of FWD_ROWS ≥ l, 0 where none is (or
+    l < 1)."""
+    return next((r for r in FWD_ROWS if l <= r), 0) if l >= 1 else 0
+
+
+def fwd_smem(l: int) -> int:
+    """Bytes of shared memory the one-block forward takes for a slice of
+    length l at dh 64, as ``csrc/attention_fwd.cu``'s
+    ``wd_attention_fwd_smem``: 1024 of alignment slack, q, k and v (R =
+    ``fwd_rows(l)`` rows of 128 bytes each), two 8-byte mbarriers; 0 where
+    the kernel does not take l."""
+    r = fwd_rows(l)
+    return 1024 + 3 * r * 128 + 16 if r else 0
+
+
+def fwd_route(l: int, dh: int) -> bool:
+    """The route rule of the forward: True where the one-block kernel takes
+    (l, dh): dh in FWD_HEAD_DIMS and 1 ≤ l ≤ 256 (``fwd_smem`` > 0, at
+    most 99,344 bytes: two blocks an SM); elsewhere the tiled kernel
+    runs."""
+    return dh in FWD_HEAD_DIMS and fwd_smem(l) > 0
+
+
+def _launch(q, k, v, scale, with_lse: bool, tiled: bool = False):
+    """Launch the forward kernel of the shape's route (``fwd_route``), or
+    the tiled one where ``tiled``: o, the (n, h, l, dh) view of a
+    contiguous (n, l, h, dh) buffer, and with ``with_lse`` the fp32 (n, h,
+    l) log-sum-exp (else None)."""
     n, h, l, dh = _check("attention", q, k, v)
+    # the one-block kernel takes each row's max of the raw scores: scale > 0
+    short = not tiled and fwd_route(l, dh) and scale > 0
     out = torch.empty((n, l, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, l), dtype=torch.float32, device=q.device) \
         if with_lse else None
     lib = _build.load()
-    lib.check(lib.lib.wd_attention_bf16(
+    fn = lib.lib.wd_attention_fwd_bf16 if short else lib.lib.wd_attention_bf16
+    lib.check(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None, _strides(q, k, v),
         n, h, l, dh, float(scale), q.device.index or 0,
         _build.stream_handle(q.device)), "attention")
-    attention.launches += 1
+    if short:
+        attention.launches += 1
+    else:
+        attention_tiled.launches += 1
     return out.transpose(1, 2), lse
+
+
+def attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, with_lse: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(o, lse or None) from the tiled forward kernel (``csrc/attention.cu``:
+    K and V streamed in 64-row tiles, online softmax) for CUDA tensors
+    (bf16), whatever the shape; the plain version for CPU ones.
+    ``attention`` and ``attention_lse`` take this route where ``fwd_route``
+    leaves a shape out (l > 256 or dh ≠ 64); its launches count here."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_lse_plain(q, k, v, scale)
+        return attention_plain(q, k, v, scale), None
+    return _launch(q, k, v, scale, with_lse, tiled=True)
+
+
+attention_tiled.launches = 0
 
 
 def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse): the forward kernel with the log-sum-exp the backward
-    kernels read, for CUDA tensors (bf16; one ``attention`` launch), the
-    plain version for CPU ones."""
+    """(o, lse): the forward kernel of the shape's route with the
+    log-sum-exp the backward kernels read, for CUDA tensors (bf16; one
+    ``attention`` or ``attention_tiled`` launch), the plain version for CPU
+    ones."""
     if q.device.type == "cpu":
         return attention_lse_plain(q, k, v, scale)
-    return _launch(q, k, v, scale, with_lse=True)
+    return _launch(q, k, v, scale, True)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
-    """The kernel for CUDA tensors (bf16), the plain version for CPU ones.
+    """The forward kernel of the shape's route (``fwd_route``: the
+    one-block kernel, counted here, or the tiled one, counted in
+    ``attention_tiled``) for CUDA tensors (bf16), the plain version for CPU
+    ones.
 
     q, k, v may be any views with a unit last stride (e.g. thirds of a
     packed qkv projection); the kernel's result is the (n, h, l, dh) view
@@ -170,7 +236,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "attention() is forward only; under autograd run "
             "Attention.apply(qkv, num_heads, scale) on the packed projection")
-    return _launch(q, k, v, scale, with_lse=False)[0]
+    return _launch(q, k, v, scale, False)[0]
 
 
 attention.launches = 0
