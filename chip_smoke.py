@@ -13,8 +13,9 @@ not printed; no CUDA device → exit 2):
      16 (128 frames; the fused bottleneck's wgmma kernel at its three site
      shapes, the WMMA kernel of the other route timed beside it and checked
      at a layer3-width F = 256, where the route rule sends it), dx and dW at
-     the 12 backward site shapes of a batch-32 train step (256 frames),
-     beside ``torch.matmul``; the attention forward as the model runs it
+     the 12 backward site shapes of a batch-32 train step (256 frames) and
+     the shift-matmul at the 8 shifted ones (16 sites), beside
+     ``torch.matmul``; the attention forward as the model runs it
      (``attention_lse``, o and the log-sum-exp) at TimeSformer-B/16's
      spatial attention, (n, h, l, dh) = (128, 12, 197, 64) cut from a
      packed qkv, on the one-block kernel (the tiled kernel timed beside it),
@@ -84,13 +85,16 @@ not printed; no CUDA device → exit 2):
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
 over the kernel's launch sites) for the inference kernels and per train
-step (batch 32, the sum over the 33 backward sites) for dx and dW, per
+step (batch 32, the sum over the 33 backward sites) for dx and dW and
+over the 16 shifted conv1 sites for the shift-matmul's training row
+(``shift_matmul_train``), per
 TimeSformer-B/16 forward (12 launches) for the attention forward (its
 one-block route at l = 197, its tiled route at l = 325, both with the
 log-sum-exp). No single
-PyTorch call computes the shift, the shift-matmul or the fused block, so
-their ``library_ms`` is null; dx and dW are timed beside ``torch.matmul``
-of the same operands (g @ Wᵀ, xᵀ @ g, no shift), the attention beside
+PyTorch call computes the shift or the fused block, so their
+``library_ms`` is null; the shift-matmul, dx and dW are timed beside
+``torch.matmul`` of the same operands without the shift (x @ W, g @ Wᵀ,
+xᵀ @ g), the attention beside
 ``scaled_dot_product_attention`` on the same q, k, v views. The
 attention backward rows are per train step (12 launches each): the
 one-launch kernel's at TimeSformer-B/16's l = 197, the tiled dK/dV and dQ
@@ -320,11 +324,14 @@ def kernel_phase(torch, kernels, g) -> dict:
         err = check_close(torch, f"shift_matmul {tuple(x.shape)}x{o}", got, want)
         ms = time_ms(torch, lambda: kernels.shift_matmul(x, wt, FRAMES, 8), 10)
         pms = time_ms(torch, lambda: kernels.shift_matmul_plain(x, wt, FRAMES, 8), 5)
+        rows_x = x.view(-1, c)
+        lms = time_ms(torch, lambda: torch.matmul(rows_x, wt), 10)
         m = bt * h * w
         tb, to = bound_ms((m * c + c * o + m * o) * 2, 2.0 * m * c * o)
-        add("shift_matmul", err, ms, pms, tb, to, count)
+        add("shift_matmul", err, ms, pms, tb, to, count, lms)
         log(f"  shift_matmul x{tuple(x.shape)} -> {o} err={err} kernel={ms:.4f} ms "
-            f"plain={pms:.4f} ms bound={max(tb, to):.4f} ms")
+            f"plain={pms:.4f} ms library (unshifted x @ W)={lms:.4f} ms "
+            f"bound={max(tb, to):.4f} ms")
 
     def fused_params(c, f, o, ds):
         return kernels.FusedBlockParams(
@@ -559,7 +566,8 @@ def library_attention_bwd(torch, q, k, v, do, scale):
 
 def backward_rows(torch, kernels, randn, add) -> None:
     """dx and dW at every TSM-R50 224² backward site of one train step
-    (batch 32 clips = 256 frames)."""
+    (batch 32 clips = 256 frames), and the shift-matmul forward at its
+    shifted sites (``shift_matmul_train``)."""
     frames = TRAIN_BATCH * FRAMES
     for h, c, o, shifted, count in BWD_SITES:
         r = frames * h * h
@@ -569,6 +577,21 @@ def backward_rows(torch, kernels, randn, add) -> None:
         w = randn(c, o, scale=1 / math.sqrt(o))
         wt = w.t()  # the weight as the model's backward passes it
         site = f"R={r} C={c} O={o}{' shifted' if shifted else ''}"
+        if shifted:  # the forward of ShiftConv1x1 at this site
+            x4 = x.view(frames, h, h, c)
+            got = kernels.shift_matmul(x4, w, FRAMES, 8)
+            want = kernels.shift_matmul_plain(x4, w, FRAMES, 8)
+            torch.cuda.synchronize()
+            err = check_close(torch, f"shift_matmul_train {site}", got, want)
+            del got, want
+            ms = time_ms(torch, lambda: kernels.shift_matmul(x4, w, FRAMES, 8), 10)
+            pms = time_ms(torch, lambda: kernels.shift_matmul_plain(x4, w, FRAMES, 8), 3)
+            lms = time_ms(torch, lambda: torch.matmul(x, w), 10)
+            tb, to = bound_ms((r * c + c * o + r * o) * 2, 2.0 * r * c * o)
+            add("shift_matmul_train", err, ms, pms, tb, to, count, lms)
+            log(f"  shift_matmul_train {site} err={err} kernel={ms:.4f} ms "
+                f"plain={pms:.4f} ms library (unshifted x @ W)={lms:.4f} ms "
+                f"bound={max(tb, to):.4f} ms")
         got = kernels.conv1x1_dx(g, wt, *spec)
         want = kernels.conv1x1_dx_plain(g, wt, *spec)
         torch.cuda.synchronize()
@@ -620,7 +643,7 @@ def train_config(Config, steps: int, dataset_size: int, root: str):
 
 def train_phase(np, torch, kernels, variables, repo: Path, card: str):
     """Phase 6: the training path at full width. Returns (the fit's launch
-    counts, train clips/s)."""
+    counts, the shift-matmul launches of its train steps, train clips/s)."""
     import csv
     import tempfile
 
@@ -717,7 +740,7 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         f"{TRAIN_BATCH} on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_call(torch, lambda: trainer.train_step(state, x_u8, y), top=20)
-    return launches, clips_s
+    return launches, launches["shift_matmul"] - 10 * val_forwards, clips_s
 
 
 def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
@@ -1262,8 +1285,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[6] training: TSM-R50 224, {FRAMES} segments, {NUM_CLASS} classes, "
         f"bf16, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps")
-    train_launches, clips_s = train_phase(np, torch, kernels, variables, repo,
-                                          card)
+    train_launches, train_shift_matmul, clips_s = train_phase(
+        np, torch, kernels, variables, repo, card)
 
     torch.cuda.empty_cache()
     log(f"[7] TimeSformer-B/16 224, {FRAMES} segments, {NUM_CLASS} classes, "
@@ -1284,6 +1307,9 @@ def main() -> int:
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
         "shift_matmul": ("workoutdetector_tpu_torch/csrc/shift_matmul.cu",
                          "workoutdetector_tpu/ops/pallas/shift_matmul.py:49"),
+        # the same kernel at the 16 shifted conv1 sites of a train step
+        "shift_matmul_train": ("workoutdetector_tpu_torch/csrc/shift_matmul.cu",
+                               "workoutdetector_tpu/ops/pallas/shift_matmul.py:49"),
         "fused_bottleneck": ("workoutdetector_tpu_torch/csrc/fused_block.cu",
                              "workoutdetector_tpu/ops/pallas/fused_block.py:192"),
         "conv1x1_dx": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
@@ -1307,10 +1333,11 @@ def main() -> int:
     }
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
-    # the 1x1 backward kernels, TimeSformer inference (7) for the attention,
+    # the 1x1 backward kernels and the train steps' shift-matmul forwards, TimeSformer inference (7) for the attention,
     # TimeSformer training (8) for its backward kernel, the 288² train step
     # (8, tiled route) for the tiled dK/dV and dQ kernels
     main_launches = dict(launches, temporal_shift=blk_launches["temporal_shift"],
+                         shift_matmul_train=train_shift_matmul,
                          conv1x1_dx=train_launches["conv1x1_dx"],
                          conv1x1_dw=train_launches["conv1x1_dw"],
                          attention=attention_launches,

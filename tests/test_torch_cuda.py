@@ -68,6 +68,101 @@ def test_cuda_shift_matmul_vs_plain(cuda_device):
     _close(kernels.shift_matmul(x, w, 8), kernels.shift_matmul_plain(x, w, 8))
 
 
+def _sm_inputs(seed, frames, h, w, c, o):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(frames, h, w, c, generator=g, device="cuda").bfloat16()
+    wt = (torch.randn(c, o, generator=g, device="cuda") / c ** 0.5).bfloat16()
+    return x, wt
+
+
+# (frames, H, W, C, O, T, fold_div): the shapes the kernel's walk makes
+# special (clips of 392 rows, which 64-row tiles do not divide; a fold of
+# 8 cutting a 16-deep k-step; a fold of 32 cutting the first K chunk; no
+# fold; C = 72 (fold 8) and O = 16, a part chunk and a part column tile;
+# O = 320, two column tiles; fold 24; fold 16, three passes in chunk 0, at
+# BN = 128 and 256; fold = C / 2), then one shape of each TSM-R50 site
+# class over 2 clips of 8 frames (inference and training: C -> O at 56²,
+# 28², 14², 7²)
+SM_SHAPES = [(16, 7, 7, 64, 64, 8, 8), (8, 4, 6, 256, 128, 4, 8),
+             (8, 7, 7, 256, 64, 8, 512), (8, 5, 5, 72, 16, 4, 9),
+             (8, 3, 3, 64, 320, 4, 8), (4, 5, 3, 192, 32, 4, 8),
+             (8, 4, 5, 128, 128, 4, 8), (8, 4, 5, 64, 256, 4, 4),
+             (4, 3, 3, 64, 32, 2, 2)]
+SM_SITES = [(16, 56, 56, 64, 64, 8, 8), (16, 56, 56, 256, 64, 8, 8),
+            (16, 56, 56, 256, 128, 8, 8), (16, 28, 28, 512, 128, 8, 8),
+            (16, 28, 28, 512, 256, 8, 8), (16, 14, 14, 1024, 256, 8, 8),
+            (16, 14, 14, 1024, 512, 8, 8), (16, 7, 7, 2048, 512, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,h,w,c,o,t,fold_div", SM_SHAPES + SM_SITES)
+def test_cuda_shift_matmul_shapes_vs_plain(cuda_device, frames, h, w, c, o, t,
+                                           fold_div):
+    x, wt = _sm_inputs(11, frames, h, w, c, o)
+    before = kernels.shift_matmul.launches
+    got = kernels.shift_matmul(x, wt, t, fold_div)
+    assert kernels.shift_matmul.launches == before + 1
+    _close(got, kernels.shift_matmul_plain(x, wt, t, fold_div))
+
+
+@pytest.mark.cuda
+def test_cuda_shift_matmul_is_deterministic(cuda_device):
+    """Each output element is summed by one warpgroup in a fixed order:
+    equal bits every call, at layer2_0's shape over 2 clips."""
+    x, wt = _sm_inputs(12, 16, 56, 56, 256, 128)
+    first = kernels.shift_matmul(x, wt, 8)
+    for _ in range(3):
+        assert torch.equal(kernels.shift_matmul(x, wt, 8), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(256, 128), (64, 64)])
+def test_cuda_shift_matmul_check_catches_swapped_folds(cuda_device, c, o):
+    """A planted fault: the plain version with the two folds' directions
+    swapped (the first fold reading frame t-1, the second t+1) must fail
+    the check the kernel passes."""
+    from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
+    x, wt = _sm_inputs(13, 16, 7, 7, c, o)
+    got = kernels.shift_matmul(x, wt, 8)
+    _close(got, kernels.shift_matmul_plain(x, wt, 8))
+    swapped = (shift_folds(x, 8, c // 8, reverse=True).float() @ wt.float()
+               ).bfloat16()
+    with pytest.raises(AssertionError):
+        _close(got, swapped)
+
+
+@pytest.mark.cuda
+def test_cuda_shift_matmul_plan_is_the_kernels(cuda_device):
+    """The walk in Python (shift_matmul.py: shift_matmul_plan) is the
+    kernel's own (wd_shift_matmul_plan in csrc/shift_matmul.cu): tiles,
+    ring, shared memory and every ring stage of a block tile; both refuse
+    the same shapes."""
+    import ctypes
+
+    from workoutdetector_tpu_torch.ops.kernels import _build
+    sm = importlib.import_module(
+        "workoutdetector_tpu_torch.ops.kernels.shift_matmul")
+    lib = _build.load().lib
+    out = (ctypes.c_int64 * (10 + 3 * 64))()
+    for m, hw, t in ((401408, 3136, 8), (6272, 49, 8), (490, 49, 10),
+                     (36, 9, 4)):
+        for c in (64, 72, 128, 192, 256, 1024, 2048):
+            for o in (16, 64, 128, 144, 256, 320, 512):
+                for fold in (0, 8, 16, 24, 32, c // 8, c // 2):
+                    code = lib.wd_shift_matmul_plan(m, hw, t, c, o, fold, out, 64)
+                    try:
+                        plan = sm.shift_matmul_plan(m, hw, t, c, o, fold)
+                    except ValueError:
+                        assert code != 0, (m, hw, t, c, o, fold)
+                        continue
+                    assert code == 0, (m, hw, t, c, o, fold)
+                    n = out[9]
+                    assert tuple(out[:9]) == tuple(plan[:9]), (m, c, o, fold)
+                    assert n == len(plan.steps)
+                    assert tuple(tuple(out[10 + 3 * i:13 + 3 * i])
+                                 for i in range(n)) == plan.steps
+
+
 def _fused_params(rng, c, f, o, ds, device):
     def w(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)

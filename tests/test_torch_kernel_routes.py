@@ -5,7 +5,11 @@ to the WMMA one (pure Python, worked out by hand here; the card holds each
 rule to its kernel's own shared-memory sum, ``tests/test_torch_cuda.py``),
 the wgmma kernel's tile walk, and each route's CPU path against the JAX
 function it replaces (the library Pallas TPU flash attention in interpret
-mode; the Pallas fused bottleneck in interpret mode).
+mode; the Pallas fused bottleneck in interpret mode). Also the
+shift-matmul kernel's walk (``shift_matmul_plan``: its tiles, and each ring
+stage's K chunk, channel region and row offset), worked out by
+hand and run in numpy against the plain version; the card holds it to the
+kernel's own plan.
 
 Tolerance: fp32 on both sides, sums in another order: 1e-5.
 """
@@ -24,8 +28,10 @@ from workoutdetector_tpu.ops.pallas.fused_block import (
 from workoutdetector_tpu_torch.ops import kernels
 from workoutdetector_tpu_torch.ops.kernels import fused_block as fb
 
-# the module (the package's name ``attention`` is its wrapper function)
+# the modules (the package's names ``attention`` and ``shift_matmul`` are
+# their wrapper functions)
 ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
+sm = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.shift_matmul")
 
 
 # ------------------------------------------------------ attention forward
@@ -185,3 +191,141 @@ def test_fused_routes_on_the_cpu_match_jax(with_ds):
         got = fn(torch.from_numpy(x), p, n_segment=t, fold=2).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert kernels.launch_counts() == before
+
+
+# ------------------------------------------------------ shift-matmul walk
+
+# (m, hw, t, c, o, fold) -> tile width, ring stages, shared memory, clip
+# rows, clips, row tiles a clip, row tiles, column tiles, block tiles and
+# the ring stages (region passes) of a block tile (K chunk, region, row
+# offset), worked out by hand. A stage: two 64 x 64 x boxes (16,384 bytes)
+# and a 64 x BN W box (BN x 128 bytes); beside the ring the warpgroups'
+# staged output boxes (64 x 64, 8,192 bytes; one each at BN = 64, two
+# else); stages = min(8, (232,448 - 1024 - the output boxes - 256) //
+# stage); shared memory = 1024 + stages x stage + the output boxes + 2 x 8
+# bytes a stage.
+SM_PLANS = [
+    # layer2_0 at 16 clips: fold 32 cuts chunk 0 at k = 32: two passes;
+    # 25,088 rows a clip = 392 tiles, no padding
+    ((401408, 3136, 8, 256, 128, 32),
+     (128, 6, 1024 + 6 * 32768 + 4 * 8192 + 96, 25088, 16, 392, 6272, 1, 3136),
+     ((0, 0, 3136), (0, 1, -3136), (1, 2, 0), (2, 2, 0), (3, 2, 0))),
+    # layer1_0 in training (32 clips): fold 8, chunk 0 in three passes
+    ((802816, 3136, 8, 64, 64, 8),
+     (64, 8, 1024 + 8 * 24576 + 2 * 8192 + 128, 25088, 32, 392, 12544, 1, 6272),
+     ((0, 0, 3136), (0, 1, -3136), (0, 2, 0))),
+    # layer3_1 at 16 clips: 1568 rows a clip = 25 tiles (the last 32 real
+    # rows); folds of two whole chunks each
+    ((25088, 196, 8, 1024, 256, 128),
+     (256, 4, 1024 + 4 * 49152 + 4 * 8192 + 64, 1568, 16, 25, 400, 1, 200),
+     ((0, 0, 196), (1, 0, 196), (2, 1, -196), (3, 1, -196))
+     + tuple((k, 2, 0) for k in range(4, 16))),
+    # layer4_1 at 16 clips: 392 rows a clip = 7 tiles (the last 8 real
+    # rows), O = 512 in two column tiles
+    ((6272, 49, 8, 2048, 512, 256),
+     (256, 4, 230464, 392, 16, 7, 112, 2, 112),
+     tuple((k, 0, 49) for k in range(4)) + tuple((k, 1, -49) for k in range(4, 8))
+     + tuple((k, 2, 0) for k in range(8, 32))),
+    # TSM-R18's fold 16 of 128: chunk 0 in three passes
+    ((2 * 8 * 49, 49, 8, 128, 128, 16),
+     (128, 6, 230496, 392, 2, 7, 14, 1, 7),
+     ((0, 0, 49), (0, 1, -49), (0, 2, 0), (1, 2, 0))),
+    # fold 24: both folds and the unshifted rest in chunk 0
+    ((4 * 6, 6, 4, 192, 16, 24),
+     (64, 8, 214144, 24, 1, 1, 1, 1, 1),
+     ((0, 0, 6), (0, 1, -6), (0, 2, 0), (1, 2, 0), (2, 2, 0))),
+    # unshifted: all 490 rows one clip of 8 tiles; C = 72: a part chunk
+    ((490, 49, 10, 72, 16, 0),
+     (64, 8, 214144, 490, 1, 8, 8, 1, 4),
+     ((0, 2, 0), (1, 2, 0))),
+    # fold = C / 2 (fold_div 2): no unshifted channels
+    ((3 * 2 * 5, 5, 2, 64, 32, 32),
+     (64, 8, 214144, 10, 3, 1, 3, 1, 2),
+     ((0, 0, 5), (0, 1, -5))),
+    # O = 320: two column tiles of 256, the second 64 real columns
+    ((4 * 9, 9, 4, 64, 320, 8),
+     (256, 4, 230464, 36, 1, 1, 1, 2, 2),
+     ((0, 0, 9), (0, 1, -9), (0, 2, 0))),
+]
+
+
+@pytest.mark.parametrize("shape, counts, steps", SM_PLANS)
+def test_shift_matmul_plan(shape, counts, steps):
+    plan = sm.shift_matmul_plan(*shape)
+    assert tuple(plan[:9]) == counts
+    assert plan.steps == steps
+    assert plan.smem <= sm.SMEM_MAX
+
+
+@pytest.mark.parametrize("shape, padding", [
+    ((6272, 49, 8, 2048, 512, 256), 56 / 448),    # 7 x 7: 12.5 %
+    ((25088, 196, 8, 1024, 256, 128), 32 / 1600),  # 14 x 14: 2 %
+    ((100352, 784, 8, 512, 256, 64), 0.0),         # 28 x 28
+])
+def test_shift_matmul_plan_padding(shape, padding):
+    assert sm.shift_matmul_plan(*shape).padding == pytest.approx(padding)
+
+
+@pytest.mark.parametrize("shape", [
+    (10, 5, 4, 64, 16, 8),   # rows not whole clips
+    (8, 1, 8, 60, 16, 0),    # C % 8
+    (8, 1, 8, 64, 24, 0),    # O % 16
+    (8, 1, 8, 64, 16, 4),    # fold % 8
+    (8, 1, 8, 64, 16, 40),   # 2·fold > C
+])
+def test_shift_matmul_plan_refuses(shape):
+    with pytest.raises(ValueError):
+        sm.shift_matmul_plan(*shape)
+
+
+def _walk(x, w, plan, c, fold):
+    """The kernel's walk in numpy: each row tile's ring stages, each x box
+    loaded at its region's row offset inside the clip and zero outside the
+    clip and outside the region's channels, its four 16-deep k-steps
+    summed; then the stores, rows past the clip dropped."""
+    o = w.shape[1]
+    xc = x.reshape(plan.clips, plan.clip_rows, c)
+    y = np.zeros((plan.clips, plan.clip_rows, o))
+    regions = sm._regions(c, fold)
+    for s in range(plan.row_tiles):
+        clip, row0 = s // plan.tiles_per_clip, s % plan.tiles_per_clip * 64
+        acc = np.zeros((64, o))
+        for chunk, r, dr in plan.steps:
+            lo, hi = regions[r]
+            box = np.zeros((64, 64))
+            src = np.arange(row0, row0 + 64) + dr
+            rows = (src >= 0) & (src < plan.clip_rows)
+            ch = np.arange(chunk * 64, chunk * 64 + 64)
+            cols = (ch >= lo) & (ch < hi)
+            box[np.ix_(rows, cols)] = xc[clip][np.ix_(src[rows], ch[cols])]
+            wk = np.zeros((64, o))
+            wk[:min(64, c - chunk * 64)] = w[chunk * 64:chunk * 64 + 64]
+            for k in range(4):
+                acc += box[:, 16 * k:16 * k + 16] @ wk[16 * k:16 * k + 16]
+        n = min(64, plan.clip_rows - row0)
+        y[clip, row0:row0 + n] = acc[:n]
+    return y.reshape(-1, o)
+
+
+@pytest.mark.parametrize("frames, h, w, c, o, t, fold_div", [
+    (2 * 8, 7, 7, 64, 16, 8, 8),    # 392-row clips, fold 8
+    (2 * 4, 3, 4, 256, 32, 4, 8),   # fold 32
+    (2 * 4, 5, 3, 192, 16, 4, 8),   # fold 24
+    (4, 4, 5, 72, 16, 4, 1000),     # unshifted, C = 72
+    (2 * 2, 3, 3, 64, 16, 2, 2),    # fold = C / 2
+    (2 * 4, 2, 3, 128, 32, 4, 8),   # fold 16: three passes in chunk 0
+])
+def test_shift_matmul_walk_is_the_plain_product(frames, h, w, c, o, t,
+                                                fold_div):
+    """The plan's stages, run as the kernel runs them, give the plain
+    version's shift(x) @ W (fp64 walk against the fp32 plain version)."""
+    rng = np.random.default_rng(c + o)
+    x = rng.standard_normal((frames, h, w, c)).astype(np.float32)
+    wt = (rng.standard_normal((c, o)) * 0.1).astype(np.float32)
+    fold = c // fold_div
+    plan = sm.shift_matmul_plan(frames * h * w, h * w, t, c, o, fold)
+    got = _walk(x.reshape(-1, c).astype(np.float64), wt.astype(np.float64),
+                plan, c, fold)
+    want = kernels.shift_matmul(torch.from_numpy(x), torch.from_numpy(wt), t,
+                                fold_div).numpy().reshape(-1, o)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -98,19 +98,30 @@ def test_shift_conv_matches_jax(khw, strides, padding, c, o):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("fold_div", [8, 4, 128])
-def test_shift_matmul_matches_jax(fold_div):
+@pytest.mark.parametrize("shape,t,o,fold_div", [
+    pytest.param((3 * 4, 6, 5, 64), 4, 16, 8, id="8"),     # C = 64, fold 8
+    pytest.param((3 * 4, 6, 5, 64), 4, 16, 4, id="4"),     # fold 16
+    pytest.param((3 * 4, 6, 5, 64), 4, 16, 128, id="128"),  # fold 0
+    # the shapes the kernel's walk makes special: clips of 8 frames of 7 x 7
+    # (392 rows, not a multiple of its 64-row tiles), a fold of 8 cutting a
+    # 16-deep k-step, a fold of 32 cutting its first 64-deep K chunk, no fold
+    pytest.param((2 * 8, 7, 7, 128), 8, 32, 8, id="hw49-t8"),
+    pytest.param((8, 3, 5, 64), 8, 64, 8, id="c64-fold8"),
+    pytest.param((2 * 4, 3, 4, 256), 4, 128, 8, id="c256-fold32"),
+    pytest.param((8, 7, 7, 256), 8, 16, 512, id="c256-fold0"),
+])
+def test_shift_matmul_matches_jax(shape, t, o, fold_div):
     rng = np.random.default_rng(2)
-    x = rng.standard_normal((3 * 4, 6, 5, 64)).astype(np.float32)
-    w = (rng.standard_normal((64, 16)) * 0.1).astype(np.float32)
-    op = make_shift_matmul(4, fold_div, interpret=True)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal((shape[-1], o)) * 0.1).astype(np.float32)
+    op = make_shift_matmul(t, fold_div, interpret=True)
     want = np.asarray(op(jnp.asarray(x), jnp.asarray(w)))
     before = kernels.shift_matmul.launches
-    got = _np(kernels.shift_matmul(_t(x), _t(w), 4, fold_div))
+    got = _np(kernels.shift_matmul(_t(x), _t(w), t, fold_div))
     assert kernels.shift_matmul.launches == before  # CPU: plain version
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(
-        _np(kernels.shift_matmul_plain(_t(x), _t(w), 4, fold_div)), want, **TOL)
+        _np(kernels.shift_matmul_plain(_t(x), _t(w), t, fold_div)), want, **TOL)
 
 
 def _rand_params(rng, c, f, o, with_ds):

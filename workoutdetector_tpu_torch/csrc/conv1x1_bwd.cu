@@ -83,29 +83,6 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return off ? p + (1024 - off) : p;
 }
 
-// The fold shift's channel regions: [0, fold), [fold, 2 fold), [2 fold, C).
-// Unshifted (fold = 0) only the last, [0, C), is not empty.
-struct Regions {
-  int fold, C;
-  __host__ __device__ int lo(int r) const { return r == 0 ? 0 : r == 1 ? fold : 2 * fold; }
-  __host__ __device__ int hi(int r) const { return r == 0 ? fold : r == 1 ? 2 * fold : C; }
-  __host__ __device__ int of(int c) const { return c < fold ? 0 : c < 2 * fold ? 1 : 2; }
-  // does region r meet channels [c0, c0 + width)?
-  __host__ __device__ bool meets(int r, int c0, int width) const {
-    return lo(r) < hi(r) && c0 < hi(r) && c0 + width > lo(r);
-  }
-  __host__ __device__ int count(int c0, int width) const {
-    return (int)meets(0, c0, width) + (int)meets(1, c0, width) +
-           (int)meets(2, c0, width);
-  }
-  // the most regions any of the tiles [c0, c0 + width) of [0, C) meets
-  __host__ int most(int width) const {
-    int n = 0;
-    for (int c0 = 0; c0 < C; c0 += width) n = count(c0, width) > n ? count(c0, width) : n;
-    return n;
-  }
-};
-
 // ---------------------------------------------------------------- dx
 
 // BN output columns per tile. F = 0: every tile lies in one channel region

@@ -1,4 +1,6 @@
-// Shared pieces of the hand kernels: cp.async staging, a block-level bf16
+// The WMMA pieces of csrc/fused_block_wmma.cu (the fused bottleneck's route
+// for the widths the wgmma kernel of fused_block.cu leaves out; the other
+// kernels are built on wd_wgmma.cuh): cp.async staging, a block-level bf16
 // GEMM on WMMA tensor-core fragments with an fp32 accumulator, and the
 // epilogue that hands each thread eight output columns of one row.
 //

@@ -135,6 +135,64 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
+// smem tile -> the box of the 3-D map at (c0 innermost, c1, c2); elements
+// outside the tensor are not written. Completes in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's shared-memory writes before later TMA reads of them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- fold shift
+
+// The TSM fold shift's channel regions (2 fold <= C): [0, fold) reads
+// frame t+1, [fold, 2 fold) frame t-1, [2 fold, C) is unshifted.
+// Unshifted (fold = 0) only the last, [0, C), is not empty.
+struct Regions {
+  int fold, C;
+  __host__ __device__ int lo(int r) const { return r == 0 ? 0 : r == 1 ? fold : 2 * fold; }
+  __host__ __device__ int hi(int r) const { return r == 0 ? fold : r == 1 ? 2 * fold : C; }
+  __host__ __device__ int of(int c) const { return c < fold ? 0 : c < 2 * fold ? 1 : 2; }
+  // does region r meet channels [c0, c0 + width)?
+  __host__ __device__ bool meets(int r, int c0, int width) const {
+    return lo(r) < hi(r) && c0 < hi(r) && c0 + width > lo(r);
+  }
+  __host__ __device__ int count(int c0, int width) const {
+    return (int)meets(0, c0, width) + (int)meets(1, c0, width) +
+           (int)meets(2, c0, width);
+  }
+  // the most regions any of the tiles [c0, c0 + width) of [0, C) meets
+  __host__ int most(int width) const {
+    int n = 0;
+    for (int c0 = 0; c0 < C; c0 += width) n = count(c0, width) > n ? count(c0, width) : n;
+    return n;
+  }
+};
+
 // ------------------------------------------------------------- wgmma
 
 // descriptor of a 128-byte-swizzled tile at smem address `p`
@@ -479,6 +537,18 @@ __device__ __forceinline__ int frag_row(int t, int i) {
 }
 __device__ __forceinline__ int frag_col(int t, int i) {
   return (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
+}
+
+// Registers of each thread of this warpgroup: give back down to N, or
+// take up to N (waits until the block has them free). All the
+// warpgroup's threads execute it; N is a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // barrier among the `count` threads that name the same id (1..15)

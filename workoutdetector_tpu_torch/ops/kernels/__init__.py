@@ -19,7 +19,7 @@ from workoutdetector_tpu_torch.ops.kernels.fused_block import (
 from workoutdetector_tpu_torch.ops.kernels.shift import (
     TemporalShift, temporal_shift, temporal_shift_clips, temporal_shift_plain)
 from workoutdetector_tpu_torch.ops.kernels.shift_matmul import (
-    shift_matmul, shift_matmul_plain)
+    shift_matmul, shift_matmul_plain, shift_matmul_plan)
 
 WRAPPERS = (temporal_shift, shift_matmul, fused_bottleneck,
             fused_bottleneck_wmma, conv1x1_dx, conv1x1_dw, attention,
@@ -46,6 +46,6 @@ __all__ = [
     "fused_bottleneck", "fused_bottleneck_plain", "fused_bottleneck_wmma",
     "wgmma_route", "wgmma_tiles", "TemporalShift",
     "temporal_shift", "temporal_shift_clips", "temporal_shift_plain",
-    "shift_matmul", "shift_matmul_plain", "WRAPPERS", "reset_launches",
-    "launch_counts",
+    "shift_matmul", "shift_matmul_plain", "shift_matmul_plan", "WRAPPERS",
+    "reset_launches", "launch_counts",
 ]

@@ -11,10 +11,10 @@ The library is cached by the content of ``csrc/`` under
 ``workoutdetector_tpu_torch/_build/`` (ignored by git): the first use in
 a checkout builds it, later uses load it.
 
-The TMA kernels (``conv1x1_bwd.cu``, ``attention_bwd_short.cu``,
-``attention_fwd.cu``, ``fused_block.cu``) describe their tiles with tensor
-maps made by the CUDA driver API's ``cuTensorMapEncodeTiled``. The
-library takes that entry point from the runtime
+The TMA kernels (``shift_matmul.cu``, ``conv1x1_bwd.cu``,
+``attention_bwd_short.cu``, ``attention_fwd.cu``, ``fused_block.cu``)
+describe their tiles with tensor maps made by the CUDA driver API's
+``cuTensorMapEncodeTiled``. The library takes that entry point from the runtime
 (``cudaGetDriverEntryPointByVersion``, see ``csrc/wd_wgmma.cuh``), so it
 links against nothing but the CUDA runtime nvcc adds: no ``-lcuda``.
 ``sm_90a`` (not ``sm_90``) is what lets the kernels issue ``wgmma``.
@@ -47,6 +47,7 @@ L = ctypes.c_int64
 SIGNATURES: Dict[str, List] = {
     "wd_temporal_shift": [P, P, L, L, I, I, I, I, I, I, P],
     "wd_shift_matmul_bf16": [P, P, P, L, L, I, I, I, I, I, P],
+    "wd_shift_matmul_plan": [L, L, I, I, I, I, ctypes.POINTER(L), I],
     "wd_fused_bottleneck_bf16": [P] * 10 + [I] * 9 + [P],
     "wd_fused_bottleneck_wmma_bf16": [P] * 10 + [I] * 9 + [P],
     "wd_fused_bottleneck_smem": [I, I, I, I],
