@@ -79,8 +79,31 @@ not printed; no CUDA device → exit 2):
      one-block forward's 256 rows and the one-launch backward's shared
      memory) with 12 tiled forward (``attention_tiled``), 12 dK/dV and 12
      dQ launches and a finite loss;
-  9. one JSON line of per-kernel numbers, the card line again, and the
-     contract line ``{"ok": true, "device": {...}}`` last.
+  9. the sweep: a RepCount-shaped corpus written by the phase
+     (``annotation.csv`` and 6 test videos of ≈ 300 frames at 320×240, a
+     known number of dark/bright reps each; mp4 through ``write_video``
+     where cv2 imports, else YUV4MPEG2, and where no decoder backend
+     loads, a stand-in reader of the generated frames, said so on its own
+     line), a port checkpoint of TSM-R50 (``repcount_12_tsm.yaml``, random
+     weights from seed 0, the head set so that its state follows the
+     brightness: ``brightness_head``) and ``engine_from_checkpoint``: ``inference_dataset``
+     with 2 decode workers staging on the device (launches: 10
+     shift-matmul and 6 fused-block per forward; every score JSON in the
+     JAX schema), held to an unstaged one-worker sweep (identical JSONs),
+     to the fp32 plain path (``compare_dirs`` and phase 4's logit rule on
+     the two live classes) and to a ``chunk_frames=64`` sweep;
+     ``eval_dataset`` on one shard, on two merged by
+     ``eval_count_shards``, and on the plain path (equal counts, MAE and
+     OBO); the CLI in ``--score`` and ``--merge-shards`` mode; a planted
+     fault (a video renamed: the manifest names it, the others are
+     scored, the CLI exits non-zero on a shard of that video alone); the
+     sweep's windows/s, the decode share of its wall time and
+     ``score_video`` alone on the decoded videos; and one video counted
+     by TimeSformer-B/16 through ``engine_from_checkpoint``
+     (``timesformer.yaml``; 12 attention launches per forward);
+ 10. one JSON line of per-kernel numbers (and the sweep's numbers), the
+     card line again, and the contract line ``{"ok": true, "device":
+     {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -1175,6 +1198,483 @@ def synthetic_video(np, frames: int, seed: int):
     return video
 
 
+# ---------------------------------------------------------------- phase 9
+# The sweep's corpus: 6 test-split videos at 320×240, each a known number
+# of reps of dark/bright half-states (≈ 300 frames), drawn as the JAX
+# package's data/synthetic.py:repcount_video_frames draws them.
+SWEEP_REPS = (7, 8, 6, 8, 7, 7)
+SWEEP_H, SWEEP_W = 240, 320
+SWEEP_ACTIONS = ("situp", "push_up", "pull_up", "jump_jack", "squat",
+                 "front_raise")
+ACTION_TINT = {
+    "situp": (1.0, 0.9, 0.8), "push_up": (0.8, 1.0, 0.9),
+    "pull_up": (0.9, 0.8, 1.0), "jump_jack": (1.0, 1.0, 0.8),
+    "squat": (0.8, 1.0, 1.0), "front_raise": (1.0, 0.8, 1.0),
+}
+TSM_YAML = "workoutdetector_tpu/configs/repcount_12_tsm.yaml"
+TS_YAML = "workoutdetector_tpu/configs/timesformer.yaml"
+
+
+def sweep_frames(np, rng, action: str, n_reps: int):
+    """One synthetic exercise video (T, 240, 320, 3) uint8 and its reps
+    [s1, e1, s2, e2, ...]: a dark lead-in, n_reps of (dark 'start',
+    bright 'end') half-states of 12-26 frames each, a dark lead-out,
+    tinted per action, with N(0, 6) pixel noise."""
+    tint = np.asarray(ACTION_TINT[action], np.float32)
+    segs, reps, t = [], [], 0
+
+    def emit(n: int, level: float):
+        nonlocal t
+        base = np.full((n, SWEEP_H, SWEEP_W, 3), level, np.float32) * tint
+        noise = rng.normal(0, 6, size=base.shape).astype(np.float32)
+        segs.append(np.clip(base + noise, 0, 255).astype(np.uint8))
+        t += n
+
+    emit(int(rng.integers(4, 16)), 40.0)
+    for _ in range(n_reps):
+        start = t
+        emit(int(rng.integers(12, 27)), 40.0)
+        emit(int(rng.integers(12, 27)), 220.0)
+        reps.extend([start, t - 1])
+    emit(int(rng.integers(4, 16)), 40.0)
+    return np.concatenate(segs), reps
+
+
+def write_y4m(np, path: str, frames, fps: int = 30) -> None:
+    """(T, H, W, 3) RGB uint8 → a YUV4MPEG2 file (4:4:4, BT.601 limited
+    range), which libavformat demuxes without a codec."""
+    f = frames.astype(np.float32) / 255.0
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    planes = np.stack([16 + 65.481 * r + 128.553 * g + 24.966 * b,
+                       128 - 37.797 * r - 74.203 * g + 112.0 * b,
+                       128 + 112.0 * r - 93.786 * g - 18.214 * b], axis=1)
+    planes = np.clip(np.round(planes), 0, 255).astype(np.uint8)
+    h, w = frames.shape[1:3]
+    with open(path, "wb") as out:
+        out.write(f"YUV4MPEG2 W{w} H{h} F{fps}:1 Ip A1:1 C444\n".encode())
+        for p in planes:
+            out.write(b"FRAME\n")
+            out.write(p.tobytes())
+
+
+def write_sweep_corpus(np, root: Path):
+    """A RepCount-shaped corpus under ``root``: ``annotation.csv`` in the
+    reference's schema and the 6 test videos, as mp4 through the port's
+    ``write_video`` where cv2 imports, else as y4m. Returns ({path: frames},
+    the container's name)."""
+    import csv
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        ext = ".y4m"
+    else:
+        ext = ".mp4"
+    from workoutdetector_tpu_torch.data.video import write_video
+
+    rng = np.random.default_rng(0)
+    (root / "videos" / "test").mkdir(parents=True)
+    rows = [["", "class_", "split", "name", "vid", "start", "end", "count",
+             "reps"]]
+    frames_by_path = {}
+    for k, n_reps in enumerate(SWEEP_REPS):
+        action = SWEEP_ACTIONS[k % len(SWEEP_ACTIONS)]
+        frames, reps = sweep_frames(np, rng, action, n_reps)
+        name = f"test{k}{ext}"
+        path = str(root / "videos" / "test" / name)
+        if ext == ".mp4":
+            write_video(path, frames, 30.0)
+        else:
+            write_y4m(np, path, frames)
+        frames_by_path[path] = frames
+        rows.append([str(k), action, "test", name, f"syn{k:08d}", "0",
+                     str(len(frames)), f"{float(n_reps)}",
+                     " ".join(map(str, reps))])
+    with open(root / "annotation.csv", "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return frames_by_path, ext
+
+
+def frames_reader(torch, frames_by_path):
+    """A stand-in for the port's VideoReader over the frames the phase
+    generated, for a machine where neither decoder backend loads: the
+    same resize (short side → scale, bilinear with antialiasing) and
+    center crop; a path that is not one of the corpus's raises as a
+    failed decode does."""
+    import os
+    import torch.nn.functional as F
+
+    class FramesReader:
+        def __init__(self, path, prefer_native=True):
+            if not os.path.exists(path):
+                raise FileNotFoundError(path)
+            if path not in frames_by_path:
+                raise IOError(f"Failed to open {path}")
+            self.frames = frames_by_path[path]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def read_prepped(self, scale=256, crop=224, max_frames=None):
+            x = torch.from_numpy(self.frames[:max_frames]).permute(0, 3, 1, 2)
+            h, w = x.shape[2:]
+            scale = max(scale, crop)
+            size = (scale, max(1, round(w * scale / h))) if h <= w else \
+                (max(1, round(h * scale / w)), scale)
+            x = F.interpolate(x.float(), size=size, mode="bilinear",
+                              antialias=True, align_corners=False)
+            y0, x0 = (size[0] - crop) // 2, (size[1] - crop) // 2
+            x = x[:, :, y0:y0 + crop, x0:x0 + crop].round().clamp(0, 255)
+            return x.to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
+
+        def iter_prepped(self, scale=256, crop=224, chunk=1024):
+            video = self.read_prepped(scale, crop)
+            for i in range(0, len(video), chunk):
+                yield video[i:i + chunk]
+
+    return FramesReader
+
+
+def read_scores(np, directory: Path):
+    """{video name: (total_frames, (N, num_class) logits)} of a sweep."""
+    out = {}
+    for p in sorted(directory.glob("*.score.json")):
+        with open(p) as f:
+            d = json.load(f)
+        out[d["video_name"]] = (d["total_frames"], np.array(
+            [list(row.values()) for row in d["scores"].values()], np.float64))
+    return out
+
+
+def same_files(a: Path, b: Path) -> bool:
+    names = sorted(p.name for p in a.glob("*.score.json"))
+    return names == sorted(p.name for p in b.glob("*.score.json")) and all(
+        (a / n).read_bytes() == (b / n).read_bytes() for n in names)
+
+
+def brightness_head(np, torch, model, ref_model, frames):
+    """Set the TSM head so that its state follows the frame brightness: of
+    a decoded corpus video ``frames``, a dark window (its 8 darkest frames)
+    and a bright one (its 8 brightest) go through the fp32 plain path; the
+    two classes whose logits differ most between them go to rows 0 and 1,
+    their biases tie halfway between the two windows (mid-grey in logit
+    space), and the other rows get weight 0 and bias −1e3. Applied to both
+    models; returns the two classes."""
+    from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
+    order = np.argsort(frames.reshape(len(frames), -1).mean(1))
+    windows = np.stack([frames[np.sort(order[:FRAMES])],
+                        frames[np.sort(order[-FRAMES:])]])
+    x = torch.from_numpy(windows).to("cuda")
+    with torch.no_grad():
+        dark, bright = ref_model.to("cuda").eval()(normalize_clip(x)) \
+            .double().cpu().numpy()
+    diff = bright - dark
+    a, b = int(np.argmin(diff)), int(np.argmax(diff))
+    tie = ((dark[a] - dark[b]) + (bright[a] - bright[b])) / 2
+    for m in (model, ref_model):
+        w, bias = m.fc.weight.data, m.fc.bias.data
+        rows, biases = w[[a, b]].clone(), bias[[a, b]].clone()
+        biases[0] -= float(tie)
+        w.zero_()
+        bias.fill_(-1e3)
+        w[:2], bias[:2] = rows, biases
+    return a, b
+
+
+def sweep_phase(np, torch, kernels, repo: Path, card: str) -> dict:
+    """Phase 9: the decode → score → count sweep of a RepCount-shaped
+    corpus through the port's entry points (``engine_from_checkpoint``,
+    ``inference_dataset``, ``eval_dataset``, ``eval_count_shards``, the
+    CLI), TSM-R50 from ``repcount_12_tsm.yaml`` at full width. Returns the
+    phase's numbers."""
+    import contextlib
+    import csv
+    import io
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 count_by_video_model,
+                                                 engine_from_checkpoint,
+                                                 eval_count_shards,
+                                                 eval_dataset,
+                                                 inference_dataset)
+    from workoutdetector_tpu_torch.infer import engine as engine_mod
+    from workoutdetector_tpu_torch.infer import inference_count as ic_mod
+    from workoutdetector_tpu_torch.models import build_model
+    from workoutdetector_tpu_torch.models.convert import (load_flax_variables,
+                                                          random_flax_variables)
+    from workoutdetector_tpu_torch.scripts.compare_scores import compare_dirs
+    from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
+
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-sweep-", dir=repo))
+    readers = (ic_mod.VideoReader, engine_mod.VideoReader)
+    try:
+        root = tmp / "RepCount"
+        frames_by_path, ext = write_sweep_corpus(np, root)
+        first = next(iter(frames_by_path))
+        lengths = [len(v) for v in frames_by_path.values()]
+        log(f"    corpus: {len(lengths)} test videos, {SWEEP_W}x{SWEEP_H}, "
+            f"{lengths} frames, reps {list(SWEEP_REPS)}, written as {ext} "
+            f"({'cv2 write_video' if ext == '.mp4' else 'YUV4MPEG2 from numpy'})")
+        try:
+            with readers[0](first) as r:
+                r.read_prepped(256, SIZE, max_frames=1)
+            log(f"    decoder: the port's VideoReader ({ext})")
+        except RuntimeError as exc:  # no backend: the reader names both
+            log(f"    decoder: NONE LOADS ({exc}); the phase replaces the "
+                "port's VideoReader in infer.inference_count and "
+                "infer.engine by a reader of the frames it generated")
+            ic_mod.VideoReader = engine_mod.VideoReader = frames_reader(
+                torch, frames_by_path)
+        reader = ic_mod.VideoReader
+
+        cfg = load_config(str(repo / TSM_YAML))
+        model = build_model(cfg.model)
+        variables = random_flax_variables(model, seed=0)
+        load_flax_variables(model, variables)
+        ref_cfg = load_config(str(repo / TSM_YAML), ["model.dtype=float32"])
+        ref_model = build_model(ref_cfg.model, use_kernels=False)
+        load_flax_variables(ref_model, variables)
+        with reader(first) as r:
+            a, b = brightness_head(np, torch, model, ref_model,
+                                   r.read_prepped(256, SIZE))
+        ckpt = CheckpointManager(str(tmp / "ckpt")).save(
+            {"model": model.state_dict()}, name="tsm_r50")
+        log(f"    head: classes {a} (dark) and {b} (bright) -> rows 0, 1, "
+            f"tied halfway between a dark and a bright window of "
+            f"{Path(first).name}; the other rows -1e3; checkpoint "
+            f"{Path(ckpt).name}")
+        engine = engine_from_checkpoint(cfg, ckpt,
+                                        image_size=cfg.data.image_size)
+        ref_engine = InferenceEngine(ref_model, cfg.model.num_segments,
+                                     engine.window_batch,
+                                     image_size=cfg.data.image_size,
+                                     device="cuda")
+        del model
+        warm = np.zeros((24, SIZE, SIZE, 3), np.uint8)
+        engine.score_video(warm)
+        ref_engine.score_video(warm)
+        torch.cuda.synchronize()
+
+        def sweep(eng, name, **kw):
+            out = tmp / name
+            summary = inference_dataset(eng, ["test"], str(out), ckpt,
+                                        data_root=str(root), **kw)
+            torch.cuda.synchronize()
+            return out, summary
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        staged_dir, summary = sweep(engine, "staged", decode_workers=2)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        scores = read_scores(np, staged_dir)
+        names = sorted(Path(p).name for p in frames_by_path)
+        if sorted(summary["scored"]) != names or summary["failed"]:
+            raise AssertionError(f"sweep summary {summary}")
+        windows = sum(len(l) for _, l in scores.values())
+        forwards = sum(math.ceil(len(l) / engine.window_batch)
+                       for _, l in scores.values())
+        log(f"    inference_dataset (2 decode workers, staged): "
+            f"{len(scores)} videos, {windows} windows, {forwards} forwards "
+            f"in {wall:.4f} s = {windows / wall:.2f} windows/s on {card}; "
+            f"launches={launches}")
+        want = {name: 0 for name in launches}
+        want.update(shift_matmul=10 * forwards, fused_bottleneck=6 * forwards)
+        if launches != want:
+            raise AssertionError(f"sweep launch counts {launches} != {want}")
+
+        # every score JSON against the JAX package's schema
+        with open(root / "annotation.csv") as f:
+            gt = {r[3]: [int(x) for x in r[8].split()]
+                  for r in list(csv.reader(f))[1:]}
+        for p in sorted(staged_dir.glob("*.score.json")):
+            with open(p) as f:
+                d = json.load(f)
+            keys = ["video_name", "model", "input_shape", "checkpoint",
+                    "total_frames", "ground_truth", "action", "scores"]
+            n = lengths[names.index(d["video_name"])]
+            if list(d) != keys or d["model"] != "video_model" or \
+                    d["input_shape"] != [1, FRAMES, 3, SIZE, SIZE] or \
+                    d["checkpoint"] != ckpt or d["total_frames"] != n or \
+                    d["ground_truth"] != gt[d["video_name"]] or \
+                    list(d["scores"]) != [str(s) for s in range(0, n, 8)] or \
+                    any(list(row) != [str(c) for c in range(NUM_CLASS)]
+                        for row in d["scores"].values()):
+                raise AssertionError(f"{p.name}: not the JAX score-JSON schema")
+        log(f"    score JSONs: the JAX schema (keys {keys}; windows every 8 "
+            "frames; 12 classes)")
+
+        # timing: the same videos decoded serially, then score_video alone
+        t0 = time.perf_counter()
+        decoded = []
+        for p in frames_by_path:
+            with reader(p) as r:
+                decoded.append(r.read_prepped(256, SIZE))
+        decode_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_windows = sum(len(engine.score_video(v, step=8, stride=2)[0])
+                        for v in decoded)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        del decoded
+        log(f"    windows/s: sweep {windows / wall:.2f} (wall {wall:.4f} s); "
+            f"decode share {decode_s / wall:.4f} (serial decode of the same "
+            f"videos {decode_s:.4f} s over the sweep's wall); score_video "
+            f"alone {n_windows / score_s:.2f} ({score_s:.4f} s) on {card}")
+
+        # the staged copies against synchronous copies, one decode worker
+        stage = engine.stage_video
+        engine.stage_video = lambda v: stage(v, pin_memory=False)
+        sync_dir, _ = sweep(engine, "unstaged", decode_workers=1)
+        del engine.stage_video
+        if not same_files(staged_dir, sync_dir):
+            raise AssertionError("the staged sweep's JSONs differ from the "
+                                 "unstaged one-worker sweep's")
+        log("    staged (2 workers, pinned copies on the copy stream) vs "
+            "unstaged (1 worker, synchronous pageable copies): identical "
+            "JSONs")
+
+        # the fp32 plain path on the card, by phase 4's logit rule
+        ref_dir, _ = sweep(ref_engine, "plain")
+        ref_scores = read_scores(np, ref_dir)
+        got = np.concatenate([scores[k][1] for k in sorted(scores)])
+        ref = np.concatenate([ref_scores[k][1] for k in sorted(scores)])
+        cmp = compare_dirs(str(staged_dir), str(ref_dir))
+        log(f"    compare_dirs(kernel path, fp32 plain path): {cmp}")
+        if not (got.argmax(1) < 2).all() or not (ref.argmax(1) < 2).all():
+            raise AssertionError("a class other than rows 0, 1 won a window")
+        logit_rule(np, got[:, :2], ref[:, :2], "sweep (rows 0, 1)")
+
+        # chunked decode + scoring against the whole-video sweep
+        chunk_dir, _ = sweep(engine, "chunked", chunk_frames=64)
+        chunked = read_scores(np, chunk_dir)
+        ch = np.concatenate([chunked[k][1] for k in sorted(scores)])
+        bitwise = same_files(staged_dir, chunk_dir)
+        log(f"    chunk_frames=64 vs whole videos: "
+            f"{'bit-identical JSONs' if bitwise else 'max |diff| %g' % float(np.abs(ch - got).max())}, "
+            f"argmax identical on {int((ch.argmax(1) == got.argmax(1)).sum())}"
+            f"/{len(got)} windows")
+        if not (ch.argmax(1) == got.argmax(1)).all():
+            raise AssertionError("chunked scoring changed an argmax")
+        logit_rule(np, ch[:, :2], ref[:, :2], "chunked sweep (rows 0, 1)")
+
+        # counts and MAE/OBO: one shard, two shards merged, the plain path
+        counts = {}
+        mae, obo = eval_dataset(engine, ["all"], "test", str(root),
+                                counts_out=str(tmp / "counts_full.json"))
+        files = [str(tmp / f"counts_{i}of2.json") for i in range(2)]
+        for i in range(2):
+            eval_dataset(engine, ["all"], "test", str(root), shard=(i, 2),
+                         counts_out=files[i])
+        mae_m, obo_m, merged = eval_count_shards(files, str(root),
+                                                 action=["all"],
+                                                 split=["test"])
+        eval_dataset(ref_engine, ["all"], "test", str(root),
+                     counts_out=str(tmp / "counts_plain.json"))
+        for tag in ("full", "plain"):
+            with open(tmp / f"counts_{tag}.json") as f:
+                counts[tag] = json.load(f)
+        log(f"    eval_dataset: counts {counts['full']} (ground truth "
+            f"{list(SWEEP_REPS)}), MAE {mae:.6f} OBO {obo:.6f}; two shards "
+            f"merged: MAE {mae_m:.6f} OBO {obo_m:.6f}; fp32 plain path "
+            f"counts {counts['plain']}")
+        if not (math.isclose(mae, mae_m, rel_tol=1e-12, abs_tol=1e-12) and
+                math.isclose(obo, obo_m, rel_tol=1e-12, abs_tol=1e-12)):
+            raise AssertionError("merged shards' MAE/OBO differ from one shard's")
+        if counts["full"] != counts["plain"] or \
+                {k: v.pred_count for k, v in merged.items()} != counts["full"]:
+            raise AssertionError("counts differ between the kernel path, the "
+                                 "merged shards and the fp32 plain path")
+        if not any(counts["full"].values()):
+            raise AssertionError("every count is 0")
+
+        # the CLI: --score and --merge-shards
+        base = ["--cfg", str(repo / TSM_YAML), "-ckpt", ckpt,
+                "--data-root", str(root), "--split", "test"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ic_mod.main(["--score", str(tmp / "cli")] + base)
+            ic_mod.main(["--merge-shards"] + files + base)
+        printed = [json.loads(line) for line in out.getvalue().splitlines()]
+        log(f"    CLI --score: {printed[0]}; --merge-shards: {printed[1]}")
+        if printed[0] != {"scored": len(names), "skipped": 0, "failed": [],
+                          "shard": [0, 1]} or \
+                printed[1] != {"mae": mae_m, "obo_acc": obo_m,
+                               "n_pred": len(names)} or \
+                not same_files(staged_dir, tmp / "cli"):
+            raise AssertionError("the CLI's output differs from the sweep's")
+
+        # a planted fault: one video renamed, so that it fails to decode
+        bad = names[2]
+        bad_path = root / "videos" / "test" / bad
+        bad_path.rename(bad_path.with_name(bad + ".moved"))
+        summary = inference_dataset(engine, ["test"], str(tmp / "fault"), ckpt,
+                                    data_root=str(root), on_error="skip")
+        with open(tmp / "fault" / "failures" / "shard_0of1.json") as f:
+            manifest = json.load(f)
+        log(f"    planted fault ({bad} renamed): scored "
+            f"{len(summary['scored'])}, manifest {manifest}")
+        if sorted(summary["scored"]) != [n for n in names if n != bad] or \
+                list(manifest) != [bad] or manifest[bad]["stage"] != "decode":
+            raise AssertionError("the planted bad video was not caught")
+        with open(root / "annotation.csv") as f:
+            rows = list(csv.reader(f))
+        with open(tmp / "bad_only.csv", "w", newline="") as f:
+            csv.writer(f).writerows(
+                [rows[0]] + [r for r in rows[1:] if r[3] == bad])
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            try:
+                ic_mod.main(["--score", str(tmp / "fault_cli"), "--anno",
+                             str(tmp / "bad_only.csv")] + base)
+            except SystemExit as exc:
+                code = exc.code
+            else:
+                code = 0
+        log(f"    CLI --score on a shard whose one video fails: exit {code}")
+        if not code:
+            raise AssertionError("the CLI exited 0 though it scored nothing")
+
+        # the second family through the loader: TimeSformer-B/16
+        del engine, ref_engine, ref_model
+        torch.cuda.empty_cache()
+        ts_cfg = load_config(str(repo / TS_YAML))
+        ts_engine = engine_from_checkpoint(ts_cfg, None,
+                                           image_size=ts_cfg.data.image_size)
+        ts_engine.score_video(warm)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ts_count, _ = count_by_video_model(ts_engine, first)
+        torch.cuda.synchronize()
+        ts_launches = kernels.launch_counts()
+        ts_forwards = math.ceil((lengths[0] // 8) / ts_engine.window_batch)
+        log(f"    TimeSformer-B/16 (engine_from_checkpoint({TS_YAML}), "
+            f"initializers from seed 0): count {ts_count} on {Path(first).name}, "
+            f"{ts_forwards} forwards, launches={ts_launches}")
+        want = {name: 0 for name in ts_launches}
+        want["attention"] = TS_LAYERS * ts_forwards
+        if ts_launches != want:
+            raise AssertionError(f"TimeSformer launch counts {ts_launches} "
+                                 f"!= {want}")
+        del ts_engine
+        return {"windows": windows, "forwards": forwards,
+                "launches": {"shift_matmul": launches["shift_matmul"],
+                             "fused_bottleneck": launches["fused_bottleneck"]},
+                "windows_per_s": windows / wall, "wall_s": wall,
+                "decode_share": decode_s / wall,
+                "score_video_windows_per_s": n_windows / score_s}
+    finally:
+        ic_mod.VideoReader, engine_mod.VideoReader = readers
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "workoutdetector_tpu_torch" / "csrc").is_dir():
@@ -1302,6 +1802,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tiled_launches = tiled_route_phase(np, torch, kernels, repo)
 
+    torch.cuda.empty_cache()
+    log(f"[9] the sweep: decode -> inference_dataset -> counts and MAE/OBO, "
+        f"TSM-R50 {SIZE} ({TSM_YAML}), bf16, window_batch {WINDOW_BATCH}")
+    sweep = sweep_phase(np, torch, kernels, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -1360,7 +1865,7 @@ def main() -> int:
                     "train_clips_per_s": clips_s,
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
-                    "card": card}))
+                    "sweep": sweep, "card": card}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -789,3 +789,34 @@ def test_cuda_timesformer_train_step_runs_the_backward_kernels(cuda_device):
     for name, p in m.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+def test_cuda_video_staged_from_threads_scores_as_a_synchronous_copy(
+        cuda_device):
+    """``stage_video`` from decode threads (a pinned copy on the engine's
+    copy stream, waited on by ``score_staged``) gives the logits of a
+    synchronous pageable copy on the current stream, bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import TSM, load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    model = TSM(4, 8, "resnet50", dtype=torch.bfloat16)
+    load_flax_variables(model, random_flax_variables(model, seed=0))
+    engine = InferenceEngine(model, 8, 2, device=cuda_device)
+    rng = np.random.default_rng(0)
+    videos = [rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8)
+              for t in (37, 20, 5)]
+    with ThreadPoolExecutor(2) as pool:
+        staged = list(pool.map(engine.stage_video, videos))
+    for video, s in zip(videos, staged):
+        assert s.ready is not None and s.host.is_pinned()
+        starts = engine.windows_for_video(len(video))
+        got = engine.score_staged(s, starts)
+        sync = engine.stage_video(video, pin_memory=False)
+        assert sync.ready is None and sync.video.device.type == "cuda"
+        assert got.shape == (len(starts), 4) and np.isfinite(got).all()
+        assert np.array_equal(got, engine.score_staged(sync, starts))
+        assert np.array_equal(got, engine.score_video(video)[1])

@@ -2,6 +2,7 @@
 its kernel modules import without nvcc or triton, and its entry points
 refuse to drop to the CPU unless asked."""
 
+import json
 import os
 import re
 import subprocess
@@ -37,8 +38,34 @@ ts_engine = InferenceEngine(ts, num_segments=4, window_batch=2, device="cpu")
 assert ts_engine.model.fold_temporal_fc
 starts, logits = ts_engine.score_video(video, step=4, stride=1)
 assert logits.shape == (4, 3) and np.isfinite(logits).all()
+import json, os, tempfile
+import workoutdetector_tpu_torch.settings
+import workoutdetector_tpu_torch.data.video
+import workoutdetector_tpu_torch.data.repcount
+import workoutdetector_tpu_torch.scripts.compare_scores
+import workoutdetector_tpu_torch.scripts.eval_count
+from workoutdetector_tpu_torch.counting import (analyze_count, eval_score_dir,
+                                                obo_mae, scores_to_preds,
+                                                to_softmax)
+from workoutdetector_tpu_torch.infer import (engine_from_checkpoint,
+                                             eval_count_shards, eval_dataset,
+                                             inference_dataset,
+                                             score_video_chunked)
+from workoutdetector_tpu_torch.infer.inference_count import main
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "annotation.csv"), "w") as f:
+        f.write(",class_,split,name,vid,start,end,count,reps\n"
+                "0,squat,test,a.mp4,x,0,9,2.0,0 2 4 6\n"
+                "1,situp,test,b.mp4,y,0,9,1.0,0 4\n")
+    files = []
+    for i, counts in enumerate(({"a.mp4": 2}, {"b.mp4": 3})):
+        files.append(os.path.join(d, f"counts_{i}.json"))
+        with open(files[-1], "w") as f:
+            json.dump(counts, f)
+    main(["--merge-shards"] + files + ["--data-root", d])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "workoutdetector_tpu" or m.startswith("workoutdetector_tpu."))
+             or m == "workoutdetector_tpu" or m.startswith("workoutdetector_tpu.")
+             or m.split(".")[0] in ("cv2", "pandas"))
 assert not bad, bad
 assert _build._loaded is None  # a CPU run builds no kernel
 print("isolated")
@@ -51,6 +78,8 @@ def test_port_runs_without_jax_in_a_fresh_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
+    merged = json.loads(out.stdout.strip().splitlines()[-2])
+    assert merged == {"mae": 1.0, "obo_acc": 0.5, "n_pred": 2}
 
 
 _TRAIN_CHILD = r"""

@@ -4,7 +4,8 @@ The JAX package beside this one is the reference; this package reproduces
 its inference and training paths on an NVIDIA H100 with kernels written
 by hand for Hopper (``ops/kernels`` over ``csrc/*.cu``). It imports torch,
 numpy and the standard library only — never jax, and nothing of the JAX
-package; PyYAML only inside the functions that read YAML configs.
+package; PyYAML only inside the functions that read YAML configs, cv2 and
+pandas only inside the functions that decode or write videos and CSVs.
 
 Layer map:
   ops.preprocess     — on-device window gather + fused normalize
@@ -22,10 +23,18 @@ Layer map:
                        inference), the flax-variable loader and
                        initializers, build_model
   infer              — InferenceEngine (inference rewrites with
-                       optimize=True), count_by_video_model
-  counting           — pred_to_count (rep counting state machine)
+                       optimize=True; stage_video / score_staged: pinned
+                       copies on a copy stream), score_video_chunked,
+                       engine_from_checkpoint, count_by_video_model,
+                       inference_dataset, eval_dataset, eval_count_shards
+                       and the dataset CLI (inference_count.main)
+  counting           — pred_to_count (rep counting state machine), the
+                       count metrics and the score-directory evaluation
   config             — typed config, load_config (the repo's YAMLs)
-  data               — DebugDataset, the deterministic DataLoader
+  data               — VideoReader (native/libwdvideo.so or cv2),
+                       RepcountHelper (annotation.csv through the csv
+                       module), DebugDataset, the deterministic DataLoader
+  scripts            — compare_scores, eval_count
   train              — optimizer policies, checkpoints, loggers, Trainer
   trainer            — the train/test CLI
 

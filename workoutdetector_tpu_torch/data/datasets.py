@@ -3,7 +3,8 @@
 Port of ``workoutdetector_tpu/data/datasets.py`` (``DebugDataset``,
 ``build_dataset``). Items are ``(uint8 (T, H, W, 3) clip, int label)``,
 ``__getitem__(idx, rng)`` taking the loader's per-item generator. The
-datasets that read files come with the decoder slice.
+datasets that read files come with the second half of the decoder slice
+(ROADMAP §1 slice 4b).
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import numpy as np
 
 # dataset_type → where the port will bring it (ROADMAP.md §1)
 LATER = {
-    "FrameDataset": "the decoder slice (JPEG frames, ROADMAP §1 slice 4)",
-    "ImageDataset": "the decoder slice (ROADMAP §1 slice 4)",
-    "TDNDataset": "the decoder slice, with TDN (ROADMAP §1 slice 4 and item 6)",
+    "FrameDataset": "the decoder slice's file datasets (JPEG frames, "
+                    "ROADMAP §1 slice 4b)",
+    "ImageDataset": "the decoder slice's file datasets (ROADMAP §1 slice 4b)",
+    "TDNDataset": "the decoder slice's file datasets, with TDN (ROADMAP §1 "
+                  "slice 4b and item 6)",
     "SyntheticPeriodic": "the RepNet slice (ROADMAP §1 item 6)",
 }
 

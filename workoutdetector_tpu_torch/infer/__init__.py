@@ -1,4 +1,11 @@
-from workoutdetector_tpu_torch.infer.engine import InferenceEngine
-from workoutdetector_tpu_torch.infer.inference_count import count_by_video_model
+from workoutdetector_tpu_torch.infer.engine import (InferenceEngine,
+                                                    engine_from_checkpoint,
+                                                    score_video_chunked)
+from workoutdetector_tpu_torch.infer.inference_count import (
+    count_by_video_model, eval_count_shards, eval_dataset, inference_dataset)
 
-__all__ = ["InferenceEngine", "count_by_video_model"]
+__all__ = [
+    "InferenceEngine", "count_by_video_model", "engine_from_checkpoint",
+    "eval_count_shards", "eval_dataset", "inference_dataset",
+    "score_video_chunked"
+]

@@ -1,23 +1,46 @@
 """Inference engine: uint8 frame windows → logits on the device.
 
-Port of ``workoutdetector_tpu/infer/engine.py`` (``InferenceEngine``):
-windows are scored in fixed batches of ``window_batch`` (the tail chunk
-zero-padded, like the reference's zero-padded tail), the normalize runs on
-the device, and ``score_video`` uploads a decoded video once and gathers
-its sparse windows there (``ops.preprocess.preprocess_windows``).
+Port of ``workoutdetector_tpu/infer/engine.py`` (``InferenceEngine``,
+``score_video_chunked``, ``engine_from_checkpoint``): windows are scored
+in fixed batches of ``window_batch`` (the tail chunk zero-padded, like the
+reference's zero-padded tail), the normalize runs on the device, and a
+decoded video is staged on the device once (``stage_video``: from the
+sweep's decode threads a pinned host copy on the engine's own copy
+stream, so the copy of video k+1 overlaps the scoring of video k) and its
+sparse windows gathered there
+(``score_staged`` → ``ops.preprocess.preprocess_windows``). The JAX
+engine pads videos to a length bucket to reuse XLA programs; the port
+needs no bucket: padded window starts point at the true end, and the
+gather reads zeros past it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import os
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from workoutdetector_tpu_torch.data.video import DEFAULT_MAX_FRAMES, VideoReader
 from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.timesformer import fold_for_inference
 from workoutdetector_tpu_torch.ops.preprocess import (normalize_clip,
                                                       preprocess_windows)
+
+
+class StagedVideo(NamedTuple):
+    """A decoded video on the engine's device (``stage_video``).
+
+    ``ready`` is the copy stream's event after the host-to-device copy
+    (None where the copy went on the current stream: on the CPU, or with
+    ``pin_memory=False``). ``host`` keeps the pinned source alive while
+    the copy may still read it.
+    """
+
+    video: torch.Tensor  # (T, H, W, 3) uint8 on the engine's device
+    ready: Optional[torch.cuda.Event]
+    host: Optional[torch.Tensor]
 
 
 class InferenceEngine:
@@ -27,6 +50,7 @@ class InferenceEngine:
         model: module whose forward(x (B, T, H, W, C) float) → logits.
         num_segments: frames per window (8).
         window_batch: windows scored per device call.
+        image_size: spatial size of the input frames (the decode crop).
         device: ``"cuda"`` (default) or ``"cpu"``; raises when CUDA is
             asked for and absent.
         optimize: apply the exact inference rewrites first (a TimeSformer's
@@ -35,7 +59,7 @@ class InferenceEngine:
     """
 
     def __init__(self, model: torch.nn.Module, num_segments: int = 8,
-                 window_batch: int = 16,
+                 window_batch: int = 16, image_size: int = 224,
                  device: Union[str, torch.device, None] = "cuda",
                  optimize: bool = True):
         self.device = resolve_device(device)
@@ -44,6 +68,17 @@ class InferenceEngine:
         self.model = model.to(self.device).eval()
         self.num_segments = num_segments
         self.window_batch = window_batch
+        self.image_size = image_size
+        self._copy_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    @property
+    def supports_device_gather(self) -> bool:
+        """True: the port's engine always holds a live video model on one
+        device, so every video is staged and gathered there. (The JAX
+        engine's predicate is false for its exported-artifact and
+        mesh-sharded engines, which the port does not have.)"""
+        return True
 
     @torch.no_grad()
     def _run(self, windows_u8: torch.Tensor) -> torch.Tensor:
@@ -91,31 +126,187 @@ class InferenceEngine:
             out[k, :valid.sum()] = video_u8[idx[valid]]
         return out
 
+    def stage_video(self, video_u8: np.ndarray,
+                    pin_memory: bool = True) -> StagedVideo:
+        """Start the copy of a decoded (T, H, W, 3) uint8 video to the
+        device: a pinned host tensor copied with ``non_blocking`` on the
+        engine's copy stream, whose event ``score_staged`` waits on. Safe
+        to call from decode threads, so the copy of video k+1 overlaps the
+        scoring of video k. ``pin_memory=False`` copies the pageable array
+        on the current stream, which orders it before the gathers: for a
+        caller that scores the video at once (``score_video``,
+        ``score_video_chunked``), to which pinning would only add a pinned
+        allocation and a host copy."""
+        host = torch.from_numpy(np.ascontiguousarray(video_u8))
+        if self._copy_stream is None or not pin_memory:
+            return StagedVideo(host.to(self.device), None, None)
+        host = host.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            video = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return StagedVideo(video, ready, host)
+
     @torch.no_grad()
+    def score_staged(self, staged: StagedVideo, starts: np.ndarray,
+                     stride: int = 2) -> np.ndarray:
+        """Score a ``stage_video`` result: per batch of window starts, the
+        sparse gather + normalize + model on the device. The current
+        stream waits for the copy, and the staged tensor is marked as used
+        by it, so its memory is not handed back to the copy stream while
+        the gathers still read it. Padded starts point at the true end:
+        their windows are zeros, the reference's tail semantics."""
+        video = staged.video
+        total = video.shape[0]
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.ready)
+            video.record_stream(stream)
+        starts = np.asarray(starts, np.int64)
+        wb = self.window_batch
+        outs: List[np.ndarray] = []
+        for i in range(0, len(starts), wb):
+            chunk = starts[i:i + wb]
+            n = len(chunk)
+            padded = np.concatenate([chunk, np.full(wb - n, total, np.int64)])
+            x = preprocess_windows(video, torch.from_numpy(padded).to(self.device),
+                                   num_frames=self.num_segments, stride=stride)
+            outs.append(self.model(x).float().cpu().numpy()[:n])
+        if not outs:
+            return np.zeros((0, self.model.num_class), np.float32)
+        return np.concatenate(outs)
+
     def score_video(self, video_u8: np.ndarray, step: int = 8,
                     stride: int = 2, starts: Optional[np.ndarray] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Score a whole decoded (T, H, W, C) uint8 video.
 
-        The video is copied to the device once; each batch of windows is
-        gathered and normalized there. Returns (starts, (N, num_class)
-        logits); ``starts`` defaults to every ``step`` frames.
+        Returns (starts, (N, num_class) logits); ``starts`` defaults to
+        every ``step`` frames. A video with no windows gives (0, num_class)
+        logits.
         """
         if starts is None:
             starts = self.windows_for_video(video_u8.shape[0], step=step)
         starts = np.asarray(starts, np.int64)
         if len(starts) == 0:
             return starts, np.zeros((0, self.model.num_class), np.float32)
-        video = torch.from_numpy(np.ascontiguousarray(video_u8)).to(self.device)
-        total = video.shape[0]
-        wb = self.window_batch
-        outs: List[np.ndarray] = []
-        for i in range(0, len(starts), wb):
-            chunk = starts[i:i + wb]
-            n = len(chunk)
-            # padded starts point past the end → all-zero windows
-            padded = np.concatenate([chunk, np.full(wb - n, total, np.int64)])
-            x = preprocess_windows(video, torch.from_numpy(padded).to(self.device),
-                                   num_frames=self.num_segments, stride=stride)
-            outs.append(self.model(x).float().cpu().numpy()[:n])
-        return starts, np.concatenate(outs)
+        staged = self.stage_video(video_u8, pin_memory=False)
+        return starts, self.score_staged(staged, starts, stride)
+
+
+def score_video_chunked(engine: InferenceEngine,
+                        video_path: str,
+                        step: int = 8,
+                        stride: int = 2,
+                        chunk_frames: int = 1024,
+                        scale: int = 256,
+                        max_frames: Optional[int] = None
+                        ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Bounded-memory decode + score of one video, with the windows of
+    decoding the whole video and calling ``score_video``.
+
+    A window at start s reads frames [s, s + num_segments·stride), so
+    mid-stream every start whose whole span is decoded is scored and only
+    the undecoded-span tail is carried forward; at the end of the stream
+    the remaining starts score with the zero-pad tail of the whole-video
+    path. Peak frame residency is chunk_frames + span instead of the video
+    length. The batches hold other windows than the whole-video path's
+    (each group is padded to ``window_batch`` on its own).
+
+    ``max_frames`` defaults to ``VideoReader.read_prepped``'s cap, so a
+    source longer than it is cut here exactly where the whole-video decode
+    cuts it.
+
+    Returns (total_frames, starts, logits).
+    """
+    if max_frames is None:
+        max_frames = DEFAULT_MAX_FRAMES
+    span = engine.num_segments * stride
+    if chunk_frames < span:
+        raise ValueError(
+            f"chunk_frames {chunk_frames} must cover one window span {span}")
+
+    starts_all: List[int] = []
+    logits_all: List[np.ndarray] = []
+    base = 0  # global frame index of buf[0]
+    buf = np.empty((0, engine.image_size, engine.image_size, 3), np.uint8)
+    next_start = 0
+    with VideoReader(video_path) as r:
+        it = r.iter_prepped(scale, engine.image_size, chunk=chunk_frames)
+        eof = False
+        while not eof:
+            chunk = next(it, None)
+            if chunk is None:
+                eof = True
+            else:
+                room = max_frames - (base + len(buf))
+                if len(chunk) >= room:
+                    # cap reached: cut exactly where read_prepped would
+                    # and treat it as the end (pad-tail semantics)
+                    chunk = chunk[:room]
+                    eof = True
+                if len(chunk):
+                    buf = np.concatenate([buf, chunk]) if buf.size else chunk
+            total = base + len(buf)
+            group: List[int] = []
+            s = next_start
+            while s < total and (eof or s + span <= total):
+                group.append(s)
+                s += step
+            if group:
+                rel = np.asarray(group, np.int64) - base
+                staged = engine.stage_video(buf, pin_memory=False)
+                logits_all.append(engine.score_staged(staged, rel,
+                                                      stride=stride))
+                starts_all.extend(group)
+                next_start = s
+            if not eof and next_start > base:
+                buf = buf[next_start - base:]
+                base = next_start
+    if logits_all:
+        logits = np.concatenate(logits_all)
+    else:
+        # score_video's (0, num_class) on a video without windows
+        logits = np.zeros((0, engine.model.num_class), np.float32)
+    return total, np.asarray(starts_all, np.int64), logits
+
+
+def engine_from_checkpoint(cfg,
+                           checkpoint: Optional[str] = None,
+                           image_size: Optional[int] = None,
+                           window_batch: Optional[int] = None,
+                           input_rank: Optional[int] = None,
+                           device: Union[str, torch.device, None] = "cuda"
+                           ) -> InferenceEngine:
+    """The engine of every CLI: ``build_model(cfg.model)`` with the
+    weights of a port checkpoint (a ``CheckpointManager`` file: its EMA
+    weights where it has them), or the port's initializers from seed 0
+    where no checkpoint is given."""
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  init_flax_variables,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
+
+    if checkpoint and checkpoint.endswith(".jaxm"):
+        raise NotImplementedError(
+            "exported .jaxm artifacts are not in the PyTorch port yet: they "
+            "come with serving and export (ROADMAP §1 slice 5)")
+    if input_rank is not None and input_rank != 5:
+        raise NotImplementedError(
+            f"input_rank {input_rank} (image and TDN models) is not in the "
+            "PyTorch port yet (ROADMAP §1 item 6)")
+    model = build_model(cfg.model)
+    if checkpoint:
+        mgr = CheckpointManager(os.path.dirname(checkpoint) or ".")
+        restored = mgr.restore_variables(checkpoint)
+        model.load_state_dict({**restored["params"],
+                               **restored["batch_stats"]})
+    else:
+        load_flax_variables(model, init_flax_variables(model, seed=0))
+    kwargs = {}
+    if image_size is not None:
+        kwargs["image_size"] = image_size
+    if window_batch is not None:
+        kwargs["window_batch"] = window_batch
+    return InferenceEngine(model, num_segments=cfg.model.num_segments,
+                           device=device, **kwargs)
