@@ -101,9 +101,29 @@ not printed; no CUDA device → exit 2):
      ``score_video`` alone on the decoded videos; and one video counted
      by TimeSformer-B/16 through ``engine_from_checkpoint``
      (``timesformer.yaml``; 12 attention launches per forward);
- 10. one JSON line of per-kernel numbers (and the sweep's numbers), the
-     card line again, and the contract line ``{"ok": true, "device":
-     {...}}`` last.
+ 10. training on rawframe files: a probe of ``native/libwdjpeg.so``
+     (``ctypes.CDLL``: loaded or the OSError) and the decode path
+     FrameDataset takes (native prepped, native full or cv2); a
+     RepCount-shaped corpus written by the phase (``annotation.csv``, 48
+     frame folders of ``img_{:05}.jpg`` at 320×240 through
+     ``cv2.imwrite``, the 6 actions each with its own figure, high in a
+     rep's first half and low in its second; 144 train and 48 val clips
+     in the lists ``build_video_label_list`` writes); the loader alone
+     (``DataLoader(FrameDataset)`` at the yaml's 8 workers and batch 32:
+     clips/s and JPEGs/s); ``repcount_12_tsm.yaml`` loaded by
+     ``load_config`` with the corpus's paths, trained by ``Trainer.fit``
+     for 15 epochs (60 steps) and one validation pass from the port's
+     initializers (seed 0), with the launch counts of phase 6's rule and
+     finite losses, validation accuracy before and after (a report, not a
+     gate), train clips/s fed from the files beside phase 6's, and three
+     loader-fed steps under the profiler (the device's idle share); the
+     fit for 3 epochs with ``data.device_augment`` (256² canvases cropped,
+     resized and flipped on the card; the same launch counts), and its
+     ``crop_flip`` on one batch held to the same function on the CPU copy
+     within 1e-3 on [0, 255];
+ 11. one JSON line of per-kernel numbers (and the sweep's and the file
+     training's numbers), the card line again, the script's wall time,
+     and the contract line ``{"ok": true, "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -844,10 +864,11 @@ def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
                                  f"fault '{label}'")
 
 
-def profile_call(torch, fn, top: int = 10) -> None:
+def profile_call(torch, fn, top: int = 10):
     """One call under torch.profiler: device time by kernel (copies
     included), hand kernels apart, and the device's idle share of the span
-    from its first to its last recorded activity."""
+    from its first to its last recorded activity, which it returns (None
+    when the profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -872,7 +893,7 @@ def profile_call(torch, fn, top: int = 10) -> None:
         ends.append(e.time_range.end)
     if not by_name:
         log("    profiler: no device time recorded")
-        return
+        return None
     wall_ms = (max(ends) - min(starts)) / 1e3
     device_ms = sum(by_name.values())
     hand = {k: v for k, v in by_name.items()
@@ -886,6 +907,7 @@ def profile_call(torch, fn, top: int = 10) -> None:
             f"{n[:40]} {ms:.3f} ms" for n, ms in sorted(skipped.items())))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"      {ms:9.3f} ms {calls[name]:4d}x  {name[:160]}")
+    return max(0.0, 1 - device_ms / wall_ms)
 
 
 def timesformer_phase(np, torch, kernels, video, card: str):
@@ -1675,7 +1697,286 @@ def sweep_phase(np, torch, kernels, repo: Path, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 10
+# Training on rawframe files: a RepCount-shaped corpus of JPEG frame
+# folders at 320×240, 6 train and 2 val videos per action, 2 reps each
+# (the lists' default max_reps), every rep's halves 8-12 frames. Each
+# action draws its own figure (colour and width); the figure stands high
+# in a rep's first half and low in its second, so the 12 classes of
+# all-{split}.txt differ in what they show.
+FILE_W, FILE_H = 320, 240
+FILE_TRAIN_VIDEOS, FILE_VAL_VIDEOS = 6, 2  # per action
+FILE_REPS = 2
+# 4 steps an epoch at batch 32: 60 steps for the fit whose validation
+# accuracy is reported, 12 for the device_augment fit
+FILE_EPOCHS, AUGMENT_EPOCHS = 15, 3
+FILE_FIGURE = {  # action → (BGR colour, figure width)
+    "situp": ((40, 40, 230), 60), "push_up": ((40, 200, 40), 80),
+    "pull_up": ((230, 60, 40), 100), "jump_jack": ((40, 220, 230), 70),
+    "squat": ((220, 40, 220), 90), "front_raise": ((230, 230, 230), 110),
+}
+AUGMENT_TOL = 1e-3  # card vs CPU crop_flip, absolute on [0, 255]
+
+
+def file_video(np, rng, action: str, noise):
+    """One video's BGR frames (T, 240, 320, 3) uint8 and its reps
+    [s1, e1, s2, e2]: a lead-in and lead-out with the figure low, and per
+    rep n frames high then n low (n 8-12), over a per-video background
+    and horizontal position, with noise from ``noise`` (int16 frames)."""
+    colour, width = FILE_FIGURE[action]
+    x0 = int(rng.integers(8, FILE_W - width - 8))
+    bg = rng.integers(40, 110, size=3)
+    high, low = (np.empty((FILE_H, FILE_W, 3), np.int16) for _ in range(2))
+    for img, top in ((high, 20), (low, 130)):
+        img[:] = bg
+        img[top:top + 90, x0:x0 + width] = colour
+    states, reps = [low] * int(rng.integers(2, 6)), []
+    for _ in range(FILE_REPS):
+        n = int(rng.integers(8, 13))
+        reps.extend([len(states), len(states) + 2 * n - 1])
+        states += [high] * n + [low] * n
+    states += [low] * int(rng.integers(2, 6))
+    frames = [np.clip(s + noise[t % len(noise)], 0, 255).astype(np.uint8)
+              for t, s in enumerate(states)]
+    return frames, reps
+
+
+def write_file_corpus(np, root: Path):
+    """annotation.csv in RepcountHelper's schema, the frame folders
+    (``rawframes/{split}/{name}/img_{:05}.jpg`` through cv2.imwrite, 8
+    writer threads) and the lists, written by the port's
+    build_video_label_list into ``Binary/``. Returns (videos, frames)."""
+    import csv
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from workoutdetector_tpu_torch.data.repcount import (
+        ACTIONS, build_video_label_list)
+
+    rng = np.random.default_rng(0)
+    noise = rng.integers(-12, 13, size=(5, FILE_H, FILE_W, 3)).astype(np.int16)
+    rows = [["", "class_", "split", "name", "vid", "start", "end", "count",
+             "reps"]]
+    writes = []
+    for split, per_action in (("train", FILE_TRAIN_VIDEOS),
+                              ("val", FILE_VAL_VIDEOS)):
+        for action in ACTIONS:
+            for _ in range(per_action):
+                k = len(rows) - 1
+                frames, reps = file_video(np, rng, action, noise)
+                name = f"{split}{k:03d}"
+                d = root / "rawframes" / split / name
+                d.mkdir(parents=True)
+                writes += [(str(d / f"img_{t + 1:05}.jpg"), f)
+                           for t, f in enumerate(frames)]
+                rows.append([str(k), action, split, f"{name}.mp4",
+                             f"syn{k:08d}", "0", str(len(frames)),
+                             f"{float(FILE_REPS)}", " ".join(map(str, reps))])
+    with ThreadPoolExecutor(8) as pool:
+        ok = list(pool.map(lambda pf: cv2.imwrite(*pf), writes))
+    if not all(ok):
+        raise AssertionError("cv2.imwrite failed on the file corpus")
+    anno = root / "annotation.csv"
+    with open(anno, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    build_video_label_list(str(root), str(anno), list(ACTIONS),
+                           str(root / "Binary"))
+    return len(rows) - 1, len(writes)
+
+
+def file_fit(np, torch, kernels, Trainer, cfg, variables, what: str):
+    """Trainer.fit from ``variables`` with the launches of the fit checked
+    (per step 33 dx, 33 dW, 16 shift-matmul; per validation forward 10
+    shift-matmul, 6 fused-bottleneck) and finite losses. Returns (trainer,
+    state, history, train steps, seconds)."""
+    import csv
+    trainer = Trainer(cfg, device="cuda")
+    steps = len(trainer._loader("train", shuffle=True)) * cfg.trainer.max_epochs
+    val_forwards = len(trainer._loader("val", shuffle=False))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(variables=variables)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {name: 0 for name in launches}
+    want.update(conv1x1_dx=33 * steps, conv1x1_dw=33 * steps,
+                shift_matmul=16 * steps + 10 * val_forwards,
+                fused_bottleneck=6 * val_forwards)
+    runs = [p for p in Path(cfg.trainer.default_root_dir).iterdir()
+            if p.is_dir()]
+    with open(runs[0] / "csv" / "metrics.csv") as f:
+        losses = [float(r["train/loss"]) for r in csv.DictReader(f)
+                  if r.get("train/loss")]
+    log(f"    fit ({what}): {state.step} steps + {val_forwards} val forwards "
+        f"in {seconds:.2f} s, launches={launches}")
+    shown = [round(v, 4) for v in losses]
+    log(f"    train losses {shown[:4]} ... {shown[-4:]} (mean of the last "
+        f"{min(4, steps)}: {sum(losses[-4:]) / len(losses[-4:]):.4f}); "
+        f"val {history}")
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches} != {want}")
+    if state.step != steps or len(losses) != steps or \
+            not np.isfinite(losses).all() or \
+            not math.isfinite(history["val/loss"]):
+        raise AssertionError(f"{what}: a non-finite or missing loss")
+    return trainer, state, history, steps, seconds
+
+
+def files_phase(np, torch, kernels, repo: Path, card: str,
+                debug_clips_s: float) -> dict:
+    """Phase 10: repcount_12_tsm.yaml trained on rawframe files through
+    the port's FrameDataset, with and without data.device_augment.
+    Returns the phase's numbers."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data import datasets
+    from workoutdetector_tpu_torch.models.convert import init_flax_variables
+    from workoutdetector_tpu_torch.ops.augment import crop_flip
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    lib = repo / "native" / "libwdjpeg.so"
+    try:
+        ctypes.CDLL(str(lib))
+        log(f"    JPEG probe: ctypes.CDLL({lib.relative_to(repo)}): loaded")
+    except OSError as exc:
+        log(f"    JPEG probe: ctypes.CDLL({lib.relative_to(repo)}): OSError: "
+            f"{exc}")
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-files-", dir=repo))
+    try:
+        t0 = time.perf_counter()
+        videos, jpegs = write_file_corpus(np, tmp)
+        binary = tmp / "Binary"
+        lines = {s: len((binary / f"all-{s}.txt").read_text().splitlines())
+                 for s in ("train", "val")}
+        log(f"    corpus: {videos} videos ({FILE_TRAIN_VIDEOS} train, "
+            f"{FILE_VAL_VIDEOS} val per action), {jpegs} JPEGs at "
+            f"{FILE_W}x{FILE_H} in {time.perf_counter() - t0:.2f} s; "
+            f"all-train.txt {lines['train']} clips, all-val.txt "
+            f"{lines['val']} clips (build_video_label_list)")
+
+        def config(epochs: int, *extra):
+            return load_config(str(repo / TSM_YAML), [
+                f"data.data_root={tmp}",
+                f"data.train.anno={binary / 'all-train.txt'}",
+                f"data.val.anno={binary / 'all-val.txt'}",
+                f"data.test.anno={binary / 'all-val.txt'}",
+                f"trainer.max_epochs={epochs}",
+                f"trainer.check_val_every_n_epoch={epochs}",
+                "trainer.log_every_n_steps=1",
+                f"trainer.default_root_dir={tmp / f'runs{epochs}'}",
+                f"callbacks.modelcheckpoint.dirpath={tmp / 'ckpt'}",
+                "log.tensorboard_enable=false", *extra])
+
+        cfg = config(FILE_EPOCHS)
+        trainer = Trainer(cfg, device="cuda")
+        loader = trainer._loader("train", shuffle=True)
+        path = {s: datasets.decoder_path(trainer._loader(s, False).dataset
+                                         .transform) for s in ("train", "val")}
+        log(f"    FrameDataset decoder: train {path['train']}, val "
+            f"{path['val']}")
+        clips, t0 = 0, time.perf_counter()
+        for epoch in range(2):
+            loader.set_epoch(epoch)
+            for bx, by in loader:
+                clips += len(by)
+        load_s = time.perf_counter() - t0
+        loader_clips_s = clips / load_s
+        log(f"    loader alone (DataLoader(FrameDataset), "
+            f"{cfg.data.num_workers} workers, batch {cfg.data.batch_size}, "
+            f"{path['train']}, TrainTransform): {clips} clips in "
+            f"{load_s:.3f} s = {loader_clips_s:.2f} clips/s = "
+            f"{loader_clips_s * FRAMES:.1f} JPEGs/s")
+
+        variables = init_flax_variables(trainer.model, cfg.seed)
+        state = trainer.init_state(1, variables)
+        before = trainer.evaluate(state, trainer._loader("val", shuffle=False))
+        del trainer, state
+        torch.cuda.empty_cache()
+        trainer, state, history, steps, fit_s = file_fit(
+            np, torch, kernels, Trainer, cfg, variables, "host transforms")
+        if not (tmp / "ckpt" / "last").exists():
+            raise AssertionError("fit wrote no 'last' checkpoint")
+        after = history["val/acc"]
+        log(f"    val accuracy before {before['acc']:.4f} (n {before['n']}), "
+            f"after {steps} steps {after:.4f}: "
+            f"{'rose' if after > before['acc'] else 'did not rise'} "
+            f"(chance {1 / NUM_CLASS:.4f})")
+
+        # train clips/s fed from the files, the loader included
+        n, t0 = 0, time.perf_counter()
+        for epoch in range(FILE_EPOCHS, FILE_EPOCHS + 2):
+            loader.set_epoch(epoch)
+            for bx, by in loader:
+                trainer.train_step(state, bx, by)
+                n += 1
+        torch.cuda.synchronize()
+        files_s = time.perf_counter() - t0
+        files_clips_s = n * cfg.data.batch_size / files_s
+        log(f"    train from files: {n} steps in {files_s:.3f} s = "
+            f"{files_clips_s:.2f} clips/s at batch {cfg.data.batch_size} on "
+            f"{card} (phase 6, one DebugDataset batch in memory: "
+            f"{debug_clips_s:.2f})")
+        def epochs(first: int):  # the loader's batches, epoch after epoch
+            while True:
+                loader.set_epoch(first)
+                first += 1
+                yield from loader
+
+        batches = epochs(FILE_EPOCHS + 2)
+
+        def three_steps():  # the profiled call spans an epoch's start
+            for _ in range(3):
+                trainer.train_step(state, *next(batches))
+
+        idle = profile_call(torch, three_steps, top=8)
+        batches.close()
+        del trainer, state, loader
+        torch.cuda.empty_cache()
+
+        aug_cfg = config(AUGMENT_EPOCHS, "data.device_augment=true",
+                         "trainer.enable_checkpointing=false")
+        trainer, state, aug_history, _, aug_s = file_fit(
+            np, torch, kernels, Trainer, aug_cfg, variables, "device_augment")
+        batches = iter(trainer._loader("train", shuffle=True))
+        x_u8, _ = next(batches)
+        batches.close()
+        params = trainer.augment_params(0, len(x_u8), x_u8.shape[2])
+        x = torch.from_numpy(x_u8)
+        got = crop_flip(x.cuda(), params, cfg.data.image_size).cpu()
+        torch.cuda.synchronize()
+        want = crop_flip(x, params, cfg.data.image_size)
+        aug_err = float((got - want).abs().max())
+        log(f"    device_augment: canvases {tuple(x_u8.shape)} -> "
+            f"{tuple(got.shape)}; crop_flip on the card vs the CPU copy: "
+            f"max |diff| {aug_err:.6f} (limit {AUGMENT_TOL}), "
+            f"{int(params[:, 4].sum())}/{len(params)} flipped")
+        if not aug_err <= AUGMENT_TOL:
+            raise AssertionError(f"device_augment on the card differs from "
+                                 f"the CPU by {aug_err}")
+        del trainer, state
+        log(f"    phase [10]: {time.perf_counter() - phase_t0:.1f} s")
+        return {"videos": videos, "jpegs": jpegs, "decoder": path["train"],
+                "loader_clips_per_s": loader_clips_s,
+                "loader_jpegs_per_s": loader_clips_s * FRAMES,
+                "train_clips_per_s": files_clips_s, "idle_share": idle,
+                "val_acc_before": before["acc"], "val_acc_after": after,
+                "val_acc_after_device_augment": aug_history["val/acc"],
+                "fit_s": fit_s, "device_augment_fit_s": aug_s,
+                "augment_max_abs_err": aug_err}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
+    start = time.perf_counter()
     repo = Path(__file__).resolve().parent
     if not (repo / "workoutdetector_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the workoutdetector_tpu_torch package is not next "
@@ -1807,6 +2108,12 @@ def main() -> int:
         f"TSM-R50 {SIZE} ({TSM_YAML}), bf16, window_batch {WINDOW_BATCH}")
     sweep = sweep_phase(np, torch, kernels, repo, card)
 
+    torch.cuda.empty_cache()
+    log(f"[10] training on rawframe files: {TSM_YAML} (TSM-R50 {SIZE}, "
+        f"bf16, batch {TRAIN_BATCH}) through FrameDataset, then with "
+        f"data.device_augment")
+    files = files_phase(np, torch, kernels, repo, card, clips_s)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -1865,8 +2172,9 @@ def main() -> int:
                     "train_clips_per_s": clips_s,
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
-                    "sweep": sweep, "card": card}))
+                    "sweep": sweep, "files": files, "card": card}))
     log(f"card: {card_line()}")
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

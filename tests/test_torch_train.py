@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from test_torch_tsm import randomized_variables
 from workoutdetector_tpu.config import Config as JConfig
 from workoutdetector_tpu.config import load_config as j_load_config
+from workoutdetector_tpu.data.datasets import build_dataset as j_build_dataset
 from workoutdetector_tpu.models import TSM as JaxTSM
 from workoutdetector_tpu.models.resnet import FrozenAwareBatchNorm
 from workoutdetector_tpu.ops.preprocess import normalize_clip as j_normalize
@@ -271,9 +272,12 @@ def test_eval_counts_only_real_rows_of_a_padded_tail(tmp_path):
     assert abs(float(m["loss"]) - float(real["loss"])) < 1e-6
 
 
-def test_repo_yamls_load_and_file_datasets_are_queued():
+def test_repo_yamls_load_and_file_datasets_build():
     """Every YAML of the repo loads into the same config as the JAX
-    package's load_config gives."""
+    package's load_config gives. The flagship's FrameDataset is built as
+    the JAX build_dataset builds it: a missing list raises the same
+    AssertionError; TDNDataset and a test split's person crop are refused,
+    naming ROADMAP item 6."""
     configs = os.path.join(REPO, "workoutdetector_tpu", "configs")
     for name in sorted(os.listdir(configs)):
         if name.endswith(".yaml"):
@@ -284,8 +288,22 @@ def test_repo_yamls_load_and_file_datasets_are_queued():
                       ["data.batch_size=8", "optimizer.lr=1e-3"])
     assert (cfg.model.base_model, cfg.data.batch_size, cfg.optimizer.lr) == \
         ("resnet50", 8, 1e-3)
-    with pytest.raises(NotImplementedError, match="decoder slice"):
+    jcfg = j_load_config(os.path.join(configs, "repcount_12_tsm.yaml"))
+    missing = "/nonexistent/Binary/all-train.txt"
+    cfg.data.train.anno = jcfg.data.train.anno = missing
+    with pytest.raises(AssertionError) as got:
         build_dataset(cfg.data, "train")
+    with pytest.raises(AssertionError) as want:
+        j_build_dataset(jcfg.data, "train")
+    assert str(got.value) == str(want.value) == f"{missing} is not a file"
+    tdn = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
+                      ["data.dataset_type=TDNDataset"])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        build_dataset(tdn.data, "train")
+    crop = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
+                       ["data.test.person_crop=true"])
+    with pytest.raises(NotImplementedError, match="detector.*item 6"):
+        build_dataset(crop.data, "test")
 
 
 def test_loader_skips_batches_without_changing_them():

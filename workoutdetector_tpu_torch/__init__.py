@@ -5,10 +5,13 @@ its inference and training paths on an NVIDIA H100 with kernels written
 by hand for Hopper (``ops/kernels`` over ``csrc/*.cu``). It imports torch,
 numpy and the standard library only — never jax, and nothing of the JAX
 package; PyYAML only inside the functions that read YAML configs, cv2 and
-pandas only inside the functions that decode or write videos and CSVs.
+pandas only inside the functions that decode, resize or write images,
+videos and CSVs.
 
 Layer map:
-  ops.preprocess     — on-device window gather + fused normalize
+  ops.preprocess     — on-device window gather + fused normalize, the
+                       antialiased resize_center_crop
+  ops.augment        — the train step's on-device MultiScaleCrop + flip
   ops.temporal_shift — plain TSM shift / shift-conv
   ops.kernels        — hand kernels (shift, shift-matmul, fused bottleneck,
                        1×1-conv backward dx / dW, attention forward and
@@ -31,9 +34,13 @@ Layer map:
   counting           — pred_to_count (rep counting state machine), the
                        count metrics and the score-directory evaluation
   config             — typed config, load_config (the repo's YAMLs)
-  data               — VideoReader (native/libwdvideo.so or cv2),
-                       RepcountHelper (annotation.csv through the csv
-                       module), DebugDataset, the deterministic DataLoader
+  data               — VideoReader (native/libwdvideo.so or cv2), the
+                       rawframe JPEG reader (native/libwdjpeg.so or cv2),
+                       sampling, host transforms, FrameDataset /
+                       ImageDataset / SuperImageDataset / DebugDataset,
+                       the RepCount, ImageFolder and Kinetics layers and
+                       label lists (CSVs through the csv module), the
+                       deterministic DataLoader
   scripts            — compare_scores, eval_count
   train              — optimizer policies, checkpoints, loggers, Trainer
   trainer            — the train/test CLI

@@ -268,8 +268,9 @@ class DataConfig(ConfigNode):
     num_workers: int = 8
     image_size: int = 224
     scale_size: int = 256
-    # on-device MultiScaleCrop + flip and the native JPEG prescale: read by
-    # the frame datasets and the augment op, not in the port yet
+    # on-device MultiScaleCrop + flip in the train step (ops/augment.py;
+    # the loader then ships scale_size canvases) and the native JPEG
+    # in-decode resize of the test transform's geometry
     device_augment: bool = False
     native_prep: bool = True
     train: SplitConfig = field(default_factory=SplitConfig)

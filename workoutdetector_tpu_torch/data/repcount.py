@@ -9,7 +9,8 @@ ints, one whose cells all parse as numbers holds floats (an empty cell is
 NaN and makes an integer column float), any other column strings. The
 first column is the index. The helper's two metrics (normalized MAE,
 within-one OBO) differ from ``counting.obo_mae`` (raw MAE, exact-one OBO),
-as in the reference.
+as in the reference. ``build_label_list`` and ``build_video_label_list``
+write the image and rawframe lists the training yamls read.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import csv
 import math
 import os
+import os.path as osp
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -54,14 +56,16 @@ def _typed_column(cells: List[str]) -> list:
     return [c if c not in _NA else math.nan for c in cells]
 
 
-def _read_annotation(path: str) -> List[Dict[str, object]]:
-    """The rows of an annotation csv as dicts of typed cells, the first
-    (index) column left out."""
+def read_csv(path: str, index_col: bool = False) -> List[Dict[str, object]]:
+    """The rows of a csv file as dicts of cells typed per column as
+    pandas' ``read_csv`` types them; ``index_col`` leaves out the first
+    column (``read_csv(path, index_col=0)``)."""
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
     if not rows:
         return []
-    header, body = rows[0][1:], [r[1:] for r in rows[1:] if r]
+    skip = 1 if index_col else 0
+    header, body = rows[0][skip:], [r[skip:] for r in rows[1:] if r]
     columns = {name: _typed_column([r[j] if j < len(r) else "" for r in body])
                for j, name in enumerate(header)}
     return [{name: columns[name][i] for name in header}
@@ -129,7 +133,7 @@ class RepcountHelper:
         if len(split) == 0:
             raise ValueError('split must be specified, e.g. ["train", "val"]')
         split = [x.lower() for x in split]
-        rows = [r for r in _read_annotation(self.anno_file)
+        rows = [r for r in read_csv(self.anno_file, index_col=True)
                 if r["split"] in split]
         if action is not None:
             if len(action) == 0:
@@ -189,3 +193,86 @@ class RepcountHelper:
                                                     mae=mae,
                                                     obo_acc=obo)
         return total_mae / len(items), total_obo / len(items), pred_items
+
+
+def build_label_list(data_root: str,
+                     anno_file: str,
+                     actions: List[str],
+                     out_dir: str,
+                     overwrite: bool = False) -> None:
+    """Write train/val/test.txt image lists of the first rep's start and
+    middle frames, with class ids 2k and 2k + 1 for action k."""
+    for a in actions:
+        if a not in ACTIONS:
+            raise ValueError(f"action {a} not in {ACTIONS}")
+    paths = {s: osp.join(out_dir, f"{s}.txt") for s in ("train", "val", "test")}
+    if not osp.exists(out_dir):
+        os.makedirs(out_dir)
+    elif not overwrite and any(osp.isfile(p) for p in paths.values()):
+        return
+    tmpl = "img_{:05d}.jpg"  # frame files are 1-indexed
+    helper = RepcountHelper(data_root=data_root, anno_file=anno_file)
+    data = helper.get_rep_data(split=["train", "val", "test"], action=actions)
+    handles = {s: open(p, "w") for s, p in paths.items()}
+    try:
+        for item in data.values():
+            if item.count < 1:
+                continue
+            start_idx, end_idx = item.reps[0], item.reps[1]
+            mid_idx = (start_idx + end_idx) // 2
+            cls_idx = actions.index(item.class_)
+            rel_path = osp.relpath(item.frames_path, data_root)
+            f = handles[item.split]
+            f.write(f"{rel_path}/{tmpl.format(start_idx + 1)} {cls_idx * 2}\n")
+            f.write(f"{rel_path}/{tmpl.format(mid_idx + 1)} {cls_idx * 2 + 1}\n")
+    finally:
+        for f in handles.values():
+            f.close()
+
+
+def build_video_label_list(data_root: str,
+                           anno_file: str,
+                           actions: List[str],
+                           out_dir: str,
+                           max_reps: int = 2,
+                           overwrite: bool = False) -> None:
+    """Write 4-column rawframe lists ``path start length label`` of each
+    rep's two halves: ``{action}/{split}.txt`` with labels 0/1 and
+    ``all-{split}.txt`` with 2k/2k + 1 for action k (12 classes over the
+    six actions). At most ``max_reps`` reps per video (all when < 1)."""
+    if not osp.exists(out_dir):
+        os.makedirs(out_dir)
+    helper = RepcountHelper(data_root=data_root, anno_file=anno_file)
+    for split in ("train", "val", "test"):
+        all_lines: List[str] = []
+        for action in actions:
+            data = helper.get_rep_data(split=[split], action=[action])
+            lines: List[str] = []
+            for item in data.values():
+                if item.count < 1:
+                    continue
+                reps = item.reps[:max_reps * 2] if max_reps > 0 else item.reps
+                rel = osp.relpath(item.frames_path, data_root)
+                for start, end in zip(reps[0::2], reps[1::2]):
+                    start, end = start + 1, end + 1  # frames are 1-indexed
+                    mid = (start + end) // 2
+                    if end - start < 2:
+                        continue
+                    cls = actions.index(action)
+                    lines.append(f"{rel} {start} {mid - start + 1} {cls * 2}\n")
+                    lines.append(f"{rel} {mid + 1} {end - mid} {cls * 2 + 1}\n")
+            adir = osp.join(out_dir, action)
+            os.makedirs(adir, exist_ok=True)
+            ap = osp.join(adir, f"{split}.txt")
+            if overwrite or not osp.isfile(ap):
+                with open(ap, "w") as f:
+                    # the per-action lists carry binary labels 0/1
+                    for ln in lines:
+                        parts = ln.split()
+                        parts[-1] = str(int(parts[-1]) % 2)
+                        f.write(" ".join(parts) + "\n")
+            all_lines.extend(lines)
+        allp = osp.join(out_dir, f"all-{split}.txt")
+        if overwrite or not osp.isfile(allp):
+            with open(allp, "w") as f:
+                f.writelines(all_lines)

@@ -22,9 +22,10 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
 
     The hand kernels are the main path: ``fused_block`` (TSM) and
     ``flash_attention`` (TimeSformer) are on unless the config says
-    ``'false'``, and the 1×1 backward kernels run whatever
-    ``pallas_conv_bwd`` says. ``use_kernels=False`` builds the plain
-    reference instead.
+    ``'false'``. Under autograd the 1×1 convs' backward always takes the
+    dx/dW kernels (``models/resnet.py``); nothing in the port reads
+    ``pallas_conv_bwd``. ``use_kernels=False`` builds the plain reference
+    instead.
     """
     mt = cfg.model_type.lower()
     if mt == "timesformer":

@@ -1,14 +1,16 @@
-"""Device-side preprocessing: window gather and normalize.
+"""Device-side preprocessing: window gather, normalize and resize.
 
 Port of ``workoutdetector_tpu/ops/preprocess.py``. The host ships uint8
-frames once; the temporal window gather and the normalize run on the
-device that holds the video. Layout is NHWC throughout.
+frames once; the temporal window gather, the normalize and (where a
+caller wants it) the antialiased resize + centre crop run on the device
+that holds the video. Layout is NHWC throughout.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -29,6 +31,54 @@ def normalize_clip(x: torch.Tensor,
     shift = torch.tensor([m / s for m, s in zip(mean, std)], dtype=dtype,
                          device=x.device)
     return x.to(dtype) * scale - shift
+
+
+def _triangle_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """(in, out) float32 weights of an antialiased bilinear resize along
+    one axis, built as ``jax.image.scale_and_translate`` builds them: a
+    triangle kernel widened by 1/scale when shrinking, columns normalised
+    to sum 1, sample points outside the input zeroed."""
+    scale = out_size / in_size
+    inv_scale = np.float32(1.0 / scale)
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+              * inv_scale - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.from_numpy(np.where(inside[None, :], w, np.float32(0.0))
+                            .astype(np.float32))
+
+
+def resize_center_crop(x: torch.Tensor, scale_size: int = 256,
+                       crop_size: int = 224) -> torch.Tensor:
+    """Resize the short side of (..., H, W, C) frames to ``scale_size``
+    (bilinear with antialiasing, as ``jax.image.resize``), then
+    centre-crop ``crop_size`` × ``crop_size``. Returns float32.
+
+    The resize is two separable weight matrices applied by ``einsum``;
+    ``F.interpolate(antialias=True)`` filters differently, so it is not
+    used."""
+    *lead, h, w, c = x.shape
+    if h <= w:
+        th, tw = scale_size, max(1, round(w * scale_size / h))
+    else:
+        th, tw = max(1, round(h * scale_size / w)), scale_size
+    x = x.float()
+    if th != h:
+        x = torch.einsum("...hwc,hy->...ywc", x,
+                         _triangle_weights(h, th).to(x.device))
+    if tw != w:
+        x = torch.einsum("...hwc,wx->...hxc", x,
+                         _triangle_weights(w, tw).to(x.device))
+    y0 = max(0, (th - crop_size) // 2)
+    x0 = max(0, (tw - crop_size) // 2)
+    return x[..., y0:y0 + crop_size, x0:x0 + crop_size, :]
 
 
 def sparse_window_gather(video: torch.Tensor, starts: torch.Tensor,

@@ -3,8 +3,12 @@
 Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
 ``test``) for one device and no mesh:
 
-* the train step normalizes the uint8 batch on the device, runs the model
-  in train mode (BN batch statistics, dropout from a generator seeded by
+* the train step crops, resizes and flips the uint8 canvases on the
+  device when ``data.device_augment`` is set (``ops/augment.py``; the
+  draw from a generator seeded by ``seed + 2`` and the step, the
+  counterpart of ``jax.random.fold_in(aug_key, step)``), normalizes the
+  batch on the device, runs the model in train mode (BN batch
+  statistics, dropout from a generator seeded by
   ``seed + 1`` and the step — the counterpart of
   ``jax.random.fold_in(base_key, step)``), takes the mean softmax CE on
   fp32 logits, back-propagates (the 1×1 backward kernels on the main
@@ -42,6 +46,8 @@ from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.convert import (init_flax_variables,
                                                       load_flax_variables)
 from workoutdetector_tpu_torch.models.factory import build_model
+from workoutdetector_tpu_torch.ops.augment import (canvas_size, crop_flip,
+                                                   sample_batch_params)
 from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
 from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
 from workoutdetector_tpu_torch.train.loggers import build_loggers
@@ -125,16 +131,32 @@ class Trainer:
         g.manual_seed(((self.cfg.seed + 1) * 1_000_003 + step) & (2 ** 63 - 1))
         return g
 
-    def _batch(self, x_u8, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    def augment_params(self, step: int, batch_size: int,
+                       base: int) -> torch.Tensor:
+        """The step's on-device augment draw, (batch_size, 5) rows of
+        (x0, y0, cw, ch, flip) over a base × base canvas, from a generator
+        that is a function of (seed + 2, step)."""
+        g = torch.Generator()
+        g.manual_seed(((self.cfg.seed + 2) * 1_000_003 + step) & (2 ** 63 - 1))
+        return sample_batch_params(g, batch_size, base)
+
+    def _batch(self, x_u8, y, step: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch on the device, normalized; a train step's (``step``
+        given) through the on-device augment when the config asks."""
         x = torch.as_tensor(x_u8).to(self.device, non_blocking=True)
+        if step is not None and self.cfg.data.device_augment:
+            params = self.augment_params(step, x.shape[0], canvas_size(x))
+            x = crop_flip(x, params, self.cfg.data.image_size)
         return normalize_clip(x), torch.as_tensor(y).to(self.device).long()
 
     def train_step(self, state: TrainState, x_u8, y) -> Dict[str, torch.Tensor]:
-        """One micro-step: forward, loss, backward, optimizer, EMA. Returns
-        device scalars {'loss', 'acc'} (no host sync)."""
+        """One micro-step: the on-device augment where configured, forward,
+        loss, backward, optimizer, EMA. Returns device scalars {'loss',
+        'acc'} (no host sync)."""
         model = state.model
         model.train()
-        x, y = self._batch(x_u8, y)
+        x, y = self._batch(x_u8, y, state.step)
         logits = model(x, dropout_generator=self.dropout_generator(state.step))
         loss = cross_entropy(logits, y).mean()
         state.optimizer.zero_grad()
