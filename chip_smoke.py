@@ -121,9 +121,37 @@ not printed; no CUDA device → exit 2):
      resized and flipped on the card; the same launch counts), and its
      ``crop_flip`` on one batch held to the same function on the CPU copy
      within 1e-3 on [0, 255];
- 11. one JSON line of per-kernel numbers (and the sweep's and the file
-     training's numbers), the card line again, the script's wall time,
-     and the contract line ``{"ok": true, "device": {...}}`` last.
+ 11. serving and export: a probe of ``websockets`` and Pillow (where
+     websockets is missing, the clients drive the server's ``_ws_handler``
+     in-process through a stand-in socket); a TSM-R50 ``WorkoutServer``
+     built by ``server.build_server`` as ``server.main`` builds it
+     (``repcount_12_tsm.yaml``, ``--num-class 11``, bf16, 224², window
+     batch 16) over a port checkpoint of random weights with the
+     brightness head, run by ``run()`` on free localhost ports: the launch
+     counts when the HTTP port first accepts (warmup's one forward, before
+     the listener bound) and /healthz ``warm``; POST /video of a written
+     mp4 (320×240, 7 reps) held to the fp32 plain engine on the same
+     sampled window by phase 4's logit rule; 8 concurrent WebSocket
+     clients (half through the HTTP port's Upgrade splice), each streaming
+     64 JPEG data-URL frames at 320×240 in recognize mode, a window at a
+     time, each getting 8 replies, with the batcher's flushes fewer than
+     its requests and 10 shift-matmul and 6 fused-bottleneck launches per
+     flush (windows/s, p50/p95 reply latency, coalescing, the frame
+     decoder); one count-mode client over the whole video, whose final
+     count must be its reps; ``begin_drain`` with a client connected
+     (/healthz 503, the draining notice). Then ``scripts.export_model`` on
+     the card: ``.pt2`` artifacts of that checkpoint and of
+     TimeSformer-B/16 (initializers from seed 0; export seconds and MB),
+     each loaded by ``engine_from_checkpoint``: per forward the live
+     engine's launches (10 shift-matmul and 6 fused-bottleneck; 12
+     attention), logits by the logit rule with equal argmax on phase 4's
+     38 windows (16 for TimeSformer), clips/s of both; and a server over
+     the TSM artifact, whose POST /video payload must be the live
+     server's;
+ 12. one JSON line of per-kernel numbers (and the sweep's, the file
+     training's and the serving phase's numbers), the card line again,
+     the script's wall time, and the contract line ``{"ok": true,
+     "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -1975,6 +2003,483 @@ def files_phase(np, torch, kernels, repo: Path, card: str,
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 11
+SERVE_CLIENTS = 8
+SERVE_WINDOWS = 8  # replies per recognize client: 64 frames
+SERVE_CLASSES = 11  # server.main's --num-class
+SERVE_REPS = 7  # reps of the count-mode client's video
+
+
+class LocalSocket:
+    """A stand-in for a websockets connection, where the package is
+    missing: the handler iterates over the client's messages and ``send``s
+    its replies; the client side ``put``s and ``recv``s."""
+
+    def __init__(self, asyncio):
+        self.inbox, self.outbox = asyncio.Queue(), asyncio.Queue()
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        message = await self.inbox.get()
+        if message is None:
+            raise StopAsyncIteration
+        return message
+
+    async def send(self, text):
+        await self.outbox.put(text)
+
+    async def recv(self):
+        return await self.outbox.get()
+
+
+def ws_connect(asyncio, srv, port, have_ws: bool):
+    """An async context manager: a client connection to ``srv``, through
+    the websockets client on ``port`` where the package imports, else a
+    ``LocalSocket`` handed to ``srv._ws_handler`` on this event loop."""
+    import contextlib
+
+    @contextlib.asynccontextmanager
+    async def connect():
+        if have_ws:
+            import websockets
+            async with websockets.connect(
+                    f"ws://127.0.0.1:{port}/ws/smoke", max_size=None) as ws:
+                yield ws
+            return
+        sock = LocalSocket(asyncio)
+        handler = asyncio.create_task(srv._ws_handler(sock))
+
+        class Client:
+            send = sock.inbox.put
+            recv = sock.recv
+
+        try:
+            yield Client()
+        finally:
+            await sock.inbox.put(None)
+            await handler
+
+    return connect()
+
+
+def http_json(url: str, data: bytes = None):
+    """(status, JSON body) of a GET, or of a POST of ``data``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def payload_scores(np, payload, labels):
+    """A POST /video payload → its scores in class order, checking that it
+    is sorted by score."""
+    values = list(payload["data"].values())
+    if values != sorted(values, reverse=True) or len(values) != len(labels):
+        raise AssertionError(f"payload not sorted or not {len(labels)} labels")
+    return np.array([payload["data"][name] for name in labels], np.float64)
+
+
+def start_server(srv, threading, have_ws: bool):
+    """Run ``srv`` as ``server.main`` does (``run``: warmup, then the HTTP
+    listener, then the WS loop) in a thread; without websockets, warmup and
+    the HTTP listener only. Returns the thread (None without websockets)
+    once the HTTP port accepts."""
+    import socket
+    if have_ws:
+        thread = threading.Thread(target=srv.run, daemon=True)
+        thread.start()
+    else:
+        thread = None
+        srv.warmup()
+        srv.start_http()
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        try:
+            socket.create_connection(("127.0.0.1", srv.http_port),
+                                     timeout=1).close()
+            return thread
+        except OSError:
+            if thread is not None and not thread.is_alive():
+                raise AssertionError("the server thread ended before listening")
+            time.sleep(0.005)
+    raise AssertionError("the server did not start listening")
+
+
+def stop_server(srv, thread) -> None:
+    srv.begin_drain()
+    if thread is not None:
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("the server did not stop after the drain")
+    else:
+        srv.shutdown()
+
+
+def serve_phase(np, torch, kernels, repo: Path, card: str) -> dict:
+    """Phase 11: serving and export through the port's entry points. A
+    TSM-R50 ``WorkoutServer`` as ``server.main`` builds it, over a port
+    checkpoint of random weights with the brightness head; 8 WebSocket
+    clients, one count-mode client, POST /video and the drain; then
+    ``.pt2`` artifacts of TSM-R50 and TimeSformer-B/16 exported on the
+    card, their engines and a server over the TSM one. Returns the phase's
+    numbers."""
+    import asyncio
+    import base64
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data.sampling import sample_frames
+    from workoutdetector_tpu_torch.data.video import VideoReader, write_video
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 engine_from_checkpoint)
+    from workoutdetector_tpu_torch.models import build_model
+    from workoutdetector_tpu_torch.models.convert import (load_flax_variables,
+                                                          random_flax_variables)
+    from workoutdetector_tpu_torch.scripts import export_model as export_cli
+    from workoutdetector_tpu_torch.serve import server
+    from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
+
+    phase_t0 = time.perf_counter()
+    found = {}
+    for mod in ("websockets", "PIL"):
+        try:
+            found[mod] = importlib.import_module(mod).__version__
+        except ImportError as exc:
+            found[mod] = f"missing ({exc})"
+    have_ws = not found["websockets"].startswith("missing")
+    log(f"    probe: websockets {found['websockets']}, PIL {found['PIL']}"
+        + ("" if have_ws else "; the WS clients drive _ws_handler in-process "
+           "through a stand-in socket"))
+
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-serve-", dir=repo))
+    srv = thread = art_srv = art_thread = None
+    try:
+        rng = np.random.default_rng(11)
+        frames, reps = sweep_frames(np, rng, "squat", SERVE_REPS)
+        mp4 = str(tmp / "squat.mp4")
+        write_video(mp4, frames, 30.0)
+
+        def jpeg(frame):
+            if not found["PIL"].startswith("missing"):
+                from PIL import Image
+                buf = io.BytesIO()
+                Image.fromarray(frame).save(buf, format="JPEG")
+                return buf.getvalue()
+            import cv2
+            return cv2.imencode(".jpg", frame[..., ::-1])[1].tobytes()
+
+        jpegs = [jpeg(f) for f in frames]
+        urls = ["data:image/jpeg;base64," + base64.b64encode(j).decode()
+                for j in jpegs]
+        backend = server.decode_image_bytes(jpegs[0])[1]
+        log(f"    video: {len(frames)} frames {SWEEP_W}x{SWEEP_H}, "
+            f"{SERVE_REPS} reps ({mp4.rsplit('/', 1)[1]}, cv2 write_video); "
+            f"frames as JPEG data URLs, decoded by the server with {backend}")
+
+        # the checkpoint server.main serves: repcount_12_tsm.yaml with
+        # --num-class 11, random weights, the brightness head
+        cfg = load_config(str(repo / TSM_YAML),
+                          [f"model.num_class={SERVE_CLASSES}"])
+        model = build_model(cfg.model)
+        variables = random_flax_variables(model, seed=0)
+        load_flax_variables(model, variables)
+        ref_model = build_model(load_config(
+            str(repo / TSM_YAML), [f"model.num_class={SERVE_CLASSES}",
+                                   "model.dtype=float32"]).model,
+            use_kernels=False)
+        load_flax_variables(ref_model, variables)
+        a, b = brightness_head(np, torch, model, ref_model,
+                               server.prep_frames(list(frames), SIZE))
+        ckpt = CheckpointManager(str(tmp / "ckpt")).save(
+            {"model": model.state_dict()}, name="tsm_r50")
+        del model
+        ref_engine = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH,
+                                     device="cuda")
+        log(f"    head: classes {a} (dark), {b} (bright) -> rows 0, 1")
+
+        port = free_port()
+        argv = ["--cfg", str(repo / TSM_YAML), "--checkpoint", ckpt,
+                "--num-class", str(SERVE_CLASSES), "--port", str(port)]
+        srv = server.build_server(argv)
+        srv.host, srv.ws_port = "127.0.0.1", free_port()
+        eng = srv.engine
+        log(f"    server.build_server({' '.join(argv[2:])}): TSM-R50 "
+            f"{eng.image_size}, window_batch {eng.window_batch}, "
+            f"{eng.model.dtype}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        thread = start_server(srv, threading, have_ws)
+        listen_s = time.perf_counter() - t0
+        warm = kernels.launch_counts()
+        code, health = http_json(f"http://127.0.0.1:{port}/healthz")
+        log(f"    run(): the HTTP port accepted {listen_s:.3f} s after start; "
+            f"launches before it bound (warmup) {warm}; /healthz {code} "
+            f"{health}")
+        if {k: v for k, v in warm.items() if v} != \
+                {"shift_matmul": 10, "fused_bottleneck": 6} or \
+                code != 200 or health.get("warm") is not True:
+            raise AssertionError("warmup did not launch the serving kernels "
+                                 "before the listener bound")
+
+        # POST /video: the sampled window against the fp32 plain engine
+        code, posted = http_json(f"http://127.0.0.1:{port}/video",
+                                 Path(mp4).read_bytes())
+        with VideoReader(mp4) as r:
+            clip = r.read_prepped(256, SIZE)
+        window = clip[sample_frames(len(clip), FRAMES, random=False)]
+        ref = ref_engine.score_windows(window[None])
+        got = payload_scores(np, posted, srv.labels)[None]
+        log(f"    POST /video: {code}, top {list(posted['data'].items())[:2]}")
+        logit_rule(np, got[:, :2], ref[:, :2], "POST /video (rows 0, 1)")
+
+        # 8 concurrent recognize clients, 64 frames each, paced per window
+        async def recognize(k, results, lat):
+            offset = (k * 29) % (len(urls) - 8 * SERVE_WINDOWS)
+            use = port if k % 2 else srv.ws_port  # half through the splice
+            async with ws_connect(asyncio, srv, use, have_ws) as ws:
+                for i in range(8 * SERVE_WINDOWS):
+                    await ws.send(urls[offset + i])
+                    if i % 8 == 7:
+                        t = time.perf_counter()
+                        reply = json.loads(await asyncio.wait_for(
+                            ws.recv(), 120))
+                        lat.append(time.perf_counter() - t)
+                        results[k].append(reply)
+                await ws.send("stop")
+
+        async def recognize_all():
+            results = {k: [] for k in range(SERVE_CLIENTS)}
+            lat = []
+            await asyncio.gather(*[recognize(k, results, lat)
+                                   for k in range(SERVE_CLIENTS)])
+            return results, lat
+
+        before = (srv.batcher.n_requests, srv.batcher.n_flushes)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results, lat = asyncio.run(recognize_all())
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        requests = srv.batcher.n_requests - before[0]
+        flushes = srv.batcher.n_flushes - before[1]
+        code, stats = http_json(f"http://127.0.0.1:{port}/stats")
+        windows = SERVE_CLIENTS * SERVE_WINDOWS
+        p50, p95 = (float(np.percentile(lat, q) * 1e3) for q in (50, 95))
+        via = f"{SERVE_CLIENTS // 2} through the HTTP port's splice" \
+            if have_ws else "in-process stand-in sockets"
+        log(f"    {SERVE_CLIENTS} WS clients x {8 * SERVE_WINDOWS} frames "
+            f"({via}): "
+            f"{windows} windows in {wall:.4f} s = {windows / wall:.2f} "
+            f"windows/s, reply latency p50 {p50:.2f} ms p95 {p95:.2f} ms on "
+            f"{card}; {requests} requests in {flushes} flushes "
+            f"(coalescing {requests / max(flushes, 1):.2f}); /stats "
+            f"{stats['batcher']}; launches={launches}")
+        if any(len(r) != SERVE_WINDOWS or not all(x.get("success") for x in r)
+               for r in results.values()):
+            raise AssertionError("a client did not get its 8 replies")
+        if requests != windows or not flushes < requests:
+            raise AssertionError(f"the batcher did not coalesce: {requests} "
+                                 f"requests, {flushes} flushes")
+        want = {name: 0 for name in launches}
+        want.update(shift_matmul=10 * flushes, fused_bottleneck=6 * flushes)
+        if launches != want:
+            raise AssertionError(f"serving launch counts {launches} != {want}")
+        # the host's work of one round, serially on one thread: 64 frame
+        # decodes, 8 window preps, and one 8-window score_windows
+        t0 = time.perf_counter()
+        decoded = [server.decode_data_url(u) for u in urls[:64]]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 64
+        t0 = time.perf_counter()
+        prepped = [server.prep_frames(decoded[i:i + 8], SIZE)
+                   for i in range(0, 64, 8)]
+        prep_ms = (time.perf_counter() - t0) * 1e3 / 8
+        flush = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.score_windows(np.stack(prepped))
+            torch.cuda.synchronize()
+            flush.append((time.perf_counter() - t0) * 1e3)
+        flush_ms = float(np.mean(flush[1:]))
+        log(f"    one round's host work, serial: decode {decode_ms:.3f} ms a "
+            f"frame ({backend}), prep {prep_ms:.3f} ms a window, "
+            f"score_windows of 8 windows {flush_ms:.3f} ms (the mean of 3 "
+            f"after a first {flush[0]:.3f}); the server's "
+            f"prep pool has {srv._prep_pool._max_workers} threads, the "
+            f"host {os.cpu_count()} cores")
+
+        # one count-mode client over the whole video, paced per window
+        async def count_client():
+            replies = []
+            async with ws_connect(asyncio, srv, srv.ws_port, have_ws) as ws:
+                await ws.send("mode:count")
+                for i, url in enumerate(urls):
+                    await ws.send(url)
+                    if i % 8 == 7:
+                        replies.append(json.loads(await asyncio.wait_for(
+                            ws.recv(), 120)))
+                await ws.send("stop")
+            return replies
+
+        shed = srv._frames_shed
+        replies = asyncio.run(count_client())
+        final = replies[-1]["count"]
+        log(f"    count mode: {len(replies)} replies, final count {final} "
+            f"(the video's reps: {SERVE_REPS}), states "
+            f"{''.join(str(r['state']) for r in replies)}, frames shed "
+            f"{srv._frames_shed - shed}")
+        if final != SERVE_REPS or srv._frames_shed != shed:
+            raise AssertionError("the count-mode count is not the video's reps")
+
+        # the drain, with a client connected
+        async def drain():
+            async with ws_connect(asyncio, srv, srv.ws_port, have_ws) as ws:
+                srv.begin_drain()
+                loop = asyncio.get_running_loop()
+                status = await loop.run_in_executor(
+                    None, http_json, f"http://127.0.0.1:{port}/healthz")
+                await ws.send(urls[0])
+                notice = json.loads(await asyncio.wait_for(ws.recv(), 30))
+            return status, notice
+
+        (code, health), notice = asyncio.run(drain())
+        log(f"    begin_drain: /healthz {code} {health['status']}; the "
+            f"connected client: {notice}")
+        if code != 503 or notice.get("draining") is not True:
+            raise AssertionError("the drain did not turn /healthz to 503")
+        stop_server(srv, thread)
+        srv = thread = None
+
+        # export: TSM-R50 from the same checkpoint, on the card
+        out = {}
+        arts = {}
+        for name, yaml, extra in (
+                ("tsm", TSM_YAML, ["--checkpoint", ckpt,
+                                   f"model.num_class={SERVE_CLASSES}"]),
+                ("timesformer", TS_YAML, [])):
+            path = str(tmp / f"{name}.pt2")
+            t0 = time.perf_counter()
+            export_cli.main(["--cfg", str(repo / yaml), "-o", path,
+                             "--batch", str(WINDOW_BATCH)] + extra)
+            torch.cuda.synchronize()
+            export_s = time.perf_counter() - t0
+            mb = Path(path).stat().st_size / 2 ** 20
+            arts[name] = path
+            out[f"{name}_export_s"], out[f"{name}_artifact_mb"] = export_s, mb
+            log(f"    export_model ({yaml.rsplit('/', 1)[1]}): {export_s:.2f} s, "
+                f"{mb:.1f} MB artifact")
+
+        video = synthetic_video(np, 299, seed=1)
+        starts = np.arange(0, len(video), 8)
+        batch = eng.gather_windows(video, starts, stride=2)  # phase 4's 38
+        for name, yaml, live_cfg in (
+                ("tsm", TSM_YAML, [f"model.num_class={SERVE_CLASSES}"]),
+                ("timesformer", TS_YAML, [])):
+            cfg = load_config(str(repo / yaml), live_cfg)
+            art = engine_from_checkpoint(cfg, arts[name])
+            live = eng if name == "tsm" else engine_from_checkpoint(
+                cfg, None, image_size=cfg.data.image_size)
+            x = batch if name == "tsm" else batch[:WINDOW_BATCH]
+            scored, counts, times = [], [], []
+            for e in (live, art):
+                e.score_windows(x)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                scored.append(e.score_windows(x))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts.append({k: v for k, v in kernels.launch_counts().items()
+                               if v})
+            forwards = math.ceil(len(x) / WINDOW_BATCH)
+            want = {"shift_matmul": 10 * forwards,
+                    "fused_bottleneck": 6 * forwards} if name == "tsm" \
+                else {"attention": TS_LAYERS * forwards}
+            err = float(np.abs(scored[1] - scored[0]).max())
+            same = bool((scored[1].argmax(1) == scored[0].argmax(1)).all())
+            log(f"    {name} artifact (engine_from_checkpoint, window_batch "
+                f"{art.window_batch}, device gather {art.supports_device_gather}"
+                f"): {len(x)} windows, {forwards} forwards; launches live "
+                f"{counts[0]}, artifact {counts[1]}; max |logit diff| vs the "
+                f"live engine {err:.6f}, argmax equal {same}; "
+                f"{len(x) / times[0]:.2f} clips/s live, "
+                f"{len(x) / times[1]:.2f} artifact on {card}")
+            if counts[0] != want or counts[1] != want:
+                raise AssertionError(f"{name} artifact launches {counts[1]} "
+                                     f"(live {counts[0]}) != {want}")
+            live_rows = 2 if name == "tsm" else scored[0].shape[1]
+            logit_rule(np, scored[1][:, :live_rows], scored[0][:, :live_rows],
+                       f"{name} artifact vs the live engine")
+            if not same:
+                raise AssertionError(f"{name} artifact changed an argmax")
+            out[f"{name}_artifact_clips_per_s"] = len(x) / times[1]
+            out[f"{name}_live_clips_per_s"] = len(x) / times[0]
+            out[f"{name}_artifact_max_abs_diff"] = err
+            del art, live
+            torch.cuda.empty_cache()
+
+        # a server over the TSM artifact: the same POST /video payload
+        art_port = free_port()
+        art_srv = server.build_server(["--checkpoint", arts["tsm"],
+                                       "--num-class", str(SERVE_CLASSES),
+                                       "--port", str(art_port)])
+        art_srv.host, art_srv.ws_port = "127.0.0.1", free_port()
+        art_thread = start_server(art_srv, threading, have_ws)
+        code, art_posted = http_json(f"http://127.0.0.1:{art_port}/video",
+                                     Path(mp4).read_bytes())
+        art_got = payload_scores(np, art_posted, art_srv.labels)
+        diff = float(np.abs(art_got - got[0]).max())
+        log(f"    server over the TSM artifact: POST /video {code}, label "
+            f"order {'equal' if list(art_posted['data']) == list(posted['data']) else 'DIFFERENT'}, "
+            f"max |score diff| vs the live server {diff:.6f}")
+        if list(art_posted["data"]) != list(posted["data"]):
+            raise AssertionError("the artifact server's payload differs")
+        logit_rule(np, art_got[None, :2], got[:, :2],
+                   "artifact server vs live server (rows 0, 1)")
+        stop_server(art_srv, art_thread)
+        art_srv = art_thread = None
+        log(f"    phase [11]: {time.perf_counter() - phase_t0:.1f} s")
+        return dict(out, windows_per_s=windows / wall, wall_s=wall,
+                    latency_p50_ms=p50, latency_p95_ms=p95,
+                    requests=requests, flushes=flushes,
+                    coalescing=requests / flushes,
+                    serve_launches={"shift_matmul": launches["shift_matmul"],
+                                    "fused_bottleneck":
+                                        launches["fused_bottleneck"]},
+                    count=final, decode_backend=backend,
+                    decode_ms=decode_ms, prep_ms=prep_ms, flush_ms=flush_ms,
+                    websockets=found["websockets"], pil=found["PIL"])
+    finally:
+        for s, t in ((srv, thread), (art_srv, art_thread)):
+            if s is not None:
+                try:
+                    stop_server(s, t)
+                except Exception as exc:  # already failing: report, go on
+                    log(f"    (stopping a server: {exc})")
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -2114,6 +2619,12 @@ def main() -> int:
         f"data.device_augment")
     files = files_phase(np, torch, kernels, repo, card, clips_s)
 
+    torch.cuda.empty_cache()
+    log(f"[11] serving and export: WorkoutServer over TSM-R50 {SIZE} "
+        f"({TSM_YAML}, --num-class {SERVE_CLASSES}), bf16, window_batch "
+        f"{WINDOW_BATCH}; .pt2 artifacts of TSM-R50 and TimeSformer-B/16")
+    serve = serve_phase(np, torch, kernels, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -2172,7 +2683,8 @@ def main() -> int:
                     "train_clips_per_s": clips_s,
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
-                    "sweep": sweep, "files": files, "card": card}))
+                    "sweep": sweep, "files": files, "serve": serve,
+                    "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

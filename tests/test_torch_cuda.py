@@ -820,3 +820,72 @@ def test_cuda_video_staged_from_threads_scores_as_a_synchronous_copy(
         assert got.shape == (len(starts), 4) and np.isfinite(got).all()
         assert np.array_equal(got, engine.score_staged(sync, starts))
         assert np.array_equal(got, engine.score_video(video)[1])
+
+
+@pytest.mark.cuda
+def test_cuda_ops_are_the_wrappers(cuda_device):
+    """The ``wd::`` ops called directly launch what the wrappers launch and
+    give their results bit for bit; an op handed what its kernel does not
+    take raises, it does not fall back."""
+    rng = np.random.default_rng(11)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+
+    x, w = bf16(8, 7, 9, 64), bf16(64, 128)
+    assert torch.equal(torch.ops.wd.shift_matmul(x, w, 4, 8),
+                       kernels.shift_matmul(x, w, 4))
+    assert torch.equal(torch.ops.wd.temporal_shift(x, 4, 8, True),
+                       kernels.temporal_shift(x, 4, reverse=True))
+    p = _fused_params(rng, 64, 64, 256, True, cuda_device)
+    assert torch.equal(torch.ops.wd.fused_bottleneck(x, *p, 4, 8),
+                       kernels.fused_bottleneck(x, p, n_segment=4, fold=8))
+    q, k, v = kernels.split_heads(bf16(6, 197, 3 * 2 * 64), 2)
+    o, lse = torch.ops.wd.attention(q, k, v, 0.125, True)
+    o2, lse2 = kernels.attention_lse(q, k, v, 0.125)
+    assert torch.equal(o.transpose(1, 2), o2) and torch.equal(lse, lse2)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        torch.ops.wd.shift_matmul(x.float(), w, 4, 8)
+    with pytest.raises(ValueError):
+        torch.ops.wd.attention(q, k, v[:, :, :100], 0.125, False)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_cuda_artifacts_launch_the_live_engines_kernels(cuda_device, tmp_path):
+    """An artifact exported on the card launches per forward the hand
+    kernels the live engine launches (TSM-R50: 10 shift-matmul and 6
+    fused-bottleneck; a TimeSformer: one attention a layer), and scores
+    within the kernels' rule of it."""
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (TSM, TimeSformer,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.utils.export import export_model
+
+    rng = np.random.default_rng(12)
+    for model, t, size, want in (
+            (TSM(4, 8, "resnet50", dtype=torch.bfloat16), 8, 64,
+             {"shift_matmul": 10, "fused_bottleneck": 6}),
+            (TimeSformer(4, 4, 32, 8, 128, 2, 2, dtype=torch.bfloat16), 4, 32,
+             {"attention": 2})):
+        load_flax_variables(model, random_flax_variables(model, seed=0))
+        live = InferenceEngine(model, t, 2, image_size=size,
+                               device=cuda_device)
+        path = export_model(model, str(tmp_path / "m"), (2, t, size, size, 3),
+                            device=cuda_device)
+        art = InferenceEngine.from_exported(path, device=cuda_device)
+        x = rng.integers(0, 256, (2, t, size, size, 3), dtype=np.uint8)
+        counts = []
+        for eng in (live, art):
+            eng.score_windows(x)
+            kernels.reset_launches()
+            got = eng.score_windows(x)
+            counts.append({k: n for k, n in kernels.launch_counts().items()
+                           if n})
+            if eng is live:
+                ref = got
+        assert counts[0] == counts[1] == want
+        _close(torch.from_numpy(got), torch.from_numpy(ref))

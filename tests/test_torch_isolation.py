@@ -160,3 +160,67 @@ def test_kernel_modules_import_without_toolchain():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "fused_bottleneck" in out.stdout
+
+
+_SERVE_CHILD = r"""
+import sys, tempfile, os
+import numpy as np
+import workoutdetector_tpu_torch.serve.server as server
+import workoutdetector_tpu_torch.serve.demo
+import workoutdetector_tpu_torch.serve.batcher
+import workoutdetector_tpu_torch.infer.streaming
+import workoutdetector_tpu_torch.utils.export as export
+import workoutdetector_tpu_torch.scripts.export_model as export_cli
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("websockets", "PIL", "gradio"))
+assert not lazy, lazy  # imported only by the functions that use them
+from workoutdetector_tpu_torch.infer import InferenceEngine
+from workoutdetector_tpu_torch.models import TSM, load_flax_variables
+from workoutdetector_tpu_torch.models.convert import random_flax_variables
+model = TSM(3, 4, "resnet18")
+load_flax_variables(model, random_flax_variables(model, seed=0))
+with tempfile.TemporaryDirectory() as d:
+    path = export.export_model(model, os.path.join(d, "m"), (2, 4, 32, 32, 3),
+                               device="cpu")
+    engine = InferenceEngine.from_exported(path, device="cpu")
+    x = np.zeros((3, 4, 32, 32, 3), np.uint8)
+    assert engine.score_windows(x).shape == (3, 3)
+    srv = server.WorkoutServer(engine, host="127.0.0.1", http_port=0,
+                               ws_port=0)
+    srv.warmup()
+    srv.shutdown()
+    export_cli.main(["--cpu", "-o", os.path.join(d, "cli"), "--batch", "1",
+                     "model.base_model=resnet18", "data.image_size=32",
+                     "model.dtype=float32"])
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "workoutdetector_tpu" or m.startswith("workoutdetector_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_serving_and_export_run_without_jax_in_a_fresh_process():
+    """The serving and export modules import no jax and nothing of the JAX
+    package (nor websockets, PIL or gradio until a function needs them),
+    and export, load and serve a CPU artifact."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")
+
+
+@pytest.mark.parametrize("cli", ["server", "export_model", "demo"])
+def test_serving_and_export_clis_raise_without_cuda(cli, tmp_path):
+    """Without ``--cpu`` the CLIs ask for the card, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.scripts import export_model
+    from workoutdetector_tpu_torch.serve import demo, server
+    opts = ["model.base_model=resnet18", "data.image_size=32"]
+    run = {"server": lambda: server.build_server(opts),
+           "export_model": lambda: export_model.main(
+               ["-o", str(tmp_path / "m")] + opts),
+           "demo": lambda: demo.main(["-i", str(tmp_path / "v.mp4")] + opts)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run[cli]()

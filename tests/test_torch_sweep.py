@@ -592,7 +592,7 @@ def test_cli_engine_from_a_port_checkpoint(corpus, tmp_path, capsys):
                          data_root=corpus)
     name = "test6.mp4.score.json"
     assert _load(tmp_path / "cli" / name) == _load(tmp_path / "direct" / name)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="StableHLO"):
         engine_mod.engine_from_checkpoint(cfg, "model.jaxm", device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         engine_mod.engine_from_checkpoint(cfg, None, input_rank=4,

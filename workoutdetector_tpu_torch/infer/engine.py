@@ -12,11 +12,22 @@ sparse windows gathered there
 engine pads videos to a length bucket to reuse XLA programs; the port
 needs no bucket: padded window starts point at the true end, and the
 gather reads zeros past it.
+
+``InferenceEngine.from_exported`` serves a ``torch.export`` artifact
+(``utils/export``) instead of a live model: its windows are gathered on
+the host and scored in the artifact's fixed batch, as the JAX engine does
+for a ``.jaxm`` artifact.
+
+Device calls of one engine go one at a time (a lock): the server scores
+from the batcher's executor threads and from its HTTP threads at once,
+and the model's derived-weight caches and the launch order on the
+current stream are not safe to share between threads.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -69,20 +80,68 @@ class InferenceEngine:
         self.num_segments = num_segments
         self.window_batch = window_batch
         self.image_size = image_size
+        self.labels: Optional[List[str]] = None  # set from an artifact's sidecar
+        self.meta: dict = {}
+        self._exported = None
+        self._setup()
+
+    def _setup(self) -> None:
+        self._lock = threading.Lock()
         self._copy_stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
 
+    @classmethod
+    def from_exported(cls, path: str,
+                      device: Union[str, torch.device, None] = "cuda"
+                      ) -> "InferenceEngine":
+        """Engine over a ``.pt2`` artifact (``utils.export``): the JAX
+        engine's ``from_exported`` for the port's artifacts. The artifact
+        holds the weights, the normalize and its input shape, so
+        ``window_batch``, ``num_segments``, ``image_size`` and ``labels``
+        come from its sidecar. It has no live model, so videos take the
+        host gather (``supports_device_gather`` is False): ``score_video``,
+        ``score_video_chunked`` and ``inference_dataset`` gather windows on
+        the host and score them with ``score_windows``."""
+        from workoutdetector_tpu_torch.utils.export import load_exported
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        art = load_exported(path, self.device)
+        shape = art.input_shape
+        if len(shape) != 5:
+            raise ValueError(f"{path}: input shape {shape} is not a video "
+                             "model's (B, T, H, W, C)")
+        self.model = None
+        self._exported = art
+        self.meta = art.meta
+        self.labels = art.meta.get("labels")
+        self.window_batch = int(shape[0])
+        self.num_segments = int(shape[1])
+        self.image_size = int(shape[2])
+        self._setup()
+        return self
+
+    @property
+    def num_class(self) -> int:
+        """Classes the engine scores: the live model's, or the artifact
+        sidecar's."""
+        if self.model is not None:
+            return self.model.num_class
+        return int(self.meta["num_class"])
+
     @property
     def supports_device_gather(self) -> bool:
-        """True: the port's engine always holds a live video model on one
-        device, so every video is staged and gathered there. (The JAX
-        engine's predicate is false for its exported-artifact and
-        mesh-sharded engines, which the port does not have.)"""
-        return True
+        """True when a video may be staged on the device and its windows
+        gathered there: the engine holds a live model. An artifact engine
+        (``from_exported``) scores fixed-shape windows only, so its videos
+        take the host gather, as the JAX engine's ``.jaxm`` engines do."""
+        return self.model is not None
 
     @torch.no_grad()
     def _run(self, windows_u8: torch.Tensor) -> torch.Tensor:
-        return self.model(normalize_clip(windows_u8.to(self.device)))
+        x = windows_u8.to(self.device)
+        if self.model is None:
+            return self._exported(x)
+        return self.model(normalize_clip(x))
 
     # ---------------- core batched call ---------------- #
     def chunked_call(self, fn, arr: np.ndarray) -> np.ndarray:
@@ -96,8 +155,9 @@ class InferenceEngine:
             if pad > 0:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-            out = fn(torch.from_numpy(np.ascontiguousarray(chunk)))
-            outs.append(out.float().cpu().numpy()[:wb - pad])
+            with self._lock:
+                out = fn(torch.from_numpy(np.ascontiguousarray(chunk)))
+                outs.append(out.float().cpu().numpy()[:wb - pad])
         return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
 
     def score_windows(self, windows_u8: np.ndarray) -> np.ndarray:
@@ -155,7 +215,18 @@ class InferenceEngine:
         stream waits for the copy, and the staged tensor is marked as used
         by it, so its memory is not handed back to the copy stream while
         the gathers still read it. Padded starts point at the true end:
-        their windows are zeros, the reference's tail semantics."""
+        their windows are zeros, the reference's tail semantics. Needs a
+        live model (``supports_device_gather``)."""
+        if self.model is None:
+            raise RuntimeError(
+                "the device gather needs the live model; an engine loaded "
+                "from an artifact scores host-gathered windows "
+                "(score_windows)")
+        with self._lock:
+            return self._score_staged(staged, starts, stride)
+
+    def _score_staged(self, staged: StagedVideo, starts: np.ndarray,
+                      stride: int) -> np.ndarray:
         video = staged.video
         total = video.shape[0]
         if staged.ready is not None:
@@ -173,7 +244,7 @@ class InferenceEngine:
                                    num_frames=self.num_segments, stride=stride)
             outs.append(self.model(x).float().cpu().numpy()[:n])
         if not outs:
-            return np.zeros((0, self.model.num_class), np.float32)
+            return np.zeros((0, self.num_class), np.float32)
         return np.concatenate(outs)
 
     def score_video(self, video_u8: np.ndarray, step: int = 8,
@@ -183,13 +254,16 @@ class InferenceEngine:
 
         Returns (starts, (N, num_class) logits); ``starts`` defaults to
         every ``step`` frames. A video with no windows gives (0, num_class)
-        logits.
+        logits. An artifact engine gathers the windows on the host.
         """
         if starts is None:
             starts = self.windows_for_video(video_u8.shape[0], step=step)
         starts = np.asarray(starts, np.int64)
         if len(starts) == 0:
-            return starts, np.zeros((0, self.model.num_class), np.float32)
+            return starts, np.zeros((0, self.num_class), np.float32)
+        if not self.supports_device_gather:
+            return starts, self.score_windows(
+                self.gather_windows(video_u8, starts, stride=stride))
         staged = self.stage_video(video_u8, pin_memory=False)
         return starts, self.score_staged(staged, starts, stride)
 
@@ -255,9 +329,13 @@ def score_video_chunked(engine: InferenceEngine,
                 s += step
             if group:
                 rel = np.asarray(group, np.int64) - base
-                staged = engine.stage_video(buf, pin_memory=False)
-                logits_all.append(engine.score_staged(staged, rel,
-                                                      stride=stride))
+                if engine.supports_device_gather:
+                    staged = engine.stage_video(buf, pin_memory=False)
+                    logits_all.append(engine.score_staged(staged, rel,
+                                                          stride=stride))
+                else:
+                    logits_all.append(engine.score_windows(
+                        engine.gather_windows(buf, rel, stride=stride)))
                 starts_all.extend(group)
                 next_start = s
             if not eof and next_start > base:
@@ -267,7 +345,7 @@ def score_video_chunked(engine: InferenceEngine,
         logits = np.concatenate(logits_all)
     else:
         # score_video's (0, num_class) on a video without windows
-        logits = np.zeros((0, engine.model.num_class), np.float32)
+        logits = np.zeros((0, engine.num_class), np.float32)
     return total, np.asarray(starts_all, np.int64), logits
 
 
@@ -278,19 +356,24 @@ def engine_from_checkpoint(cfg,
                            input_rank: Optional[int] = None,
                            device: Union[str, torch.device, None] = "cuda"
                            ) -> InferenceEngine:
-    """The engine of every CLI: ``build_model(cfg.model)`` with the
-    weights of a port checkpoint (a ``CheckpointManager`` file: its EMA
-    weights where it has them), or the port's initializers from seed 0
-    where no checkpoint is given."""
+    """The engine of every CLI: a ``.pt2`` artifact (``from_exported``;
+    its sidecar fixes the batch and size), or ``build_model(cfg.model)``
+    with the weights of a port checkpoint (a ``CheckpointManager`` file:
+    its EMA weights where it has them), or the port's initializers from
+    seed 0 where no checkpoint is given."""
     from workoutdetector_tpu_torch.models import (build_model,
                                                   init_flax_variables,
                                                   load_flax_variables)
     from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
 
+    if checkpoint and checkpoint.endswith(".pt2"):
+        return InferenceEngine.from_exported(checkpoint, device=device)
     if checkpoint and checkpoint.endswith(".jaxm"):
-        raise NotImplementedError(
-            "exported .jaxm artifacts are not in the PyTorch port yet: they "
-            "come with serving and export (ROADMAP §1 slice 5)")
+        raise ValueError(
+            f"{checkpoint}: a .jaxm artifact is the JAX package's StableHLO "
+            "export, which the PyTorch port cannot read; export the "
+            "checkpoint with the port (scripts/export_model.py) to a .pt2 "
+            "artifact")
     if input_rank is not None and input_rank != 5:
         raise NotImplementedError(
             f"input_rank {input_rank} (image and TDN models) is not in the "

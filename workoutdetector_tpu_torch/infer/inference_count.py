@@ -177,7 +177,9 @@ def inference_dataset(engine: InferenceEngine,
     {class_id: logit}}, the sparse 8-of-16 windows every ``step`` frames.
 
     ``decode_workers`` threads decode the next videos and stage them on
-    the device (``engine.stage_video``) while the current one is scored.
+    the device (``engine.stage_video``) while the current one is scored;
+    for an artifact engine (no device gather) they decode only, and the
+    windows are gathered on the host.
     ``shard=(i, n)`` scores worker i's disjoint slice of the split.
     ``chunk_frames`` bounds decode memory per video
     (``score_video_chunked``; videos then decode and score one after the
@@ -248,10 +250,13 @@ def inference_dataset(engine: InferenceEngine,
                 finish(item)
         return summary
 
+    device_gather = engine.supports_device_gather
+
     def decode(it):
         with VideoReader(it.video_path) as r:
             video = r.read_prepped(256, engine.image_size)
-        return engine.stage_video(video)
+        # an artifact engine gathers on the host: keep the decoded video
+        return engine.stage_video(video) if device_gather else video
 
     from concurrent.futures import ThreadPoolExecutor
     workers = max(1, decode_workers)
@@ -263,14 +268,21 @@ def inference_dataset(engine: InferenceEngine,
             if k + workers < len(items):
                 futures.append(pool.submit(decode, items[k + workers]))
             try:
-                staged = fut.result()
+                payload = fut.result()
             except Exception as e:
                 fail(item, "decode", e)
                 continue
             try:
-                n_frames = staged.video.shape[0]
-                starts = engine.windows_for_video(n_frames, step=step)
-                logits = engine.score_staged(staged, starts, stride=stride)
+                if device_gather:
+                    n_frames = payload.video.shape[0]
+                    starts = engine.windows_for_video(n_frames, step=step)
+                    logits = engine.score_staged(payload, starts,
+                                                 stride=stride)
+                else:
+                    n_frames = payload.shape[0]
+                    starts = engine.windows_for_video(n_frames, step=step)
+                    logits = engine.score_windows(engine.gather_windows(
+                        payload, starts, stride=stride))
                 _write_score_json(engine, item, n_frames, starts, logits,
                                   checkpoint, out_dir)
             except Exception as e:

@@ -11,11 +11,20 @@ at this package's module names, which follow the flax tree:
     ``var`` → ``running_var``; ``bias`` stays ``bias``;
   * the TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
     parameters keep their names and shapes.
+
+It also keeps its copy of the reference-checkpoint port
+(``load_torch_checkpoint``, ``strip_ddp_prefix``, ``strip_shift_wrappers``,
+``port_tsm_checkpoint``, JAX ``convert.py:28-155, 550``): a reference
+PyTorch TSM state dict (torchvision ResNet names under ``base_model.``,
+DDP's ``module.`` prefixes, the shift's ``.net.`` wrappers, ``new_fc``)
+becomes a flax-layout tree, which ``load_flax_variables`` sets on the
+port's model.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,3 +185,154 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
             a = np.zeros(shape)
         state[key] = a.astype(np.float32)
     return port_state_to_flax(state)
+
+
+# ------------------------------------------------ reference torch checkpoints
+
+
+def _to_numpy(v: Any) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _unflatten(flat: Mapping[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def strip_ddp_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Remove the leading 'module.' that DDP training adds (reference
+    tsm.py:463-464)."""
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state_dict.items()}
+
+
+def strip_shift_wrappers(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Remove the '.net' segments the reference's TemporalShift module adds
+    around the convs it wraps (reference tsm.py:134-136)."""
+    return {k.replace(".net.", "."): v for k, v in state_dict.items()}
+
+
+def _torch_key_to_flax(key: str) -> Optional[Tuple[Tuple[str, ...], str]]:
+    """One torchvision-ResNet-style key → (flax path, 'params' or
+    'batch_stats'); None for keys to skip (num_batches_tracked)."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    parts = key.split(".")
+    # layer{i}.{j}.rest → layer{i}_{j}.rest; downsample.0 → downsample_conv,
+    # downsample.1 → downsample_bn
+    mapped = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        if re.fullmatch(r"layer\d+", p) and i + 1 < len(parts) and \
+                parts[i + 1].isdigit():
+            mapped.append(f"{p}_{parts[i + 1]}")
+            i += 2
+            continue
+        if p == "downsample" and i + 1 < len(parts) and parts[i + 1] in ("0", "1"):
+            mapped.append("downsample_conv" if parts[i + 1] == "0" else
+                          "downsample_bn")
+            i += 2
+            continue
+        mapped.append(p)
+        i += 1
+
+    leaf = mapped[-1]
+    module = mapped[-2] if len(mapped) >= 2 else ""
+    is_bn = module.startswith("bn") or module.endswith("bn")
+    if leaf == "running_mean":
+        return tuple(mapped[:-1] + ["mean"]), "batch_stats"
+    if leaf == "running_var":
+        return tuple(mapped[:-1] + ["var"]), "batch_stats"
+    if is_bn and leaf == "weight":
+        return tuple(mapped[:-1] + ["scale"]), "params"
+    if is_bn and leaf == "bias":
+        return tuple(mapped[:-1] + ["bias"]), "params"
+    if leaf == "weight":
+        return tuple(mapped[:-1] + ["kernel"]), "params"
+    if leaf == "bias":
+        return tuple(mapped[:-1] + ["bias"]), "params"
+    return tuple(mapped), "params"
+
+
+def _convert_value(path: Tuple[str, ...], v: np.ndarray) -> np.ndarray:
+    if path[-1] == "kernel":
+        if v.ndim == 4:  # conv OIHW → HWIO
+            return np.transpose(v, (2, 3, 1, 0))
+        if v.ndim == 2:  # linear (out, in) → (in, out)
+            return np.transpose(v, (1, 0))
+        if v.ndim == 3:  # conv1d (out, in/groups, k)
+            return np.transpose(v, (2, 1, 0))
+    return v
+
+
+def torch_resnet_to_flax(state_dict: Mapping[str, Any],
+                         prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """A torchvision-style ResNet state dict → {'params', 'batch_stats'}
+    nested dicts with the flax module names."""
+    params: Dict[Tuple[str, ...], np.ndarray] = {}
+    stats: Dict[Tuple[str, ...], np.ndarray] = {}
+    for k, v in state_dict.items():
+        m = _torch_key_to_flax(k)
+        if m is None:
+            continue
+        path, coll = m
+        arr = _convert_value(path, _to_numpy(v))
+        (params if coll == "params" else stats)[prefix + path] = arr
+    return {"params": _unflatten(params), "batch_stats": _unflatten(stats)}
+
+
+def merge_into(target: Mapping[str, Any], source: Mapping[str, Any]
+               ) -> Dict[str, Any]:
+    """Overlay ``source`` leaves onto ``target`` where paths and shapes
+    match, in the target's dtype (the strict=False load of reference
+    tsm.py:473)."""
+    tgt = dict(_flatten(target))
+    for k, v in _flatten(source):
+        if k in tgt and tuple(np.shape(tgt[k])) == tuple(np.shape(v)):
+            tgt[k] = np.asarray(v, dtype=np.asarray(tgt[k]).dtype)
+    return _unflatten(tgt)
+
+
+def port_tsm_checkpoint(state_dict: Mapping[str, Any],
+                        num_class: int,
+                        target_params: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, Any]:
+    """A reference PyTorch TSM checkpoint → the flax TSM layout (JAX
+    ``convert.port_tsm_checkpoint``): strip 'module.', drop the '.net'
+    shift wrappers, 'base_model.*' → 'backbone.*', 'new_fc.*' → 'fc.*'.
+    fc weights whose output dim is not ``num_class`` are dropped and the
+    caller keeps its own head; with ``target_params`` the ported params
+    are overlaid onto it where paths and shapes match."""
+    sd = strip_shift_wrappers(strip_ddp_prefix(dict(state_dict)))
+    remapped: Dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.startswith("base_model."):
+            remapped["backbone." + k[len("base_model."):]] = v
+        elif k.startswith("new_fc."):
+            remapped["fc." + k[len("new_fc."):]] = v
+        else:
+            remapped[k] = v
+    fc_w = remapped.get("fc.weight")
+    if fc_w is not None and _to_numpy(fc_w).shape[0] != num_class:
+        remapped = {k: v for k, v in remapped.items() if not k.startswith("fc.")}
+    tree = torch_resnet_to_flax(remapped)
+    if target_params is not None:
+        tree["params"] = merge_into(target_params, tree["params"])
+    return tree
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """A .pth/.ckpt file → its raw state dict (the 'state_dict' nesting of
+    torch-lightning and mmcv unwrapped)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        return ckpt["state_dict"]
+    return ckpt

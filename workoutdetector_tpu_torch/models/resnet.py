@@ -61,7 +61,14 @@ def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
     only when a source changes storage or version, or ``dtype`` changes.
     Under autograd (grad enabled and a source requiring grad) nothing is
     cached: the value is built with its graph, so gradients reach the
-    sources."""
+    sources. While ``torch.export`` traces, its fake tensors have no
+    storage or version to key on: the value cached in ``dtype`` is taken as
+    it is (``utils.export.export_model`` runs a forward on the weights it
+    exports just before, and the program holds the value as a constant),
+    or, where none is, built into the exported graph."""
+    if torch.compiler.is_exporting():
+        hit = module._derived.get(name)
+        return hit[1] if hit is not None and hit[0][0] == dtype else build()
     if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
         return build()
     key = (dtype,) + tuple((t.device, t.data_ptr(), t._version)
@@ -99,8 +106,10 @@ class Conv(nn.Module):
 
         def fold():
             sb = bn.folded()
+            # the bias owns its storage (not a view of sb), as an exported
+            # program's constants must
             return (self.weight * sb[0][:, None, None, None]).to(x.dtype), \
-                sb[1].to(x.dtype)
+                sb[1].to(x.dtype, copy=True)
 
         weight, bias = cached(self, "bn", [self.weight] + bn.sources(),
                               x.dtype, fold)

@@ -1,9 +1,11 @@
 """Hand kernels for Hopper (``csrc/*.cu``) with their plain versions.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor (or raises); it never falls back. Each
-counts its launches in ``<wrapper>.launches``. Nothing is built or
-loaded at import: ``_build.load()`` runs at the first CUDA launch.
+its kernel for a CUDA tensor (or raises); it never falls back. The
+forward kernels do so as ``torch.library`` ops (``torch.ops.wd.*``,
+``library.py``), which ``torch.export`` records. Each counts its launches
+in ``<wrapper>.launches``. Nothing is built or loaded at import:
+``_build.load()`` runs at the first CUDA launch.
 """
 
 from workoutdetector_tpu_torch.ops.kernels.attention import (

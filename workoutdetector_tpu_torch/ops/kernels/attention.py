@@ -34,6 +34,9 @@ from typing import Optional, Tuple
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
+from workoutdetector_tpu_torch.ops.kernels.library import (count_launch,
+                                                          cpu_autograd,
+                                                          kernel_op)
 
 HEAD_DIMS = tuple(range(16, 129, 16))  # the head widths the kernels take
 
@@ -109,7 +112,8 @@ def _check(what: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
     """Refuse what the kernels do not take: tensors off q's CUDA device,
     dtypes other than bf16, unequal (n, h, l, dh) shapes, head widths
     outside HEAD_DIMS, strides that are not multiples of 8 over a unit last
-    stride, bases not 16-byte aligned."""
+    stride (``_check_aligned`` checks the addresses: an exported graph's
+    fake tensors have none)."""
     q = tensors[0]
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"{what}: tensors on "
@@ -125,13 +129,19 @@ def _check(what: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
         raise ValueError(f"{what} kernel: head width {q.shape[3]} not in "
                          f"{HEAD_DIMS}")
     for t in tensors:
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16:
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(
-                f"{what} kernel: strides {t.stride()} at offset "
-                f"{t.data_ptr() % 16}: needs a unit last stride, the others "
-                "multiples of 8 and a 16-byte aligned base")
+                f"{what} kernel: strides {t.stride()}: needs a unit last "
+                "stride and the others multiples of 8")
     return tuple(q.shape)
+
+
+def _check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """Refuse bases that are not 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} kernel: base offsets "
+                         f"{[t.data_ptr() % 16 for t in tensors]}: needs "
+                         "16-byte aligned bases")
 
 
 def _strides(*tensors: torch.Tensor):
@@ -164,44 +174,85 @@ def fwd_route(l: int, dh: int) -> bool:
     return dh in FWD_HEAD_DIMS and fwd_smem(l) > 0
 
 
-def _launch(q, k, v, scale, with_lse: bool, tiled: bool = False):
-    """Launch the forward kernel of the shape's route (``fwd_route``), or
-    the tiled one where ``tiled``: o, the (n, h, l, dh) view of a
-    contiguous (n, l, h, dh) buffer, and with ``with_lse`` the fp32 (n, h,
-    l) log-sum-exp (else None)."""
+def _fwd_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+             with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    o, lse = attention_lse_plain(q, k, v, scale) if with_lse else \
+        (attention_plain(q, k, v, scale), None)
+    if lse is None:
+        lse = q.new_empty((0,), dtype=torch.float32)
+    return o.transpose(1, 2).contiguous(), lse
+
+
+def _fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, h, l, dh = q.shape
+    return (q.new_empty((n, l, h, dh)),
+            q.new_empty((n, h, l) if with_lse else (0,), dtype=torch.float32))
+
+
+def _launch(short: bool, q, k, v, scale, with_lse: bool):
+    """Check the operands, then launch the one-block forward (``short``)
+    or the tiled one: o as a contiguous (n, l, h, dh) buffer
+    and with ``with_lse`` the fp32 (n, h, l) log-sum-exp (else an empty
+    tensor)."""
     n, h, l, dh = _check("attention", q, k, v)
-    # the one-block kernel takes each row's max of the raw scores: scale > 0
-    short = not tiled and fwd_route(l, dh) and scale > 0
+    _check_aligned("attention", q, k, v)
     out = torch.empty((n, l, h, dh), dtype=q.dtype, device=q.device)
-    lse = torch.empty((n, h, l), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = torch.empty((n, h, l) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     lib = _build.load()
     fn = lib.lib.wd_attention_fwd_bf16 if short else lib.lib.wd_attention_bf16
     lib.check(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None, _strides(q, k, v),
+        lse.data_ptr() if with_lse else None, _strides(q, k, v),
         n, h, l, dh, float(scale), q.device.index or 0,
         _build.stream_handle(q.device)), "attention")
-    if short:
-        attention.launches += 1
-    else:
-        attention_tiled.launches += 1
-    return out.transpose(1, 2), lse
+    count_launch(attention if short else attention_tiled)
+    return out, lse
+
+
+@kernel_op("attention", _fwd_cpu, _fwd_fake)
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wd::attention`` on CUDA: the one-block forward's launch."""
+    return _launch(True, q, k, v, scale, with_lse)
+
+
+@kernel_op("attention_tiled", _fwd_cpu, _fwd_fake)
+def _tiled_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wd::attention_tiled`` on CUDA: the tiled forward's launch."""
+    return _launch(False, q, k, v, scale, with_lse)
+
+
+def _forward(q, k, v, scale, with_lse: bool, tiled: bool = False):
+    """The forward through the op of the shape's route (``fwd_route``), or
+    the tiled one where ``tiled``; CPU tensors take the plain version
+    through the same op. Returns o, the (n, h, l, dh) view of a
+    contiguous (n, l, h, dh) buffer, and the log-sum-exp or None."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: unsupported device {q.device}")
+    if cpu_autograd(q, k, v):
+        return attention_lse_plain(q, k, v, scale) if with_lse else \
+            (attention_plain(q, k, v, scale), None)
+    # the one-block kernel takes each row's max of the raw scores: scale > 0
+    short = not tiled and q.dim() == 4 and scale > 0 and \
+        fwd_route(q.shape[2], q.shape[3])
+    out, lse = (_fwd_op if short else _tiled_op)(q, k, v, float(scale),
+                                                  with_lse)
+    return out.transpose(1, 2), lse if with_lse else None
 
 
 def attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, with_lse: bool = False
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(o, lse or None) from the tiled forward kernel (``csrc/attention.cu``:
-    K and V streamed in 64-row tiles, online softmax) for CUDA tensors
-    (bf16), whatever the shape; the plain version for CPU ones.
-    ``attention`` and ``attention_lse`` take this route where ``fwd_route``
-    leaves a shape out (l > 256 or dh ≠ 64); its launches count here."""
-    if q.device.type == "cpu":
-        if with_lse:
-            return attention_lse_plain(q, k, v, scale)
-        return attention_plain(q, k, v, scale), None
-    return _launch(q, k, v, scale, with_lse, tiled=True)
+    K and V streamed in 64-row tiles, online softmax; the op
+    ``wd::attention_tiled``) for CUDA tensors (bf16), whatever the shape;
+    the plain version for CPU ones. ``attention`` and ``attention_lse``
+    take this route where ``fwd_route`` leaves a shape out (l > 256 or dh ≠
+    64); its launches count here."""
+    return _forward(q, k, v, scale, with_lse, tiled=True)
 
 
 attention_tiled.launches = 0
@@ -213,30 +264,27 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp the backward kernels read, for CUDA tensors (bf16; one
     ``attention`` or ``attention_tiled`` launch), the plain version for CPU
     ones."""
-    if q.device.type == "cpu":
-        return attention_lse_plain(q, k, v, scale)
-    return _launch(q, k, v, scale, True)
+    return _forward(q, k, v, scale, True)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """The forward kernel of the shape's route (``fwd_route``: the
-    one-block kernel, counted here, or the tiled one, counted in
-    ``attention_tiled``) for CUDA tensors (bf16), the plain version for CPU
-    ones.
+    one-block kernel, the op ``wd::attention``, counted here, or the tiled
+    one, ``wd::attention_tiled``, counted in ``attention_tiled``) for CUDA
+    tensors (bf16), the plain version for CPU ones.
 
     q, k, v may be any views with a unit last stride (e.g. thirds of a
-    packed qkv projection); the kernel's result is the (n, h, l, dh) view
-    of a contiguous (n, l, h, dh) buffer. Forward only: under autograd on
-    CUDA it raises, and the caller runs ``Attention`` on the packed qkv
+    packed qkv projection); the result is the (n, h, l, dh) view of a
+    contiguous (n, l, h, dh) buffer. Forward only: under autograd on CUDA
+    it raises, and the caller runs ``Attention`` on the packed qkv
     projection, whose backward runs ``attention_bwd``."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if q.device.type != "cpu" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "attention() is forward only; under autograd run "
             "Attention.apply(qkv, num_heads, scale) on the packed projection")
-    return _launch(q, k, v, scale, False)[0]
+    return _forward(q, k, v, scale, False)[0]
 
 
 attention.launches = 0
@@ -246,6 +294,8 @@ def _backward(which: str, q, k, v, do, lse, delta, scale, dq, dk, dv):
     n, h, l, dh = _check(which, q, k, v, do, *(t for t in (dq, dk, dv)
                                               if t is not None))
     _check_vectors(which, (n, h, l), q.device, lse=lse, delta=delta)
+    _check_aligned(which, q, k, v, do, *(t for t in (dq, dk, dv)
+                                         if t is not None))
     stand_in = q  # strides of an output the entry point does not write
     lib = _build.load()
     fn = getattr(lib.lib, f"wd_{which}_bf16")
@@ -291,7 +341,7 @@ def attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _, gk, gv = _bwd_plain(q, k, v, do, lse, delta, scale)
         return dk.copy_(gk), dv.copy_(gv)
     _backward("attention_dkv", q, k, v, do, lse, delta, scale, None, dk, dv)
-    attention_dkv.launches += 1
+    count_launch(attention_dkv)
     return dk, dv
 
 
@@ -308,7 +358,7 @@ def attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return dq.copy_(_bwd_plain(q, k, v, do, lse, delta, scale)[0])
     _backward("attention_dq", q, k, v, do, lse, delta, scale, dq, None, None)
-    attention_dq.launches += 1
+    count_launch(attention_dq)
     return dq
 
 
@@ -360,6 +410,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     n, h, l, dh = _check("attention_bwd", q, k, v, do, o, dq, dk, dv)
     _check_vectors("attention_bwd", (n, h, l), q.device, lse=lse)
+    _check_aligned("attention_bwd", q, k, v, do, o, dq, dk, dv)
     if not short_route(l, dh):
         delta = attention_delta(o, do)
         attention_dkv(q, k, v, do, lse, delta, scale, dk, dv)
@@ -372,7 +423,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _strides(q, k, v, do, o, dq, dk, dv), n, h, l, dh, float(scale),
         q.device.index or 0, _build.stream_handle(q.device)),
         "attention_bwd")
-    attention_bwd.launches += 1
+    count_launch(attention_bwd)
     return dq, dk, dv
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
+from workoutdetector_tpu_torch.ops.kernels.library import count_launch
 from workoutdetector_tpu_torch.ops.kernels.shift_matmul import shift_matmul
 from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
@@ -119,7 +120,7 @@ def conv1x1_dx(g: torch.Tensor, wt: torch.Tensor, n_segment: int = 1,
         g.data_ptr(), w.data_ptr(), dx.data_ptr(), r, o, c, frame_rows,
         n_segment, fold, g.device.index or 0, _build.stream_handle(g.device)),
         "conv1x1_dx")
-    conv1x1_dx.launches += 1
+    count_launch(conv1x1_dx)
     return dx
 
 
@@ -165,7 +166,7 @@ def conv1x1_dw(x: torch.Tensor, g: torch.Tensor, n_segment: int = 1,
         x.data_ptr(), g.data_ptr(), dw.data_ptr(), work.data_ptr(), r, c, o,
         frame_rows, n_segment, fold, splits, x.device.index or 0,
         _build.stream_handle(x.device)), "conv1x1_dw")
-    conv1x1_dw.launches += 1
+    count_launch(conv1x1_dw)
     return dw
 
 

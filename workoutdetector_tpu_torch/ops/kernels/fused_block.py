@@ -27,6 +27,9 @@ import torch
 
 from workoutdetector_tpu_torch.ops.conv import conv2d_nhwc
 from workoutdetector_tpu_torch.ops.kernels import _build
+from workoutdetector_tpu_torch.ops.kernels.library import (count_launch,
+                                                          cpu_autograd,
+                                                          kernel_op)
 from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
 
@@ -121,19 +124,89 @@ def wgmma_route(c: int, f: int, o: int, ds: bool) -> bool:
     return wgmma_smem(c, f, o, ds) > 0
 
 
+def _fused_cpu(x: torch.Tensor, w1: torch.Tensor, sb1: torch.Tensor,
+               w2: torch.Tensor, sb2: torch.Tensor, w3: torch.Tensor,
+               sb3: torch.Tensor, wd: Optional[torch.Tensor],
+               sbd: Optional[torch.Tensor], n_segment: int,
+               fold: int) -> torch.Tensor:
+    return fused_bottleneck_plain(
+        x, FusedBlockParams(w1, sb1, w2, sb2, w3, sb3, wd, sbd),
+        n_segment=n_segment, fold=fold)
+
+
+def _fused_fake(x: torch.Tensor, w1: torch.Tensor, sb1: torch.Tensor,
+                w2: torch.Tensor, sb2: torch.Tensor, w3: torch.Tensor,
+                sb3: torch.Tensor, wd: Optional[torch.Tensor],
+                sbd: Optional[torch.Tensor], n_segment: int,
+                fold: int) -> torch.Tensor:
+    return x.new_empty((*x.shape[:-1], w3.shape[1]))
+
+
+def _launch(wgmma: bool, x: torch.Tensor, *p: Optional[torch.Tensor],
+            n_segment: int, fold: int) -> torch.Tensor:
+    """Check the operands (p = w1, sb1, w2, sb2, w3, sb3, wd, sbd), then
+    launch the wgmma kernel (``wgmma``) or the WMMA one."""
+    _check(x, FusedBlockParams(*p), n_segment, fold)
+    if any(v is not None and v.data_ptr() % 16 for v in (x,) + p):
+        raise ValueError("fused_bottleneck kernel needs 16-byte aligned "
+                         "tensors")
+    bt, h, w, c = x.shape
+    f, o = p[0].shape[1], p[4].shape[1]
+    t = n_segment if fold > 0 else 1
+    out = torch.empty((bt, h, w, o), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    fn = lib.lib.wd_fused_bottleneck_bf16 if wgmma else \
+        lib.lib.wd_fused_bottleneck_wmma_bf16
+    lib.check(fn(
+        x.data_ptr(), *(v.data_ptr() if v is not None else None for v in p),
+        out.data_ptr(), bt, h, w, c, f, o, t, fold, x.device.index or 0,
+        _build.stream_handle(x.device)), "fused_bottleneck")
+    count_launch(fused_bottleneck if wgmma else fused_bottleneck_wmma)
+    return out
+
+
+@kernel_op("fused_bottleneck", _fused_cpu, _fused_fake)
+def _fused_op(x: torch.Tensor, w1: torch.Tensor, sb1: torch.Tensor,
+              w2: torch.Tensor, sb2: torch.Tensor, w3: torch.Tensor,
+              sb3: torch.Tensor, wd: Optional[torch.Tensor],
+              sbd: Optional[torch.Tensor], n_segment: int,
+              fold: int) -> torch.Tensor:
+    """``wd::fused_bottleneck`` on CUDA: the wgmma kernel's launch."""
+    return _launch(True, x, w1, sb1, w2, sb2, w3, sb3, wd, sbd,
+                   n_segment=n_segment, fold=fold)
+
+
+@kernel_op("fused_bottleneck_wmma", _fused_cpu, _fused_fake)
+def _fused_wmma_op(x: torch.Tensor, w1: torch.Tensor, sb1: torch.Tensor,
+                   w2: torch.Tensor, sb2: torch.Tensor, w3: torch.Tensor,
+                   sb3: torch.Tensor, wd: Optional[torch.Tensor],
+                   sbd: Optional[torch.Tensor], n_segment: int,
+                   fold: int) -> torch.Tensor:
+    """``wd::fused_bottleneck_wmma`` on CUDA: the WMMA kernel's launch."""
+    return _launch(False, x, w1, sb1, w2, sb2, w3, sb3, wd, sbd,
+                   n_segment=n_segment, fold=fold)
+
+
 def fused_bottleneck(x: torch.Tensor, p: FusedBlockParams, *, n_segment: int,
                      fold: int) -> torch.Tensor:
-    """Run one fused bottleneck on x (B·T, H, W, C) → (B·T, H, W, O): the
-    kernel of the shape's route (``wgmma_route``: the wgmma kernel, counted
-    here, or the WMMA one, counted in ``fused_bottleneck_wmma``) for a CUDA
-    tensor (bf16), the plain version for a CPU one.
+    """Run one fused bottleneck on x (B·T, H, W, C) → (B·T, H, W, O): for a
+    CUDA tensor (bf16) the kernel of the shape's route (``wgmma_route``:
+    the op ``wd::fused_bottleneck``, the wgmma kernel, counted here, or
+    ``wd::fused_bottleneck_wmma``, counted in ``fused_bottleneck_wmma``),
+    for a CPU one the plain version (through the same op); any other
+    device raises.
 
     n_segment: T (ignored when fold == 0); fold: channels shifted each way
     (C // fold_div), 0 = no shift.
     """
-    if x.device.type == "cpu":
+    _check_device(x)
+    if cpu_autograd(x, *p):
         return fused_bottleneck_plain(x, p, n_segment=n_segment, fold=fold)
-    return _launch(x, p, n_segment, fold, wmma=False)
+    op = _fused_op
+    if x.device.type == "cuda" and not wgmma_route(
+            x.shape[-1], p.w1.shape[1], p.w3.shape[1], p.wd is not None):
+        op = _fused_wmma_op
+    return op(x, *p, n_segment, fold)
 
 
 fused_bottleneck.launches = 0
@@ -141,22 +214,29 @@ fused_bottleneck.launches = 0
 
 def fused_bottleneck_wmma(x: torch.Tensor, p: FusedBlockParams, *,
                           n_segment: int, fold: int) -> torch.Tensor:
-    """The WMMA kernel (``csrc/fused_block_wmma.cu``) whatever the widths,
-    for a CUDA tensor (bf16); the plain version for a CPU one.
-    ``fused_bottleneck`` takes this route where ``wgmma_route`` leaves a
-    shape out; its launches count here."""
-    if x.device.type == "cpu":
+    """The WMMA kernel (``csrc/fused_block_wmma.cu``, the op
+    ``wd::fused_bottleneck_wmma``) whatever the widths, for a CUDA tensor
+    (bf16); the plain version for a CPU one. ``fused_bottleneck`` takes
+    this route where ``wgmma_route`` leaves a shape out; its launches count
+    here."""
+    _check_device(x)
+    if cpu_autograd(x, *p):
         return fused_bottleneck_plain(x, p, n_segment=n_segment, fold=fold)
-    return _launch(x, p, n_segment, fold, wmma=True)
+    return _fused_wmma_op(x, *p, n_segment, fold)
 
 
 fused_bottleneck_wmma.launches = 0
 
 
-def _launch(x: torch.Tensor, p: FusedBlockParams, n_segment: int, fold: int,
-            wmma: bool) -> torch.Tensor:
-    """Check the operands and launch the kernel of the shape's route, or
-    the WMMA one where ``wmma``."""
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+
+
+def _check(x: torch.Tensor, p: FusedBlockParams, n_segment: int,
+           fold: int) -> None:
+    """Refuse what the kernels do not take: devices, dtypes, shapes and
+    layout."""
     tensors = [t for t in p if t is not None]
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("fused_bottleneck: x and every parameter must lie "
@@ -181,24 +261,5 @@ def _launch(x: torch.Tensor, p: FusedBlockParams, n_segment: int, fold: int,
             f"fused_bottleneck kernel: x {tuple(x.shape)}, F={f}, O={o}, "
             f"fold={fold}, T={t}: needs C % 8 == 0, F % 32 == 0, "
             "O % 16 == 0, fold % 8 == 0 and matching parameter shapes")
-    if not all(v.is_contiguous() and v.data_ptr() % 16 == 0
-               for v in [x] + tensors):
-        raise ValueError("fused_bottleneck kernel needs contiguous, 16-byte "
-                         "aligned tensors")
-    out = torch.empty((bt, h, w, o), dtype=x.dtype, device=x.device)
-    wgmma = not wmma and wgmma_route(c, f, o, p.wd is not None)
-    lib = _build.load()
-    fn = lib.lib.wd_fused_bottleneck_bf16 if wgmma else \
-        lib.lib.wd_fused_bottleneck_wmma_bf16
-    lib.check(fn(
-        x.data_ptr(), p.w1.data_ptr(), p.sb1.data_ptr(), p.w2.data_ptr(),
-        p.sb2.data_ptr(), p.w3.data_ptr(), p.sb3.data_ptr(),
-        p.wd.data_ptr() if p.wd is not None else None,
-        p.sbd.data_ptr() if p.sbd is not None else None,
-        out.data_ptr(), bt, h, w, c, f, o, t, fold, x.device.index or 0,
-        _build.stream_handle(x.device)), "fused_bottleneck")
-    if wgmma:
-        fused_bottleneck.launches += 1
-    else:
-        fused_bottleneck_wmma.launches += 1
-    return out
+    if not all(v.is_contiguous() for v in [x] + tensors):
+        raise ValueError("fused_bottleneck kernel needs contiguous tensors")

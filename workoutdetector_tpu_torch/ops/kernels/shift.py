@@ -13,6 +13,9 @@ from __future__ import annotations
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
+from workoutdetector_tpu_torch.ops.kernels.library import (count_launch,
+                                                          cpu_autograd,
+                                                          kernel_op)
 from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
 _ELEM_BYTES = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
@@ -25,20 +28,29 @@ def temporal_shift_plain(x: torch.Tensor, n_segment: int, fold_div: int = 8,
     return shift_folds(x, n_segment, x.shape[-1] // fold_div, reverse)
 
 
-def temporal_shift(x: torch.Tensor, n_segment: int, fold_div: int = 8,
-                   reverse: bool = False) -> torch.Tensor:
-    """Shift a flat (B·T, H, W, C) batch (Sᵀ when ``reverse``): the kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return temporal_shift_plain(x, n_segment, fold_div, reverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"temporal_shift: unsupported device {x.device}")
+def _shift_cpu(x: torch.Tensor, n_segment: int, fold_div: int,
+               reverse: bool) -> torch.Tensor:
+    y = temporal_shift_plain(x, n_segment, fold_div, reverse)
+    return x.clone() if y is x else y  # an op's output may not alias x
+
+
+def _shift_fake(x: torch.Tensor, n_segment: int, fold_div: int,
+                reverse: bool) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+@kernel_op("temporal_shift", _shift_cpu, _shift_fake)
+def _shift_op(x: torch.Tensor, n_segment: int, fold_div: int,
+              reverse: bool) -> torch.Tensor:
+    """``wd::temporal_shift`` on CUDA: check the operand, then launch."""
     if x.dtype not in _ELEM_BYTES:
-        raise TypeError(f"temporal_shift kernel takes bf16/fp16/fp32, got {x.dtype}")
+        raise TypeError(
+            f"temporal_shift kernel takes bf16/fp16/fp32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("temporal_shift kernel needs a contiguous NHWC tensor")
     if x.shape[0] % n_segment:
-        raise ValueError(f"batch {x.shape[0]} is not a multiple of T={n_segment}")
+        raise ValueError(
+            f"batch {x.shape[0]} is not a multiple of T={n_segment}")
     c = x.shape[-1]
     inner = x.numel() // max(x.shape[0] * c, 1) if x.numel() else 0
     y = torch.empty_like(x)
@@ -47,8 +59,20 @@ def temporal_shift(x: torch.Tensor, n_segment: int, fold_div: int = 8,
         x.data_ptr(), y.data_ptr(), x.shape[0], inner, n_segment, c,
         c // fold_div, _ELEM_BYTES[x.dtype], int(reverse), x.device.index or 0,
         _build.stream_handle(x.device)), "temporal_shift")
-    temporal_shift.launches += 1
+    count_launch(temporal_shift)
     return y
+
+
+def temporal_shift(x: torch.Tensor, n_segment: int, fold_div: int = 8,
+                   reverse: bool = False) -> torch.Tensor:
+    """Shift a flat (B·T, H, W, C) batch (Sᵀ when ``reverse``) through the
+    op ``wd::temporal_shift``: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor; any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"temporal_shift: unsupported device {x.device}")
+    if cpu_autograd(x):
+        return temporal_shift_plain(x, n_segment, fold_div, reverse)
+    return _shift_op(x, n_segment, fold_div, reverse)
 
 
 temporal_shift.launches = 0

@@ -26,6 +26,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from workoutdetector_tpu_torch.ops.kernels import _build
+from workoutdetector_tpu_torch.ops.kernels.library import (count_launch,
+                                                          cpu_autograd,
+                                                          kernel_op)
 from workoutdetector_tpu_torch.ops.temporal_shift import shift_folds
 
 ROWS = 64           # rows of a warpgroup's tile (a row tile)
@@ -102,11 +105,46 @@ def shift_matmul_plain(x: torch.Tensor, w: torch.Tensor, n_segment: int,
     return (shifted.float() @ w.to(x.dtype).float()).to(x.dtype)
 
 
+def _shift_matmul_fake(x: torch.Tensor, w: torch.Tensor, n_segment: int,
+                       fold_div: int) -> torch.Tensor:
+    return x.new_empty((*x.shape[:-1], w.shape[1]))
+
+
+@kernel_op("shift_matmul", shift_matmul_plain, _shift_matmul_fake)
+def _shift_matmul_op(x: torch.Tensor, w: torch.Tensor, n_segment: int,
+                     fold_div: int) -> torch.Tensor:
+    """``wd::shift_matmul`` on CUDA: check the operands, then launch."""
+    _check(x, w, n_segment, fold_div)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("shift_matmul kernel needs 16-byte aligned x and w")
+    bt, h, wd, c = x.shape
+    o = w.shape[1]
+    y = torch.empty((bt, h, wd, o), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    lib.check(lib.lib.wd_shift_matmul_bf16(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), bt * h * wd, h * wd,
+        n_segment, c, o, c // fold_div, x.device.index or 0,
+        _build.stream_handle(x.device)), "shift_matmul")
+    count_launch(shift_matmul)
+    return y
+
+
 def shift_matmul(x: torch.Tensor, w: torch.Tensor, n_segment: int,
                  fold_div: int = 8) -> torch.Tensor:
-    """The kernel for a CUDA tensor (bf16), the plain version for a CPU one."""
-    if x.device.type == "cpu":
+    """y = shift(x) @ w through the op ``wd::shift_matmul``: the kernel for
+    a CUDA tensor (bf16), the plain version for a CPU one; any other
+    device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"shift_matmul: unsupported device {x.device}")
+    if cpu_autograd(x, w):
         return shift_matmul_plain(x, w, n_segment, fold_div)
+    return _shift_matmul_op(x, w, n_segment, fold_div)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, n_segment: int,
+           fold_div: int) -> None:
+    """Refuse what the kernel does not take: devices, dtypes, shapes and
+    layout."""
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"shift_matmul: x on {x.device}, w on {w.device}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
@@ -120,18 +158,8 @@ def shift_matmul(x: torch.Tensor, w: torch.Tensor, n_segment: int,
             f"shift_matmul kernel: x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"T={n_segment}, fold={fold}: needs C % 8 == 0, O % 16 == 0, "
             "fold % 8 == 0, 2·fold ≤ C, B·T % T == 0")
-    if not (x.is_contiguous() and w.is_contiguous()) or \
-            x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("shift_matmul kernel needs contiguous, 16-byte "
-                         "aligned x and w")
-    y = torch.empty((bt, h, wd, o), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    lib.check(lib.lib.wd_shift_matmul_bf16(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), bt * h * wd, h * wd,
-        n_segment, c, o, fold, x.device.index or 0,
-        _build.stream_handle(x.device)), "shift_matmul")
-    shift_matmul.launches += 1
-    return y
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("shift_matmul kernel needs contiguous x and w")
 
 
 shift_matmul.launches = 0

@@ -1,0 +1,86 @@
+"""Export CLI: a port checkpoint, a reference PyTorch TSM checkpoint or a
+fresh init → a deployable ``.pt2`` artifact (``utils/export.py``).
+
+Port of ``workoutdetector_tpu/scripts/export_model.py``:
+
+    python -m workoutdetector_tpu_torch.scripts.export_model \\
+        --cfg workoutdetector_tpu/configs/repcount_12_tsm.yaml \\
+        --checkpoint runs/ckpt/best -o model.pt2 [--batch 16] \\
+        [--torch-ckpt tsm_sthv2.pth] [--cpu]
+
+The artifact is exported for the card (its graph launches the hand
+kernels), or with ``--cpu`` for the CPU; ``InferenceEngine.from_exported``
+and ``engine_from_checkpoint`` load it where this package is importable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="Export model for deployment")
+    parser.add_argument("--cfg", default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="port checkpoint file (CheckpointManager)")
+    parser.add_argument("--torch-ckpt", default=None,
+                        help="reference PyTorch TSM .pth to port instead")
+    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("--batch", type=int, default=16,
+                        help="window batch the artifact is exported for")
+    parser.add_argument("--cpu", action="store_true",
+                        help="export for the CPU (the kernels' plain versions)")
+    parser.add_argument("opts", nargs="*")
+    args = parser.parse_args(argv)
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.device import resolve_device
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  init_flax_variables,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.utils.export import export_model
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg = load_config(args.cfg, args.opts)
+    model_type = cfg.model.model_type.lower()
+    if args.torch_ckpt and model_type != "tsm":
+        raise NotImplementedError(
+            f"--torch-ckpt for model_type {cfg.model.model_type!r}: only the "
+            "TSM map is in the PyTorch port (port_tdn_checkpoint and the "
+            "others: ROADMAP §1 item 6)")
+    model = build_model(cfg.model)
+    if args.checkpoint:
+        from workoutdetector_tpu_torch.train.checkpoint import \
+            CheckpointManager
+        mgr = CheckpointManager(os.path.dirname(args.checkpoint) or ".")
+        restored = mgr.restore_variables(args.checkpoint)
+        model.load_state_dict({**restored["params"],
+                               **restored["batch_stats"]})
+    else:
+        variables = init_flax_variables(model, seed=cfg.seed)
+        if args.torch_ckpt:
+            from workoutdetector_tpu_torch.models.convert import (
+                load_torch_checkpoint, merge_into, port_tsm_checkpoint)
+            tree = port_tsm_checkpoint(load_torch_checkpoint(args.torch_ckpt),
+                                       num_class=cfg.model.num_class,
+                                       target_params=variables["params"])
+            variables = {"params": tree["params"],
+                         "batch_stats": merge_into(variables["batch_stats"],
+                                                   tree["batch_stats"])}
+        load_flax_variables(model, variables)
+
+    # TimeSformer's patch grid is fixed by model.image_size; the others
+    # take the data pipeline's crop
+    size = cfg.model.image_size if model_type == "timesformer" \
+        else cfg.data.image_size
+    shape = (args.batch, cfg.model.num_segments, size, size, 3)
+    path = export_model(model, args.output, input_shape=shape, device=device,
+                        meta={"model_type": cfg.model.model_type,
+                              "num_class": cfg.model.num_class,
+                              "checkpoint": args.checkpoint or args.torch_ckpt})
+    print(f"exported to {path} (+ {path}.json)")
+
+
+if __name__ == "__main__":
+    main()
