@@ -148,10 +148,31 @@ not printed; no CUDA device → exit 2):
      38 windows (16 for TimeSformer), clips/s of both; and a server over
      the TSM artifact, whose POST /video payload must be the live
      server's;
- 12. one JSON line of per-kernel numbers (and the sweep's, the file
-     training's and the serving phase's numbers), the card line again,
-     the script's wall time, and the contract line ``{"ok": true,
-     "device": {...}}`` last.
+ 12. TPN-R50 (``workoutdetector_tpu/configs/tpn.yaml``: TSM-R50 backbone
+     tapped at stages 3 and 4, the pyramid neck 1024 → 2048, 12 classes,
+     bf16), random numpy-seeded flax weights: ``score_video`` and
+     ``count_by_video_model`` on the phase-4 video (6 fused-bottleneck and
+     10 shift-matmul launches a forward), the logits by phase 4's rule
+     against the fp32 plain model, phase 4's count check; a ``.pt2``
+     export on the card, its launches and logits equal to the live
+     engine's; 4 train steps at batch 32 on a DebugDataset batch with the
+     yaml's optimizer (nesterov SGD, multistep, clip 20, partial BN, aux
+     weight 0.5): 16 shift-matmul, 33 dx and 33 dW launches a step, finite
+     losses with the aux head's term in them, train clips/s and one
+     profiled step (device busy time); ``grad_check`` with the aux loss
+     and its two planted faults;
+ 13. TDN-R50 (``workoutdetector_tpu/configs/tdn.yaml``: 8 segments of
+     5-frame bursts, 12 classes, bf16), random numpy-seeded flax weights:
+     ``score_windows`` of a rank-6 engine on 16 burst windows cut from the
+     phase-4 video (no hand-kernel launch: TDN has none), the logits by
+     phase 4's rule against the fp32 model, ``score_video`` refused; a
+     rank-6 ``.pt2`` export on the card whose logits equal the live
+     engine's; 6 train steps at batch 16 from ``TDNDataset`` over phase
+     10's rawframe corpus (written anew), finite losses, train clips/s;
+ 14. one JSON line of per-kernel numbers (and the sweep's, the file
+     training's, the serving phase's, TPN's and TDN's numbers), the card
+     line again, the script's wall time, and the contract line
+     ``{"ok": true, "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -720,7 +741,7 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
 
     from workoutdetector_tpu_torch.config import Config
     from workoutdetector_tpu_torch.models import build_model, load_flax_variables
-    from workoutdetector_tpu_torch.train.trainer import Trainer, cross_entropy
+    from workoutdetector_tpu_torch.train.trainer import Trainer
 
     # 4 train batches (tail dropped) and 5 val batches, the last one 8 real
     # clips and 24 pad rows
@@ -762,20 +783,8 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
         del trainer, state
         torch.cuda.empty_cache()
 
-    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
-
-    def drop_shift(real):  # the wrapper without its shift arguments
-        def fault(a, b, *shift):
-            return real(a, b)
-        fault.launches = 0  # the real wrapper counts on its module's name
-        return fault
-
-    # ShiftConv1x1.backward calls the module's wrappers, so swapping one for
-    # a version that drops the shift miswires all 16 sites
-    grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
-               cfg, variables, TRAIN_BATCH,
-               {"dx without S^T": (c1, "conv1x1_dx", drop_shift),
-                "dW over unshifted x": (c1, "conv1x1_dw", drop_shift)})
+    grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
+               TRAIN_BATCH, shift_faults())
 
     def two_steps():
         c = train_config(Config, 2, 2 * TRAIN_BATCH, "unused")
@@ -814,11 +823,30 @@ def train_phase(np, torch, kernels, variables, repo: Path, card: str):
     return launches, launches["shift_matmul"] - 10 * val_forwards, clips_s
 
 
-def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
-               cfg, variables, batch: int, faults: dict) -> None:
+def shift_faults() -> dict:
+    """grad_check's planted faults of the shifted conv's backward:
+    ShiftConv1x1.backward calls the conv1x1 module's wrappers, so swapping
+    one for a version that drops the shift arguments miswires every
+    shifted site (Sᵀ left out of dx; dW over x, not shift(x))."""
+    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
+
+    def drop_shift(real):  # the wrapper without its shift arguments
+        def fault(a, b, *shift):
+            return real(a, b)
+        fault.launches = 0  # the real wrapper counts on its module's name
+        return fault
+
+    return {"dx without S^T": (c1, "conv1x1_dx", drop_shift),
+            "dW over unshifted x": (c1, "conv1x1_dw", drop_shift)}
+
+
+def grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
+               batch: int, faults: dict) -> None:
     """One batch's gradients of the main path (bf16, kernels) against the
     port's plain path in fp32 on the card, per leaf, with the bf16 plain
-    path's own error beside; the three runs draw the same dropout and
+    path's own error beside; the loss is the train step's (``train_loss``:
+    with the aux head's term where the model has one, at the config's
+    weight); the three runs draw the same dropout and
     drop-path masks (one generator seed, masks drawn in fp32). The batch
     is numpy-seeded noise, different in every frame (a DebugDataset clip
     repeats one colour, so a fault in a temporal direction would barely
@@ -826,6 +854,7 @@ def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
     catch: ``faults`` maps a label to (module, attribute, make), and the
     attribute is replaced by ``make(real)`` for that run."""
     from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
+    from workoutdetector_tpu_torch.train.trainer import train_loss
 
     rng = np.random.default_rng(5)
     x = normalize_clip(torch.from_numpy(rng.integers(
@@ -839,7 +868,8 @@ def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
         load_flax_variables(model, variables)
         model.train()
         g = torch.Generator(device="cuda").manual_seed(7)
-        loss = cross_entropy(model(x, dropout_generator=g), yt).mean()
+        loss, _ = train_loss(model(x, dropout_generator=g), yt,
+                             c.model.aux_loss_weight)
         loss.backward()
         out = {n: p.grad.float().clone() for n, p in model.named_parameters()}
         del model, loss
@@ -895,8 +925,8 @@ def grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
 def profile_call(torch, fn, top: int = 10):
     """One call under torch.profiler: device time by kernel (copies
     included), hand kernels apart, and the device's idle share of the span
-    from its first to its last recorded activity, which it returns (None
-    when the profiler recorded no device time)."""
+    from its first to its last recorded activity. Returns (idle share,
+    busy ms), both None when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -921,7 +951,7 @@ def profile_call(torch, fn, top: int = 10):
         ends.append(e.time_range.end)
     if not by_name:
         log("    profiler: no device time recorded")
-        return None
+        return None, None
     wall_ms = (max(ends) - min(starts)) / 1e3
     device_ms = sum(by_name.values())
     hand = {k: v for k, v in by_name.items()
@@ -935,7 +965,7 @@ def profile_call(torch, fn, top: int = 10):
             f"{n[:40]} {ms:.3f} ms" for n, ms in sorted(skipped.items())))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"      {ms:9.3f} ms {calls[name]:4d}x  {name[:160]}")
-    return max(0.0, 1 - device_ms / wall_ms)
+    return max(0.0, 1 - device_ms / wall_ms), device_ms
 
 
 def timesformer_phase(np, torch, kernels, video, card: str):
@@ -1025,7 +1055,7 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
 
     from workoutdetector_tpu_torch.models import build_model, load_flax_variables
     from workoutdetector_tpu_torch.models.convert import random_flax_variables
-    from workoutdetector_tpu_torch.train.trainer import Trainer, cross_entropy
+    from workoutdetector_tpu_torch.train.trainer import Trainer
 
     # 4 train batches (tail dropped) and 5 val batches, the last one 8 real
     # clips and 8 pad rows; the weights from the port's flax initializers
@@ -1080,7 +1110,7 @@ def timesformer_train_phase(np, torch, kernels, repo: Path, card: str):
     # the module (the package's name ``attention`` is its wrapper function)
     ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
 
-    grad_check(np, torch, build_model, load_flax_variables, cross_entropy,
+    grad_check(np, torch, build_model, load_flax_variables,
                cfg, variables, TS_TRAIN_BATCH,
                {"dO of the neighbouring head":
                 (ka, "attention_bwd", neighbour_head)})
@@ -1963,7 +1993,7 @@ def files_phase(np, torch, kernels, repo: Path, card: str,
             for _ in range(3):
                 trainer.train_step(state, *next(batches))
 
-        idle = profile_call(torch, three_steps, top=8)
+        idle, _ = profile_call(torch, three_steps, top=8)
         batches.close()
         del trainer, state, loader
         torch.cuda.empty_cache()
@@ -2480,6 +2510,337 @@ def serve_phase(np, torch, kernels, repo: Path, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 12
+# TPN-R50 (tpn.yaml): its backbone is TSM-R50's, so a forward runs TSM's 6
+# fused-bottleneck and 10 shift-matmul launches and a train step its 16
+# shift-matmul, 33 dx and 33 dW launches; the neck (3-D convs) and TDN
+# (phase 13) run cuDNN and cuBLAS only.
+TPN_YAML = "workoutdetector_tpu/configs/tpn.yaml"
+TDN_YAML = "workoutdetector_tpu/configs/tdn.yaml"
+TPN_TRAIN_STEPS = 4
+TDN_TRAIN_STEPS = 6
+TDN_BATCH = 16  # tdn.yaml's batch
+BURST = 5  # TDN's frames per segment
+
+
+def tpn_phase(np, torch, kernels, video, repo: Path, card: str) -> dict:
+    """Phase 12: TPN-R50 inference, training and export on the card.
+    Returns the phase's numbers."""
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data.datasets import DebugDataset
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 count_by_video_model)
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
+    from workoutdetector_tpu_torch.train.trainer import (Trainer,
+                                                         cross_entropy,
+                                                         train_loss)
+    from workoutdetector_tpu_torch.utils.export import export_model
+
+    phase_t0 = time.perf_counter()
+    cfg = load_config(str(repo / TPN_YAML))
+    if (cfg.model.model_type, cfg.model.base_model, cfg.model.dtype,
+            cfg.model.num_class, cfg.data.batch_size) != \
+            ("tpn", "resnet50", "bfloat16", NUM_CLASS, TRAIN_BATCH):
+        raise AssertionError(f"{TPN_YAML} is not the TPN-R50 this phase "
+                             "drives")
+    model = build_model(cfg.model)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    engine = InferenceEngine(model, FRAMES, WINDOW_BATCH, device="cuda")
+    engine.score_video(video[:24], step=8, stride=2)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    starts, logits = engine.score_video(video, step=8, stride=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    count, reps = count_by_video_model(engine, video)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    forwards = math.ceil(len(starts) / WINDOW_BATCH) + \
+        math.ceil((len(video) // 8) / WINDOW_BATCH)
+    log(f"    windows={len(starts)} forwards={forwards} launches={launches}")
+    want = {name: 0 for name in launches}
+    want.update(shift_matmul=10 * forwards, fused_bottleneck=6 * forwards)
+    if launches != want:
+        raise AssertionError(f"TPN launch counts {launches} != {want}")
+    if logits.shape != (len(starts), NUM_CLASS) or not np.isfinite(logits).all():
+        raise AssertionError(f"bad TPN logits: shape {logits.shape}")
+    clips_per_s = len(starts) / seconds
+    log(f"    score_video: {len(starts)} windows in {seconds:.4f} s = "
+        f"{clips_per_s:.2f} clips/s on {card}")
+    log(f"    count_by_video_model: count={count} reps={reps}")
+    ref_cfg = cfg.model.clone()
+    ref_cfg.dtype = "float32"
+    ref_model = build_model(ref_cfg, use_kernels=False)
+    load_flax_variables(ref_model, variables)
+    ref_engine = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH,
+                                 device="cuda")
+    _, ref = ref_engine.score_video(video, step=8, stride=2)
+    logit_rule(np, logits, ref, "TPN-R50")
+    count_check(np, torch, engine, ref_engine, video, "TPN-R50")
+    del ref_model, ref_engine
+    torch.cuda.empty_cache()
+
+    # export: the artifact launches the live engine's kernels, scores as it
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-tpn-", dir=repo))
+    try:
+        t0 = time.perf_counter()
+        path = export_model(model, str(tmp / "tpn"),
+                            (WINDOW_BATCH, FRAMES, SIZE, SIZE, 3),
+                            device="cuda")
+        export_s = time.perf_counter() - t0
+        art = InferenceEngine.from_exported(path, device="cuda")
+        batch = engine.gather_windows(video, starts, stride=2)
+        scored, counts = [], []
+        for e in (engine, art):
+            e.score_windows(batch)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            scored.append(e.score_windows(batch))
+            torch.cuda.synchronize()
+            counts.append({k: v for k, v in kernels.launch_counts().items()
+                           if v})
+        art_err = float(np.abs(scored[1] - scored[0]).max())
+        same = bool((scored[1].argmax(1) == scored[0].argmax(1)).all())
+        n_fwd = math.ceil(len(batch) / WINDOW_BATCH)
+        log(f"    export: {export_s:.2f} s, "
+            f"{Path(path).stat().st_size / 2**20:.1f} MB; launches live "
+            f"{counts[0]}, artifact {counts[1]} on {len(batch)} windows; max "
+            f"|logit diff| vs the live engine {art_err:.6f}, argmax equal "
+            f"{same}")
+        if counts[0] != counts[1] or counts[1] != {
+                "shift_matmul": 10 * n_fwd, "fused_bottleneck": 6 * n_fwd}:
+            raise AssertionError(f"TPN artifact launches {counts}")
+        logit_rule(np, scored[1], scored[0], "TPN artifact vs the live engine")
+        if not same:
+            raise AssertionError("the TPN artifact changed an argmax")
+        del art
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # training: tpn.yaml's optimizer at batch 32 on one DebugDataset batch
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=10, variables=variables)
+    ds = DebugDataset(NUM_CLASS, FRAMES, TRAIN_BATCH, SIZE)
+    x_u8 = np.stack([ds[i][0] for i in range(TRAIN_BATCH)])
+    y = np.array([ds[i][1] for i in range(TRAIN_BATCH)])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses = [float(trainer.train_step(state, x_u8, y)["loss"])
+              for _ in range(TPN_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_launches = kernels.launch_counts()
+    want = {name: 0 for name in train_launches}
+    want.update(conv1x1_dx=33 * TPN_TRAIN_STEPS,
+                conv1x1_dw=33 * TPN_TRAIN_STEPS,
+                shift_matmul=16 * TPN_TRAIN_STEPS)
+    log(f"    {TPN_TRAIN_STEPS} train steps: losses "
+        f"{[round(v, 4) for v in losses]}, launches={train_launches}")
+    if train_launches != want:
+        raise AssertionError(f"TPN training launches {train_launches} != "
+                             f"{want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("TPN training gave a non-finite loss")
+    model = state.model
+    with torch.no_grad():  # the aux term: the step's loss less the main CE
+        x = normalize_clip(torch.from_numpy(x_u8).cuda())
+        yt = torch.from_numpy(y).cuda()
+        out = model(x, dropout_generator=trainer.dropout_generator(0))
+        total, main_logits = train_loss(out, yt, cfg.model.aux_loss_weight)
+        aux_term = float(total - cross_entropy(main_logits, yt).mean())
+    log(f"    train-mode forward: (logits, aux logits) "
+        f"{isinstance(out, tuple)}; loss {float(total):.4f} of which the aux "
+        f"term {aux_term:.4f} (weight {cfg.model.aux_loss_weight})")
+    if not isinstance(out, tuple) or not aux_term > 0 or \
+            not math.isfinite(float(total)):
+        raise AssertionError("the TPN loss lacks a finite aux term")
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.train_step(state, x_u8, y)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    train_clips_s = TRAIN_BATCH / step_s
+    log(f"    train step {step_s * 1e3:.2f} ms = {train_clips_s:.2f} clips/s "
+        f"at batch {TRAIN_BATCH} on {card}")
+    idle, busy = profile_call(
+        torch, lambda: trainer.train_step(state, x_u8, y), top=12)
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
+               TRAIN_BATCH, shift_faults())
+    log(f"    phase [12]: {time.perf_counter() - phase_t0:.1f} s")
+    return {"clips_per_s": clips_per_s, "train_clips_per_s": train_clips_s,
+            "train_step_ms": step_s * 1e3, "train_step_busy_ms": busy,
+            "train_step_idle_share": idle, "count": count,
+            "export_s": export_s, "artifact_max_abs_diff": art_err,
+            "forward_launches": {"shift_matmul": 10, "fused_bottleneck": 6},
+            "step_launches": {"shift_matmul": 16, "conv1x1_dx": 33,
+                              "conv1x1_dw": 33}}
+
+
+def burst_windows(np, video, n: int):
+    """n rank-6 TDN windows (n, 8, 5, H, W, 3) cut from a decoded video:
+    window k is the 40 consecutive frames from 16·k, as 8 bursts of 5."""
+    return np.stack([video[16 * k:16 * k + FRAMES * BURST]
+                     .reshape(FRAMES, BURST, *video.shape[1:])
+                     for k in range(n)])
+
+
+def tdn_phase(np, torch, kernels, video, repo: Path, card: str) -> dict:
+    """Phase 13: TDN-R50 inference, export and training from TDNDataset
+    on the card. Returns the phase's numbers."""
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data import datasets
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    from workoutdetector_tpu_torch.utils.export import export_model
+
+    phase_t0 = time.perf_counter()
+    cfg = load_config(str(repo / TDN_YAML))
+    if (cfg.model.model_type, cfg.model.base_model, cfg.model.dtype,
+            cfg.model.num_class, cfg.data.batch_size) != \
+            ("tdn", "resnet50", "bfloat16", NUM_CLASS, TDN_BATCH):
+        raise AssertionError(f"{TDN_YAML} is not the TDN-R50 this phase "
+                             "drives")
+    model = build_model(cfg.model)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    engine = InferenceEngine(model, FRAMES, WINDOW_BATCH, device="cuda",
+                             input_rank=6)
+    windows = burst_windows(np, video, WINDOW_BATCH)
+    engine.score_windows(windows)  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits = engine.score_windows(windows)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    clips_per_s = len(windows) / seconds
+    log(f"    score_windows: {len(windows)} burst windows "
+        f"{windows.shape[1:]} in {seconds:.4f} s = {clips_per_s:.2f} clips/s "
+        f"on {card}; launches={launches}")
+    if any(launches.values()):
+        raise AssertionError(f"TDN launched hand kernels: {launches}")
+    if logits.shape != (len(windows), NUM_CLASS) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"bad TDN logits: shape {logits.shape}")
+    try:
+        engine.score_video(video)
+    except ValueError as exc:
+        log(f"    score_video on the rank-6 engine: ValueError ({exc})")
+    else:
+        raise AssertionError("a rank-6 engine scored a video")
+    ref_cfg = cfg.model.clone()
+    ref_cfg.dtype = "float32"
+    ref_model = build_model(ref_cfg, use_kernels=False)
+    load_flax_variables(ref_model, variables)
+    ref = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH, device="cuda",
+                          input_rank=6).score_windows(windows)
+    logit_rule(np, logits, ref, "TDN-R50")
+    del ref_model
+    torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-tdn-", dir=repo))
+    try:
+        t0 = time.perf_counter()
+        path = export_model(model, str(tmp / "tdn"),
+                            (WINDOW_BATCH, FRAMES, BURST, SIZE, SIZE, 3),
+                            device="cuda")
+        export_s = time.perf_counter() - t0
+        art = InferenceEngine.from_exported(path, device="cuda")
+        art.score_windows(windows)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        art_logits = art.score_windows(windows)
+        torch.cuda.synchronize()
+        art_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        art_err = float(np.abs(art_logits - logits).max())
+        same = bool((art_logits.argmax(1) == logits.argmax(1)).all())
+        log(f"    export: {export_s:.2f} s, "
+            f"{Path(path).stat().st_size / 2**20:.1f} MB, input rank "
+            f"{art.input_rank}; launches {art_launches}; max |logit diff| vs "
+            f"the live engine {art_err:.6f}, argmax equal {same}")
+        if art.input_rank != 6 or art_launches:
+            raise AssertionError("the TDN artifact is not a rank-6 graph of "
+                                 "plain ops")
+        logit_rule(np, art_logits, logits, "TDN artifact vs the live engine")
+        if not same:
+            raise AssertionError("the TDN artifact changed an argmax")
+        del art, engine, model
+        torch.cuda.empty_cache()
+
+        # training from TDNDataset bursts over phase 10's rawframe corpus
+        t0 = time.perf_counter()
+        corpus = tmp / "corpus"
+        videos, jpegs = write_file_corpus(np, corpus)
+        binary = corpus / "Binary"
+        log(f"    corpus: {videos} videos, {jpegs} JPEGs in "
+            f"{time.perf_counter() - t0:.2f} s")
+        tcfg = load_config(str(repo / TDN_YAML), [
+            f"data.data_root={corpus}",
+            f"data.train.anno={binary / 'all-train.txt'}",
+            f"data.val.anno={binary / 'all-val.txt'}",
+            f"data.test.anno={binary / 'all-val.txt'}",
+            f"trainer.default_root_dir={tmp / 'runs'}",
+            "log.tensorboard_enable=false"])
+        trainer = Trainer(tcfg, device="cuda")
+        loader = trainer._loader("train", shuffle=True)
+        if type(loader.dataset) is not datasets.TDNDataset:
+            raise AssertionError("tdn.yaml did not build a TDNDataset")
+        state = trainer.init_state(len(loader), variables)
+        loader.set_epoch(0)
+        batches = iter(loader)
+        kernels.reset_launches()
+        losses, shapes = [], set()
+        t0 = t1 = time.perf_counter()
+        for step in range(TDN_TRAIN_STEPS):
+            x_u8, y = next(batches)
+            shapes.add(x_u8.shape)
+            losses.append(float(trainer.train_step(state, x_u8, y)["loss"]))
+            if step == 0:
+                t1 = time.perf_counter()  # the rest: steady loader and steps
+        torch.cuda.synchronize()
+        batches.close()
+        train_s = time.perf_counter() - t1
+        train_clips_s = (TDN_TRAIN_STEPS - 1) * TDN_BATCH / train_s
+        train_launches = {k: v for k, v in kernels.launch_counts().items()
+                          if v}
+        log(f"    {TDN_TRAIN_STEPS} train steps from TDNDataset "
+            f"(batches {sorted(shapes)}, {datasets.decoder_path(loader.dataset.transform)}) "
+            f"in {time.perf_counter() - t0:.2f} s: losses "
+            f"{[round(v, 4) for v in losses]}; launches {train_launches}; "
+            f"steps 2-{TDN_TRAIN_STEPS} {train_clips_s:.2f} clips/s at batch "
+            f"{TDN_BATCH} on {card}")
+        if shapes != {(TDN_BATCH, FRAMES * BURST, SIZE, SIZE, 3)} or \
+                not np.isfinite(losses).all() or train_launches:
+            raise AssertionError("TDN training from TDNDataset failed")
+        del trainer, state, loader
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"    phase [13]: {time.perf_counter() - phase_t0:.1f} s")
+    return {"clips_per_s": clips_per_s, "train_clips_per_s": train_clips_s,
+            "losses": losses, "export_s": export_s,
+            "artifact_max_abs_diff": art_err, "launches": 0}
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -2625,6 +2986,18 @@ def main() -> int:
         f"{WINDOW_BATCH}; .pt2 artifacts of TSM-R50 and TimeSformer-B/16")
     serve = serve_phase(np, torch, kernels, repo, card)
 
+    torch.cuda.empty_cache()
+    log(f"[12] TPN-R50 {SIZE} ({TPN_YAML}), bf16: window_batch {WINDOW_BATCH} "
+        f"inference, {TPN_TRAIN_STEPS} train steps at batch {TRAIN_BATCH}, "
+        f"export")
+    tpn = tpn_phase(np, torch, kernels, video, repo, card)
+
+    torch.cuda.empty_cache()
+    log(f"[13] TDN-R50 {SIZE} ({TDN_YAML}), bf16: {WINDOW_BATCH} burst windows, "
+        f"export, {TDN_TRAIN_STEPS} train steps at batch {TDN_BATCH} from "
+        f"TDNDataset")
+    tdn = tdn_phase(np, torch, kernels, video, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -2684,7 +3057,7 @@ def main() -> int:
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
                     "sweep": sweep, "files": files, "serve": serve,
-                    "card": card}))
+                    "tpn": tpn, "tdn": tdn, "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

@@ -889,3 +889,43 @@ def test_cuda_artifacts_launch_the_live_engines_kernels(cuda_device, tmp_path):
                 ref = got
         assert counts[0] == counts[1] == want
         _close(torch.from_numpy(got), torch.from_numpy(ref))
+
+
+@pytest.mark.cuda
+def test_cuda_tpn_launches_and_logits_vs_plain(cuda_device):
+    """TPN-R50 at 64 px (bf16) launches TSM-R50's kernels, 6 fused and 10
+    shift-matmul a forward, and 16 shift-matmul, 33 dx and 33 dW a train
+    step; its logits keep the plain fp32 model's argmax within the logit
+    rule of chip_smoke.py (0.05 · (1 + max|logit|))."""
+    from workoutdetector_tpu_torch.models import TPN, load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import train_loss
+
+    model = TPN(4, 8, "resnet50", dtype=torch.bfloat16)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    ref = TPN(4, 8, "resnet50", use_kernels=False)
+    load_flax_variables(ref, variables)
+    model, ref = model.to(cuda_device), ref.to(cuda_device)
+    x = torch.randn(2, 8, 64, 64, 3, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda_device)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got, want = model(x), ref(x)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"shift_matmul": 10, "fused_bottleneck": 6}
+    err = (got - want).abs().max()
+    assert torch.isfinite(got).all() and err <= 0.05 * (1 + want.abs().max())
+    margin = want.topk(2, dim=1).values
+    decided = (margin[:, 0] - margin[:, 1]) > 2 * err
+    assert (got.argmax(1) == want.argmax(1))[decided].all()
+
+    model.train()
+    kernels.reset_launches()
+    out = model(x, dropout_generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    loss, _ = train_loss(out, torch.tensor([0, 3], device=cuda_device), 0.5)
+    loss.backward()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"shift_matmul": 16, "conv1x1_dx": 33, "conv1x1_dw": 33}
+    assert torch.isfinite(loss)

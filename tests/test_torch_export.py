@@ -370,8 +370,3 @@ def test_export_cli_ports_a_reference_checkpoint(r18, r18_pt2, tmp_path,
                                         "cpu").score_windows(x)
     want = InferenceEngine.from_exported(r18_pt2, "cpu").score_windows(x)
     np.testing.assert_array_equal(got, want)
-    bad = ["--cfg", os.path.join(REPO, "workoutdetector_tpu/configs/tdn.yaml"),
-           "--torch-ckpt", path, "--cpu", "-o", str(tmp_path / "t")]
-    if os.path.exists(bad[1]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            export_cli.main(bad)

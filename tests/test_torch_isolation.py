@@ -38,6 +38,20 @@ ts_engine = InferenceEngine(ts, num_segments=4, window_batch=2, device="cpu")
 assert ts_engine.model.fold_temporal_fc
 starts, logits = ts_engine.score_video(video, step=4, stride=1)
 assert logits.shape == (4, 3) and np.isfinite(logits).all()
+from workoutdetector_tpu_torch.models import TDN, TPN
+tdn = TDN(3, 4)
+load_flax_variables(tdn, random_flax_variables(tdn, seed=0))
+tdn_engine = InferenceEngine(tdn, num_segments=4, window_batch=2,
+                             device="cpu", input_rank=6)
+bursts = np.random.default_rng(1).integers(0, 256, (3, 4, 5, 32, 32, 3),
+                                           np.uint8)
+logits = tdn_engine.score_windows(bursts)
+assert logits.shape == (3, 3) and np.isfinite(logits).all()
+tpn = TPN(3, 4, "resnet18")
+load_flax_variables(tpn, random_flax_variables(tpn, seed=0))
+tpn_engine = InferenceEngine(tpn, num_segments=4, window_batch=2, device="cpu")
+starts, logits = tpn_engine.score_video(video, step=4, stride=1)
+assert logits.shape == (4, 3) and np.isfinite(logits).all()
 import json, os, tempfile
 import workoutdetector_tpu_torch.settings
 import workoutdetector_tpu_torch.data.video
@@ -144,6 +158,25 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(Config())
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("model_type,base,rank", [("tdn", "resnet50", 6),
+                                                  ("tpn", "resnet18", 5)])
+def test_engine_from_checkpoint_raises_without_cuda(model_type, base, rank):
+    """TDN's rank-6 engine and TPN's ask for the card by default, and raise
+    without one unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.infer import engine_from_checkpoint
+    cfg = Config()
+    cfg.model.model_type, cfg.model.base_model = model_type, base
+    cfg.model.num_segments, cfg.model.num_class = 4, 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_from_checkpoint(cfg, None, input_rank=rank)
+    eng = engine_from_checkpoint(cfg, None, image_size=32, window_batch=1,
+                                 input_rank=rank, device="cpu")
+    assert eng.input_rank == rank and eng.device.type == "cpu"
 
 
 def test_kernel_modules_import_without_toolchain():

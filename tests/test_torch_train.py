@@ -276,8 +276,8 @@ def test_repo_yamls_load_and_file_datasets_build():
     """Every YAML of the repo loads into the same config as the JAX
     package's load_config gives. The flagship's FrameDataset is built as
     the JAX build_dataset builds it: a missing list raises the same
-    AssertionError; TDNDataset and a test split's person crop are refused,
-    naming ROADMAP item 6."""
+    AssertionError, for TDNDataset too; SyntheticPeriodic and a test
+    split's person crop are refused, naming ROADMAP item 6."""
     configs = os.path.join(REPO, "workoutdetector_tpu", "configs")
     for name in sorted(os.listdir(configs)):
         if name.endswith(".yaml"):
@@ -296,10 +296,18 @@ def test_repo_yamls_load_and_file_datasets_build():
     with pytest.raises(AssertionError) as want:
         j_build_dataset(jcfg.data, "train")
     assert str(got.value) == str(want.value) == f"{missing} is not a file"
-    tdn = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
-                      ["data.dataset_type=TDNDataset"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    tdn = load_config(os.path.join(configs, "tdn.yaml"))
+    jtdn = j_load_config(os.path.join(configs, "tdn.yaml"))
+    tdn.data.train.anno = jtdn.data.train.anno = missing
+    with pytest.raises(AssertionError) as got:
         build_dataset(tdn.data, "train")
+    with pytest.raises(AssertionError) as want:
+        j_build_dataset(jtdn.data, "train")
+    assert str(got.value) == str(want.value) == f"{missing} is not a file"
+    synth = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
+                        ["data.dataset_type=SyntheticPeriodic"])
+    with pytest.raises(NotImplementedError, match="RepNet.*item 6"):
+        build_dataset(synth.data, "train")
     crop = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
                        ["data.test.person_crop=true"])
     with pytest.raises(NotImplementedError, match="detector.*item 6"):

@@ -1,12 +1,12 @@
 """Data: sampling, transforms, the file datasets, the label lists and the
 loader, as the JAX package's ``data`` exports them where the port has
-them (TDNDataset with tdn_sample_indices, and Countix, come later: ROADMAP §1
-items 6 and 7)."""
+them (Countix comes later: ROADMAP §1 item 7)."""
 
 from workoutdetector_tpu_torch.data.datasets import (DebugDataset,
                                                      FrameDataset,
                                                      ImageDataset,
                                                      SuperImageDataset,
+                                                     TDNDataset,
                                                      build_dataset)
 from workoutdetector_tpu_torch.data.image_folder import ImageFolderDataset
 from workoutdetector_tpu_torch.data.repcount import (RepcountHelper,
@@ -15,12 +15,14 @@ from workoutdetector_tpu_torch.data.repcount import (RepcountHelper,
                                                      build_label_list)
 from workoutdetector_tpu_torch.data.repcount_datasets import (
     RepcountImageDataset, RepcountRecognitionDataset, RepcountVideoDataset)
-from workoutdetector_tpu_torch.data.sampling import sample_frames
+from workoutdetector_tpu_torch.data.sampling import (sample_frames,
+                                                     tdn_sample_indices)
 
 __all__ = [
-    "sample_frames", "RepcountHelper",
+    "sample_frames", "tdn_sample_indices", "RepcountHelper",
     "RepcountItem", "RepcountItemWithPred", "build_label_list",
-    "FrameDataset", "ImageDataset", "DebugDataset", "SuperImageDataset",
+    "FrameDataset", "TDNDataset", "ImageDataset", "DebugDataset",
+    "SuperImageDataset",
     "ImageFolderDataset", "RepcountImageDataset", "RepcountVideoDataset",
     "RepcountRecognitionDataset", "build_dataset"
 ]

@@ -1,9 +1,10 @@
 """Datasets producing fixed-shape uint8 numpy items for the device feed.
 
 The port's own copy of ``workoutdetector_tpu/data/datasets.py``
-(``read_image``, the rawframe lists, ``FrameDataset``, ``ImageDataset``,
-``SuperImageDataset``, ``DebugDataset``, ``build_dataset``). Items are
-``(uint8 (T, H, W, 3) clip, int label)``, ``__getitem__(idx, rng)``
+(``read_image``, the rawframe lists, ``FrameDataset``, ``TDNDataset``,
+``ImageDataset``, ``SuperImageDataset``, ``DebugDataset``,
+``build_dataset``). Items are ``(uint8 (T, H, W, 3) clip, int label)``
+(TDN's: (T·5, H, W, 3) bursts), ``__getitem__(idx, rng)``
 taking the loader's per-item generator; the normalize runs on the device.
 JPEGs decode through the native libjpeg reader where it loads and take
 cv2 where it does not (``data/jpeg.py``); cv2 is imported inside the
@@ -19,14 +20,14 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from workoutdetector_tpu_torch.data import jpeg as njpeg
-from workoutdetector_tpu_torch.data.sampling import sample_frames
+from workoutdetector_tpu_torch.data.sampling import (sample_frames,
+                                                     tdn_sample_indices)
 from workoutdetector_tpu_torch.data.transforms import (TestTransform,
                                                        build_transform,
                                                        resize_clip)
 
 # dataset_type → where the port will bring it (ROADMAP.md §1)
 LATER = {
-    "TDNDataset": "TDN, with its burst sampler (ROADMAP §1 item 6)",
     "SyntheticPeriodic": "the RepNet slice (ROADMAP §1 item 6)",
 }
 
@@ -147,6 +148,51 @@ class FrameDataset:
         return len(self.anno)
 
 
+class TDNDataset:
+    """TDN burst dataset over the same rawframe lists: ``num_segments``
+    burst starts (``tdn_sample_indices``), ``num_frames`` consecutive
+    frames each, clamped inside the annotated span. Items are
+    (num_segments · num_frames, H, W, C) uint8 clips and their labels."""
+
+    def __init__(self,
+                 data_root: str,
+                 anno_path: str,
+                 data_prefix: Optional[str] = None,
+                 num_segments: int = 8,
+                 num_frames: int = 5,
+                 filename_tmpl: str = "img_{:05}.jpg",
+                 transform: Optional[Callable] = None,
+                 anno_col: int = 4,
+                 is_test: bool = False) -> None:
+        _require_file(anno_path)
+        self.data_prefix = osp.join(data_root, data_prefix or "")
+        self.transform = transform
+        self.num_segments = num_segments
+        self.num_frames = num_frames
+        self.tmpl = filename_tmpl
+        self.anno = _load_rawframe_anno(anno_path, self.data_prefix, anno_col)
+        self.random = not is_test
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None
+                    ) -> Tuple[np.ndarray, int]:
+        if rng is None:
+            rng = np.random.default_rng()
+        info = self.anno[idx]
+        total = info["total_frames"]
+        starts = tdn_sample_indices(total, self.num_segments, self.num_frames,
+                                    rng, self.random) + info["start_index"]
+        last = info["start_index"] + total - 1
+        paths = [osp.join(info["frame_dir"],
+                          self.tmpl.format(min(int(i) + j, last)))
+                 for i in starts for j in range(self.num_frames)]
+        clip = _read_clip(paths, self.transform, rng)
+        assert clip.shape[0] == self.num_segments * self.num_frames
+        return clip, info["label"]
+
+    def __len__(self) -> int:
+        return len(self.anno)
+
+
 class ImageDataset:
     """``path label`` image lists. Items are (1, H, W, C) uint8 clips, so
     the transforms are the videos' ones."""
@@ -250,7 +296,7 @@ def build_dataset(cfg, split: str):
         raise NotImplementedError(
             f"dataset_type {cfg.dataset_type!r} ({split}) is not in the "
             f"PyTorch port yet: it comes with {LATER[cfg.dataset_type]}")
-    if cfg.dataset_type not in ("FrameDataset", "ImageDataset"):
+    if cfg.dataset_type not in ("FrameDataset", "TDNDataset", "ImageDataset"):
         raise KeyError(f"Dataset '{cfg.dataset_type}' is not supported.")
     is_test = split != "train"
     split_cfg = getattr(cfg, split)
@@ -273,6 +319,16 @@ def build_dataset(cfg, split: str):
                             transform=transform,
                             anno_col=cfg.anno_col,
                             is_test=is_test)
+    if cfg.dataset_type == "TDNDataset":
+        return TDNDataset(data_root=cfg.data_root,
+                          anno_path=split_cfg.anno,
+                          data_prefix=split_cfg.data_prefix,
+                          num_segments=cfg.num_segments,
+                          num_frames=cfg.num_frames,
+                          filename_tmpl=cfg.filename_tmpl,
+                          transform=transform,
+                          anno_col=cfg.anno_col,
+                          is_test=is_test)
     return ImageDataset(data_root=cfg.data_root,
                         data_prefix=split_cfg.data_prefix,
                         anno_path=split_cfg.anno,

@@ -1,10 +1,9 @@
 """Temporal frame sampling.
 
-The port's own copy of ``sample_frames`` from
+The port's own copy of ``sample_frames`` and ``tdn_sample_indices`` from
 ``workoutdetector_tpu/data/sampling.py``: uniform-interval segment
-sampling with per-segment jitter drawn from an explicit numpy Generator,
-so a data pipeline repeats per seed. (TDN's burst sampler,
-``tdn_sample_indices``, comes with TDN: ROADMAP §1 item 6.)
+sampling with per-segment jitter, and TDN's burst starts, drawn from an
+explicit numpy Generator, so a data pipeline repeats per seed.
 """
 
 from __future__ import annotations
@@ -54,3 +53,42 @@ def sample_frames(total: int,
     assert len(indices) == num
     return [data[i] + offset for i in indices]
 
+
+
+def tdn_sample_indices(total: int,
+                       num_segments: int = 8,
+                       num_frames: int = 5,
+                       rng: Optional[np.random.Generator] = None,
+                       random: bool = True) -> np.ndarray:
+    """TDN's burst sampler: ``num_segments`` start indices (0-based), from
+    each of which the caller reads ``num_frames`` consecutive frames.
+    Jittered per segment when ``random``, else the middle of each
+    segment. Where fewer than ``num_segments`` bursts fit, the span is
+    taken as ``total − 5 + 1`` whatever ``num_frames`` is, as the
+    reference's sampler does."""
+    if rng is None:
+        rng = np.random.default_rng()
+
+    def randint(upper: int, size: Optional[int] = None):
+        if not random:
+            if size is None:
+                return upper // 2
+            return np.full(size, upper // 2, dtype=np.int64)
+        return rng.integers(0, upper, size=size)
+
+    if (total - num_frames + 1) < num_segments:
+        average_duration = (total - 5 + 1) // num_segments
+    else:
+        average_duration = (total - num_frames + 1) // num_segments
+    if average_duration > 0:
+        offsets = np.multiply(np.arange(num_segments), average_duration) + \
+            randint(average_duration, size=num_segments)
+    elif total > num_segments:
+        if (total - num_frames + 1) >= num_segments:
+            offsets = np.sort(randint(total - num_frames + 1,
+                                      size=num_segments))
+        else:
+            offsets = np.sort(randint(total - 5 + 1, size=num_segments))
+    else:
+        offsets = np.zeros((num_segments,))
+    return np.asarray(offsets).astype(int)

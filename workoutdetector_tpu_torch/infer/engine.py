@@ -13,6 +13,10 @@ engine pads videos to a length bucket to reuse XLA programs; the port
 needs no bucket: padded window starts point at the true end, and the
 gather reads zeros past it.
 
+An engine of ``input_rank`` 6 serves TDN: its windows are (N, T, 5, H, W,
+C) bursts, scored by ``score_windows`` / ``score_clip``; it has no video
+path, as the JAX engine has no burst gather.
+
 ``InferenceEngine.from_exported`` serves a ``torch.export`` artifact
 (``utils/export``) instead of a live model: its windows are gathered on
 the host and scored in the artifact's fixed batch, as the JAX engine does
@@ -54,6 +58,17 @@ class StagedVideo(NamedTuple):
     host: Optional[torch.Tensor]
 
 
+def check_rank(input_rank: int) -> None:
+    """The engine's input ranks: 5 (video windows) and 6 (TDN's bursts);
+    rank 4, the image models', comes later (ROADMAP §1 item 6)."""
+    if input_rank == 4:
+        raise NotImplementedError(
+            "input_rank 4 (the image models, score_images) is not in the "
+            "PyTorch port yet (ROADMAP §1 item 6)")
+    if input_rank not in (5, 6):
+        raise ValueError(f"input_rank {input_rank}: 5 (video) or 6 (TDN)")
+
+
 class InferenceEngine:
     """Wraps a model into a fixed-batch scoring function on one device.
 
@@ -67,13 +82,17 @@ class InferenceEngine:
         optimize: apply the exact inference rewrites first (a TimeSformer's
             t_fc folded into t_attn.proj on a copy, in fp32; other models
             are left as they are), as the JAX engine does.
+        input_rank: 5 for video models, 6 for TDN's (B, T, 5, H, W, C)
+            bursts (windows only: ``score_windows``, ``score_clip``).
     """
 
     def __init__(self, model: torch.nn.Module, num_segments: int = 8,
                  window_batch: int = 16, image_size: int = 224,
                  device: Union[str, torch.device, None] = "cuda",
-                 optimize: bool = True):
+                 optimize: bool = True, input_rank: int = 5):
+        check_rank(input_rank)
         self.device = resolve_device(device)
+        self.input_rank = input_rank
         if optimize:
             model = fold_for_inference(model)
         self.model = model.to(self.device).eval()
@@ -101,22 +120,22 @@ class InferenceEngine:
         come from its sidecar. It has no live model, so videos take the
         host gather (``supports_device_gather`` is False): ``score_video``,
         ``score_video_chunked`` and ``inference_dataset`` gather windows on
-        the host and score them with ``score_windows``."""
+        the host and score them with ``score_windows``; a TDN artifact
+        (rank 6) scores burst windows only."""
         from workoutdetector_tpu_torch.utils.export import load_exported
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         art = load_exported(path, self.device)
         shape = art.input_shape
-        if len(shape) != 5:
-            raise ValueError(f"{path}: input shape {shape} is not a video "
-                             "model's (B, T, H, W, C)")
+        check_rank(len(shape))
+        self.input_rank = len(shape)
         self.model = None
         self._exported = art
         self.meta = art.meta
         self.labels = art.meta.get("labels")
         self.window_batch = int(shape[0])
         self.num_segments = int(shape[1])
-        self.image_size = int(shape[2])
+        self.image_size = int(shape[-3])
         self._setup()
         return self
 
@@ -131,10 +150,21 @@ class InferenceEngine:
     @property
     def supports_device_gather(self) -> bool:
         """True when a video may be staged on the device and its windows
-        gathered there: the engine holds a live model. An artifact engine
-        (``from_exported``) scores fixed-shape windows only, so its videos
-        take the host gather, as the JAX engine's ``.jaxm`` engines do."""
-        return self.model is not None
+        gathered there: the engine holds a live video model. An artifact
+        engine (``from_exported``) scores fixed-shape windows only, so its
+        videos take the host gather, as the JAX engine's ``.jaxm`` engines
+        do."""
+        return self.model is not None and self.input_rank == 5
+
+    def require_video_windows(self) -> None:
+        """ValueError for an engine whose windows are not (N, T, H, W, C)
+        video windows (rank 6, TDN's bursts): the video paths gather only
+        those."""
+        if self.input_rank != 5:
+            raise ValueError(
+                f"a rank-{self.input_rank} engine (TDN's (N, T, 5, H, W, C) "
+                "bursts) has no video gather; score burst windows with "
+                "score_windows")
 
     @torch.no_grad()
     def _run(self, windows_u8: torch.Tensor) -> torch.Tensor:
@@ -161,11 +191,13 @@ class InferenceEngine:
         return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
 
     def score_windows(self, windows_u8: np.ndarray) -> np.ndarray:
-        """Score N windows (N, T, H, W, C) uint8 → (N, num_class) logits."""
+        """Score N windows (N, T, H, W, C) uint8 (a rank-6 engine's (N, T,
+        5, H, W, C)) → (N, num_class) logits."""
         return self.chunked_call(self._run, windows_u8)
 
     def score_clip(self, clip_u8: np.ndarray) -> np.ndarray:
-        """Score one (T, H, W, C) window → (num_class,) logits."""
+        """Score one (T, H, W, C) window (rank 6: (T, 5, H, W, C)) →
+        (num_class,) logits."""
         return self.score_windows(clip_u8[None])[0]
 
     # ---------------- video scoring ---------------- #
@@ -217,6 +249,7 @@ class InferenceEngine:
         the gathers still read it. Padded starts point at the true end:
         their windows are zeros, the reference's tail semantics. Needs a
         live model (``supports_device_gather``)."""
+        self.require_video_windows()
         if self.model is None:
             raise RuntimeError(
                 "the device gather needs the live model; an engine loaded "
@@ -254,8 +287,10 @@ class InferenceEngine:
 
         Returns (starts, (N, num_class) logits); ``starts`` defaults to
         every ``step`` frames. A video with no windows gives (0, num_class)
-        logits. An artifact engine gathers the windows on the host.
+        logits. An artifact engine gathers the windows on the host. A
+        rank-6 engine raises ValueError (``require_video_windows``).
         """
+        self.require_video_windows()
         if starts is None:
             starts = self.windows_for_video(video_u8.shape[0], step=step)
         starts = np.asarray(starts, np.int64)
@@ -293,6 +328,7 @@ def score_video_chunked(engine: InferenceEngine,
 
     Returns (total_frames, starts, logits).
     """
+    engine.require_video_windows()
     if max_frames is None:
         max_frames = DEFAULT_MAX_FRAMES
     span = engine.num_segments * stride
@@ -374,10 +410,8 @@ def engine_from_checkpoint(cfg,
             "export, which the PyTorch port cannot read; export the "
             "checkpoint with the port (scripts/export_model.py) to a .pt2 "
             "artifact")
-    if input_rank is not None and input_rank != 5:
-        raise NotImplementedError(
-            f"input_rank {input_rank} (image and TDN models) is not in the "
-            "PyTorch port yet (ROADMAP §1 item 6)")
+    rank = 5 if input_rank is None else input_rank
+    check_rank(rank)
     model = build_model(cfg.model)
     if checkpoint:
         mgr = CheckpointManager(os.path.dirname(checkpoint) or ".")
@@ -392,4 +426,4 @@ def engine_from_checkpoint(cfg,
     if window_batch is not None:
         kwargs["window_batch"] = window_batch
     return InferenceEngine(model, num_segments=cfg.model.num_segments,
-                           device=device, **kwargs)
+                           device=device, input_rank=rank, **kwargs)

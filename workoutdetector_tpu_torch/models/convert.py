@@ -5,7 +5,8 @@ The port's own copy of the key and layout map of
 at this package's module names, which follow the flax tree:
 
   * conv ``kernel`` HWIO → ``weight`` OIHW (the 1×1 kernels are turned into
-    the kernels' (C, O) layout at the call, ``Conv.matrix``);
+    the kernels' (C, O) layout at the call, ``Conv.matrix``), and a 3-D
+    conv's DHWIO → OIDHW (TPN's neck);
   * Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
   * BN and LayerNorm ``scale`` → ``weight``, ``mean`` → ``running_mean``,
     ``var`` → ``running_var``; ``bias`` stays ``bias``;
@@ -14,11 +15,13 @@ at this package's module names, which follow the flax tree:
 
 It also keeps its copy of the reference-checkpoint port
 (``load_torch_checkpoint``, ``strip_ddp_prefix``, ``strip_shift_wrappers``,
-``port_tsm_checkpoint``, JAX ``convert.py:28-155, 550``): a reference
-PyTorch TSM state dict (torchvision ResNet names under ``base_model.``,
-DDP's ``module.`` prefixes, the shift's ``.net.`` wrappers, ``new_fc``)
-becomes a flax-layout tree, which ``load_flax_variables`` sets on the
-port's model.
+``port_tsm_checkpoint``, ``port_tdn_checkpoint``, JAX
+``convert.py:28-155, 203-261, 550``): a reference PyTorch TSM or TDN
+state dict (torchvision ResNet names under ``base_model.``, DDP's
+``module.`` prefixes, the shift's ``.net.`` wrappers, ``new_fc``; TDN's
+``layer{i}_bak``, ``resnext_layer1``, ``conv1_5.{0,1}`` and the
+``shift.conv`` Conv1d) becomes a flax-layout tree, which
+``load_flax_variables`` sets on the port's model.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ import torch
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var",
          "bias": "bias", "kernel": "weight"}
+# kernel layouts by rank: Dense (in, out) ↔ (out, in) (and TDN's (C, 3)
+# shift taps ↔ (3, C)), conv HWIO ↔ OIHW, 3-D conv DHWIO ↔ OIDHW
+_KERNEL_TO_PORT = {2: lambda a: a.T,
+                   4: lambda a: a.transpose(3, 2, 0, 1),
+                   5: lambda a: a.transpose(4, 3, 0, 1, 2)}
+_KERNEL_TO_FLAX = {2: lambda a: a.T,
+                   4: lambda a: a.transpose(2, 3, 1, 0),
+                   5: lambda a: a.transpose(2, 3, 4, 1, 0)}
 _RAW = ("cls_token", "pos_embed", "time_embed")  # carried as they are
 
 
@@ -55,7 +66,7 @@ def flax_to_port_state(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             if leaf not in _LEAF:
                 raise KeyError(f"unknown flax leaf {'/'.join(path)}")
             if leaf == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                a = _KERNEL_TO_PORT[a.ndim](a)
             out[".".join(path[:-1] + (_LEAF[leaf],))] = a
     return out
 
@@ -93,10 +104,8 @@ def port_state_to_flax(state: Mapping[str, Any]) -> Dict[str, Any]:
         a = np.asarray(v)
         coll = "batch_stats" if leaf.startswith("running_") else "params"
         if leaf == "weight":
-            if a.ndim == 4:
-                a, leaf = a.transpose(2, 3, 1, 0), "kernel"
-            elif a.ndim == 2:
-                a, leaf = a.T, "kernel"
+            if a.ndim in _KERNEL_TO_FLAX:
+                a, leaf = _KERNEL_TO_FLAX[a.ndim](a), "kernel"
             else:
                 leaf = "scale"
         elif leaf not in _RAW:
@@ -119,22 +128,41 @@ def _truncated_normal(rng: np.random.Generator, shape, std: float
     return a * std
 
 
+def shift_taps(shape, n_div: int) -> np.ndarray:
+    """TDN's shift taps at their JAX init (``TemporalShiftConv``, mode
+    'shift'), in the port's (3, C) layout of [prev, self, next] rows: the
+    first C/n_div channels take the next frame, the second the previous
+    one, the rest their own."""
+    _, c = shape
+    fold = c // n_div
+    w = np.zeros(shape)
+    w[2, :fold] = 1.0
+    w[0, fold:2 * fold] = 1.0
+    w[1, 2 * fold:] = 1.0
+    return w
+
+
 def random_flax_variables(model: torch.nn.Module, seed: int = 0
                           ) -> Dict[str, Any]:
     """A numpy-seeded flax-layout variable tree for ``model``: He-normal
-    convs, N(0, 1/fan_in) dense kernels (a TimeSformer's ``t_fc``
-    included: its JAX init is zero, which would hide the temporal branch),
-    randomised BN/LayerNorm affine and BN running statistics, and
+    convs (2-D and 3-D), N(0, 1/fan_in) dense kernels (a TimeSformer's
+    ``t_fc`` included: its JAX init is zero, which would hide the temporal
+    branch), TDN's shift taps at their shift pattern plus N(0, 0.2²)
+    noise, randomised BN/LayerNorm affine and BN running statistics, and
     truncated-normal(0.02) TimeSformer embeddings."""
+    kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
     for key, t in model.state_dict().items():
         shape = tuple(t.shape)
-        leaf = key.rsplit(".", 1)[-1]
+        *mods, leaf = key.split(".")
+        kind = kernel_init.get(mods[-1] if mods else "", ("", None))
         if leaf in _RAW:
             a = _truncated_normal(rng, shape, 0.02)
-        elif leaf == "weight" and len(shape) == 4:
-            fan_in = shape[1] * shape[2] * shape[3]
+        elif leaf == "weight" and kind[0] == "shift":
+            a = shift_taps(shape, kind[1]) + rng.normal(0.0, 0.2, shape)
+        elif leaf == "weight" and len(shape) in (4, 5):
+            fan_in = int(np.prod(shape[1:]))
             a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
         elif leaf == "weight" and len(shape) == 2:
             a = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
@@ -153,13 +181,16 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
 def init_flax_variables(model: torch.nn.Module, seed: int = 0
                         ) -> Dict[str, Any]:
     """A fresh model's variables with the JAX models' initializers, drawn
-    from a numpy seed. Conv and Dense kernels ``lecun_normal`` (truncated
-    normal, fan-in scaling) unless the model's ``FLAX_KERNEL_INIT`` names
-    the module (``("normal", std)`` or ``("zeros", 0)``, its bias zero as
-    every bias); BN and LayerNorm scale 1 and bias 0, running mean 0 and
-    var 1; TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
-    truncated normal(0.02). The distributions are flax's; the draws are
-    not jax.random's."""
+    from a numpy seed. Conv (2-D and 3-D, grouped: fan-in
+    in/groups · kernel size, as flax's) and Dense kernels
+    ``lecun_normal`` (truncated normal, fan-in scaling) unless the model's
+    ``FLAX_KERNEL_INIT`` names the module (``("normal", std)``,
+    ``("zeros", 0)``, or ``("shift", n_div)`` for TDN's shift taps, which
+    start as the shift pattern; a bias zero as every bias); BN and
+    LayerNorm scale 1 and bias 0, running mean 0 and var 1; TimeSformer's
+    ``cls_token``, ``pos_embed`` and ``time_embed`` truncated
+    normal(0.02). The distributions are flax's; the draws are not
+    jax.random's."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
@@ -168,12 +199,14 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
         *mods, leaf = key.split(".")
         if leaf in _RAW:
             a = _truncated_normal(rng, shape, 0.02)
-        elif leaf == "weight" and len(shape) in (2, 4):
+        elif leaf == "weight" and len(shape) in (2, 4, 5):
             kind, std = kernel_init.get(mods[-1], ("lecun_normal", None))
             if kind == "normal":
                 a = rng.normal(0.0, std, shape)
             elif kind == "zeros":
                 a = np.zeros(shape)
+            elif kind == "shift":
+                a = shift_taps(shape, std)
             else:
                 fan_in = int(np.prod(shape[1:]))
                 # std of N(0, 1) cut at ±2 is 0.8796...
@@ -336,3 +369,65 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         return ckpt["state_dict"]
     return ckpt
+
+
+def _tdn_torch_key_rename(key: str) -> str:
+    """A reference TDN key (the TSN wrapper over TDN_Net) → the port's
+    dotted module path before the ResNet map: ``base_model.`` dropped,
+    ``conv1_5.0``/``conv1_5.1`` → ``conv1_5``/``bn1_5``,
+    ``layer{i}_bak.{j}`` → ``layer{i}.{j}``, ``resnext_layer1.{j}`` →
+    ``resnext_layer1_{j}``."""
+    k = key
+    if k.startswith("base_model."):
+        k = k[len("base_model."):]
+    k = re.sub(r"^conv1_5\.0\.", "conv1_5.", k)
+    k = re.sub(r"^conv1_5\.1\.", "bn1_5.", k)
+    k = re.sub(r"^layer(\d+)_bak\.", r"layer\1.", k)
+    k = re.sub(r"^resnext_layer1\.(\d+)\.", r"resnext_layer1_\1.", k)
+    return k
+
+
+def port_tdn_checkpoint(state_dict: Mapping[str, Any],
+                        num_class: int,
+                        target_params: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, Any]:
+    """A reference PyTorch TDN checkpoint → the flax TDN layout (JAX
+    ``convert.port_tdn_checkpoint``): strip 'module.' and the '.net' shift
+    wrappers, rename the stages (``_tdn_torch_key_rename``), and squeeze
+    each ShiftModule's Conv1d weight (C, 1, 3) into the (C, 3) taps.
+    ``new_fc`` weights whose output dim is not ``num_class`` are dropped;
+    with ``target_params`` the ported params are overlaid onto it where
+    paths and shapes match."""
+    sd = strip_shift_wrappers(strip_ddp_prefix(dict(state_dict)))
+    params: Dict[Tuple[str, ...], np.ndarray] = {}
+    stats: Dict[Tuple[str, ...], np.ndarray] = {}
+    fc_w = sd.get("new_fc.weight")
+    drop_fc = fc_w is not None and _to_numpy(fc_w).shape[0] != num_class
+    for key, v in sd.items():
+        k = _tdn_torch_key_rename(key)
+        if drop_fc and k.startswith("new_fc."):
+            continue
+        if k.endswith(".shift.conv.weight"):
+            parts = k.split(".")[:-3]  # the module path up to the block
+            merged = []
+            i = 0
+            while i < len(parts):
+                if re.fullmatch(r"layer\d+", parts[i]) and \
+                        i + 1 < len(parts) and parts[i + 1].isdigit():
+                    merged.append(f"{parts[i]}_{parts[i + 1]}")
+                    i += 2
+                else:
+                    merged.append(parts[i])
+                    i += 1
+            params[tuple(merged) + ("shift", "kernel")] = _to_numpy(v)[:, 0, :]
+            continue
+        m = _torch_key_to_flax(k)
+        if m is None:
+            continue
+        path, coll = m
+        arr = _convert_value(path, _to_numpy(v))
+        (params if coll == "params" else stats)[path] = arr
+    tree = {"params": _unflatten(params), "batch_stats": _unflatten(stats)}
+    if target_params is not None:
+        tree["params"] = merge_into(target_params, tree["params"])
+    return tree

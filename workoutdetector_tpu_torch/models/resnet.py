@@ -83,37 +83,45 @@ def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
 
 
 class Conv(nn.Module):
-    """Bias-free NHWC convolution with an OIHW fp32 weight, followed by
-    ``bn`` when given: folded into the weight and a bias when the BN can
-    fold (``BatchNorm.foldable``), else applied after the conv."""
+    """NHWC convolution with an OIHW fp32 weight (a bias with ``bias``, as
+    TDN's convs have; ``groups`` as flax's ``feature_group_count``),
+    followed by ``bn`` when given: folded into the weight and a bias when
+    the BN can fold (``BatchNorm.foldable``), else applied after the
+    conv."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 pad: int = 0):
+                 pad: int = 0, bias: bool = False, groups: int = 1):
         super().__init__()
         # zeros until load_flax_variables sets them
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride = stride
         self.pad = pad
+        self.groups = groups
         self._derived: Dict[str, tuple] = {}
 
     def forward(self, x: torch.Tensor,
                 bn: Optional["BatchNorm"] = None) -> torch.Tensor:
         p = self.pad
         pads = ((p, p), (p, p))
+        strides = (self.stride, self.stride)
         if bn is None or not bn.foldable():
-            y = conv2d_nhwc(x, self.weight, (self.stride, self.stride), pads)
+            y = conv2d_nhwc(x, self.weight, strides, pads, self.bias,
+                            self.groups)
             return y if bn is None else bn(y)
+        own = [] if self.bias is None else [self.bias]
 
         def fold():
             sb = bn.folded()
+            bias = sb[1] if self.bias is None else sb[0] * self.bias + sb[1]
             # the bias owns its storage (not a view of sb), as an exported
             # program's constants must
             return (self.weight * sb[0][:, None, None, None]).to(x.dtype), \
-                sb[1].to(x.dtype, copy=True)
+                bias.to(x.dtype, copy=True)
 
-        weight, bias = cached(self, "bn", [self.weight] + bn.sources(),
+        weight, bias = cached(self, "bn", [self.weight] + own + bn.sources(),
                               x.dtype, fold)
-        return conv2d_nhwc(x, weight, (self.stride, self.stride), pads, bias)
+        return conv2d_nhwc(x, weight, strides, pads, bias, self.groups)
 
     def matrix(self) -> torch.Tensor:
         """A 1×1 weight as (C, O) — the kernels' layout."""
@@ -346,7 +354,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet-18/34/50/101 trunk: (N, H, W, 3) → pooled (N, C) features.
+    """ResNet-18/34/50/101 trunk: (N, H, W, 3) → pooled (N, C) features,
+    or with ``out_indices`` the NHWC maps of those stages (TPN's taps).
 
     Args:
         shift_spec: fn(stage, block) → (n_segment, fold_div) or None: shift
@@ -360,6 +369,9 @@ class ResNet(nn.Module):
         partial_bn: every BN but the stem's runs on its running statistics
             and never updates them, in train mode too (flax's
             ``FrozenAwareBatchNorm(frozen=True)``).
+        out_indices: return these stages' (N, h, w, C) outputs, in stage
+            order, instead of the pooled features (mmaction's ResNetTSM
+            taps, JAX ``resnet.py:336-340``).
     """
 
     def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True,
@@ -369,8 +381,13 @@ class ResNet(nn.Module):
                  stage_hook: Optional[Callable] = None,
                  fuse_spec: Optional[Callable[[int, int], bool]] = None,
                  use_kernels: bool = True, eps: float = 1e-5,
-                 partial_bn: bool = False):
+                 partial_bn: bool = False,
+                 out_indices: Optional[Sequence[int]] = None):
         super().__init__()
+        self.out_indices = None if out_indices is None else tuple(out_indices)
+        # the last block of each tapped stage
+        self.tap_blocks = {f"layer{i + 1}_{stage_sizes[i] - 1}"
+                           for i in self.out_indices or ()}
         self.conv1 = Conv(3, width, 7, 2, 3)
         self.bn1 = BatchNorm(width, eps)
         self.stage_hook = stage_hook
@@ -397,10 +414,11 @@ class ResNet(nn.Module):
                 cin = out
         self.num_features = cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = torch.relu(self.conv1(x, self.bn1))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         stage = -1
+        taps = []
         for i, name, pre in self.blocks:
             if i != stage:
                 stage = i
@@ -409,4 +427,8 @@ class ResNet(nn.Module):
             if pre is not None:
                 x = shift_input(x, pre, self.use_kernels)
             x = getattr(self, name)(x)
+            if name in self.tap_blocks:
+                taps.append(x)
+        if self.out_indices is not None:
+            return tuple(taps)
         return x.mean(dim=(1, 2))

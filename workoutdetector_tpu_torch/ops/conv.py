@@ -41,8 +41,10 @@ def resolve_pads(padding: Union[str, Sequence], in_hw: Sequence[int],
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 strides: Sequence[int] = (1, 1),
                 padding: Union[str, Sequence] = "SAME",
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(N, H, W, C) × OIHW weight (+ bias) → (N, H', W', O), in x's dtype."""
+                bias: Optional[torch.Tensor] = None,
+                groups: int = 1) -> torch.Tensor:
+    """(N, H, W, C) × OIHW weight (+ bias) → (N, H', W', O), in x's dtype;
+    ``groups`` as flax's ``feature_group_count``."""
     k_hw = weight.shape[2:]
     (t, b), (l, r) = resolve_pads(padding, x.shape[1:3], k_hw, strides)
     xc = x.permute(0, 3, 1, 2)
@@ -54,5 +56,5 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         bias = bias.to(x.dtype)
     y = F.conv2d(xc, weight.to(x.dtype), bias, stride=tuple(strides),
-                 padding=pad)
+                 padding=pad, groups=groups)
     return y.permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
-"""Export CLI: a port checkpoint, a reference PyTorch TSM checkpoint or a
-fresh init → a deployable ``.pt2`` artifact (``utils/export.py``).
+"""Export CLI: a port checkpoint, a reference PyTorch TSM or TDN
+checkpoint or a fresh init → a deployable ``.pt2`` artifact
+(``utils/export.py``).
 
 Port of ``workoutdetector_tpu/scripts/export_model.py``:
 
@@ -9,8 +10,10 @@ Port of ``workoutdetector_tpu/scripts/export_model.py``:
         [--torch-ckpt tsm_sthv2.pth] [--cpu]
 
 The artifact is exported for the card (its graph launches the hand
-kernels), or with ``--cpu`` for the CPU; ``InferenceEngine.from_exported``
-and ``engine_from_checkpoint`` load it where this package is importable.
+kernels), or with ``--cpu`` for the CPU, at the input shape
+``models.example_input_shape`` gives (TDN's is rank 6);
+``InferenceEngine.from_exported`` and ``engine_from_checkpoint`` load it
+where this package is importable.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ def main(argv=None) -> None:
     parser.add_argument("--checkpoint", default=None,
                         help="port checkpoint file (CheckpointManager)")
     parser.add_argument("--torch-ckpt", default=None,
-                        help="reference PyTorch TSM .pth to port instead")
+                        help="reference PyTorch TSM or TDN .pth to port "
+                        "instead (TPN's backbone takes the TSM map)")
     parser.add_argument("-o", "--output", required=True)
     parser.add_argument("--batch", type=int, default=16,
                         help="window batch the artifact is exported for")
@@ -37,18 +41,13 @@ def main(argv=None) -> None:
     from workoutdetector_tpu_torch.config import load_config
     from workoutdetector_tpu_torch.device import resolve_device
     from workoutdetector_tpu_torch.models import (build_model,
+                                                  example_input_shape,
                                                   init_flax_variables,
                                                   load_flax_variables)
     from workoutdetector_tpu_torch.utils.export import export_model
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = load_config(args.cfg, args.opts)
-    model_type = cfg.model.model_type.lower()
-    if args.torch_ckpt and model_type != "tsm":
-        raise NotImplementedError(
-            f"--torch-ckpt for model_type {cfg.model.model_type!r}: only the "
-            "TSM map is in the PyTorch port (port_tdn_checkpoint and the "
-            "others: ROADMAP §1 item 6)")
     model = build_model(cfg.model)
     if args.checkpoint:
         from workoutdetector_tpu_torch.train.checkpoint import \
@@ -61,20 +60,22 @@ def main(argv=None) -> None:
         variables = init_flax_variables(model, seed=cfg.seed)
         if args.torch_ckpt:
             from workoutdetector_tpu_torch.models.convert import (
-                load_torch_checkpoint, merge_into, port_tsm_checkpoint)
-            tree = port_tsm_checkpoint(load_torch_checkpoint(args.torch_ckpt),
-                                       num_class=cfg.model.num_class,
-                                       target_params=variables["params"])
+                load_torch_checkpoint, merge_into, port_tdn_checkpoint,
+                port_tsm_checkpoint)
+            port = port_tdn_checkpoint \
+                if cfg.model.model_type.lower() == "tdn" else port_tsm_checkpoint
+            tree = port(load_torch_checkpoint(args.torch_ckpt),
+                        num_class=cfg.model.num_class,
+                        target_params=variables["params"])
             variables = {"params": tree["params"],
                          "batch_stats": merge_into(variables["batch_stats"],
                                                    tree["batch_stats"])}
         load_flax_variables(model, variables)
 
-    # TimeSformer's patch grid is fixed by model.image_size; the others
-    # take the data pipeline's crop
-    size = cfg.model.image_size if model_type == "timesformer" \
-        else cfg.data.image_size
-    shape = (args.batch, cfg.model.num_segments, size, size, 3)
+    # TDN takes rank-6 bursts, TimeSformer its own model.image_size, the
+    # others the data pipeline's crop
+    shape = example_input_shape(cfg.model, batch=args.batch,
+                                image_size=cfg.data.image_size)
     path = export_model(model, args.output, input_shape=shape, device=device,
                         meta={"model_type": cfg.model.model_type,
                               "num_class": cfg.model.num_class,

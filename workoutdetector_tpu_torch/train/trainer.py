@@ -11,7 +11,8 @@ Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
   statistics, dropout from a generator seeded by
   ``seed + 1`` and the step — the counterpart of
   ``jax.random.fold_in(base_key, step)``), takes the mean softmax CE on
-  fp32 logits, back-propagates (the 1×1 backward kernels on the main
+  fp32 logits (plus ``aux_loss_weight`` times the CE of an auxiliary head,
+  where the model returns one: ``train_loss``), back-propagates (the 1×1 backward kernels on the main
   path), clips and updates (``train/optim.TrainOptimizer``) and moves the
   EMA;
 * the eval step runs the inference path (fused-block and shift-matmul
@@ -62,6 +63,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     scatter-add, whose order on the card could vary from run to run."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -(logp * F.one_hot(labels.long(), logits.shape[-1])).sum(-1)
+
+
+def train_loss(out, labels: torch.Tensor, aux_weight: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, logits) of a train-mode forward: the mean CE of the logits,
+    and where the model also returned auxiliary logits (``(logits, aux)``:
+    TPN's aux head) ``aux_weight`` times their mean CE. (B, T, C) auxiliary
+    logits are dense per-frame supervision: the clip's label holds for
+    each of its frames (JAX ``trainer.py:188-198``)."""
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    loss = cross_entropy(logits, labels).mean()
+    if aux is not None:
+        ya = labels
+        if aux.dim() == 3:
+            ya = labels.repeat_interleave(aux.shape[1])
+            aux = aux.reshape(-1, aux.shape[-1])
+        loss = loss + aux_weight * cross_entropy(aux, ya).mean()
+    return loss, logits
 
 
 class TrainState:
@@ -157,8 +176,9 @@ class Trainer:
         model = state.model
         model.train()
         x, y = self._batch(x_u8, y, state.step)
-        logits = model(x, dropout_generator=self.dropout_generator(state.step))
-        loss = cross_entropy(logits, y).mean()
+        loss, logits = train_loss(
+            model(x, dropout_generator=self.dropout_generator(state.step)), y,
+            self.cfg.model.aux_loss_weight)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()

@@ -38,8 +38,8 @@ SUFFIX = ".pt2"
 
 
 class InferenceModule(torch.nn.Module):
-    """The deployed graph: uint8 (B, T, H, W, 3) windows → logits, without
-    autograd."""
+    """The deployed graph: uint8 (B, T, H, W, 3) windows (TDN's (B, T, 5,
+    H, W, 3) bursts) → logits, without autograd."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
