@@ -169,10 +169,34 @@ not printed; no CUDA device → exit 2):
      rank-6 ``.pt2`` export on the card whose logits equal the live
      engine's; 6 train steps at batch 16 from ``TDNDataset`` over phase
      10's rawframe corpus (written anew), finite losses, train clips/s;
- 14. one JSON line of per-kernel numbers (and the sweep's, the file
-     training's, the serving phase's, TPN's and TDN's numbers), the card
-     line again, the script's wall time, and the contract line
-     ``{"ok": true, "device": {...}}`` last.
+ 14. the image models (``workoutdetector_tpu/configs/lit_img.yaml``: a
+     ResNet-50 image classifier, 224², bf16, 2 classes, AdamW, batch 64),
+     random numpy-seeded flax weights with the brightness head, from a
+     port checkpoint through ``engine_from_checkpoint`` (rank 4):
+     ``score_images`` on phase 11's 291-frame video (6 fused-bottleneck
+     launches a forward, at fold 0 and n_segment 1; the logit rule against
+     the fp32 plain path; images/s; one profiled batch) and
+     ``count_by_image_model`` on its mp4 (the kernel path's count and reps
+     equal to the fp32 plain engine's; a planted swap of two frames caught);
+     its ``.pt2`` through ``scripts/export_model`` (launches, logits and
+     count as the live engine's); ``Trainer.fit`` for 3 steps from
+     ``ImageDataset`` over 224 written JPEGs (33 dx + 33 dW launches a
+     step, finite losses), ``backward_order_check`` at batch 64 (the
+     kernels' gradients against their plain versions under one fixed
+     forward: a random ResNet-50 with every BN on batch statistics is too
+     chaotic for grad_check's fp32 comparison) with two planted faults of
+     the unshifted backward, train images/s; ConvNeXt-B and
+     ViT-B/16 at 224² (logits against fp32 plain, images/s, one finite
+     train step each, no hand-kernel launch); and the counters over phase
+     9's corpus, card against CPU: ``eval_dataset`` in ``motion``,
+     ``similarity`` (the CLI's headless ResNet-18 at 48²) and ``image``
+     mode (the fp32 model at 48² on the card and on the CPU, the kernel
+     path's counts beside), and the similarity's lag profile with TF32
+     matmuls allowed;
+ 15. one JSON line of per-kernel numbers (and the sweep's, the file
+     training's, the serving phase's, TPN's, TDN's and the image phase's
+     numbers), the card line again, the script's wall time, and the
+     contract line ``{"ok": true, "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -195,7 +219,9 @@ kernels' at the 288² step's l = 325. Their ``plain_ms`` and
 backward alone of ``scaled_dot_product_attention`` on contiguous q, k, v,
 the fastest of its backends, which also computes D = rowsum(dO ∘ O)), the
 same number in the dK/dV and dQ rows; phase 3 prints the tiled route's
-dK/dV + dQ + D beside it.
+dK/dV + dQ + D beside it. The ``*_image`` rows are the same kernels at the
+image ResNet-50's sites: the fused bottleneck per forward of 16 images at
+fold 0, dx and dW per train step of 64 unshifted images (33 sites).
 """
 
 from __future__ import annotations
@@ -495,9 +521,31 @@ def kernel_phase(torch, kernels, g) -> dict:
         f"err={err} kernel={ms:.4f} ms plain={pms:.4f} ms "
         f"bound={max(tb, to):.4f} ms")
     del x, p, got
+    # the image ResNet-50's fused sites: the same blocks on WINDOW_BATCH
+    # single images, n_segment 1, fold 0 (lit_img.yaml's inference, [14a])
+    for h, w, c, f, o, ds, count in FUSED_SITES:
+        x = randn(WINDOW_BATCH, h, w, c)
+        p = fused_params(c, f, o, ds)
+        got = kernels.fused_bottleneck(x, p, n_segment=1, fold=0)
+        want = kernels.fused_bottleneck_plain(x, p, n_segment=1, fold=0)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"fused_bottleneck_image {tuple(x.shape)} "
+                          f"F={f} O={o}", got, want)
+        del got, want
+        ms = time_ms(torch, lambda: kernels.fused_bottleneck(
+            x, p, n_segment=1, fold=0), 20)
+        pms = time_ms(torch, lambda: kernels.fused_bottleneck_plain(
+            x, p, n_segment=1, fold=0), 5)
+        tb, to = fused_bound(WINDOW_BATCH * h * w, c, f, o, ds)
+        add("fused_bottleneck_image", err, ms, pms, tb, to, count)
+        log(f"  fused_bottleneck_image x{tuple(x.shape)} F={f} O={o} ds={ds} "
+            f"err={err} kernel={ms:.4f} ms plain={pms:.4f} ms "
+            f"bound={max(tb, to):.4f} ms")
+        del x, p
     attention_row(torch, kernels, randn, add)
     attention_bwd_rows(torch, kernels, randn, add)
     backward_rows(torch, kernels, randn, add)
+    backward_rows(torch, kernels, randn, add, frames=IMAGE_BATCH, image=True)
     return rows
 
 
@@ -656,12 +704,16 @@ def library_attention_bwd(torch, q, k, v, do, scale):
     return times[name], name
 
 
-def backward_rows(torch, kernels, randn, add) -> None:
+def backward_rows(torch, kernels, randn, add, frames: int = TRAIN_BATCH * FRAMES,
+                  image: bool = False) -> None:
     """dx and dW at every TSM-R50 224² backward site of one train step
     (batch 32 clips = 256 frames), and the shift-matmul forward at its
-    shifted sites (``shift_matmul_train``)."""
-    frames = TRAIN_BATCH * FRAMES
+    shifted sites (``shift_matmul_train``); with ``image``, the image
+    ResNet-50's sites (``frames`` images, every site unshifted) in the rows
+    ``conv1x1_dx_image`` and ``conv1x1_dw_image``."""
+    tag = "_image" if image else ""
     for h, c, o, shifted, count in BWD_SITES:
+        shifted = shifted and not image
         r = frames * h * h
         spec = (FRAMES, c // 8, h * h) if shifted else (1, 0, 1)
         x = randn(r, c)
@@ -693,8 +745,8 @@ def backward_rows(torch, kernels, randn, add) -> None:
         pms = time_ms(torch, lambda: kernels.conv1x1_dx_plain(g, wt, *spec), 3)
         lms = time_ms(torch, lambda: torch.matmul(g, wt), 10)
         tb, to = bound_ms((r * o + o * c + r * c) * 2, 2.0 * r * o * c)
-        add("conv1x1_dx", err, ms, pms, tb, to, count, lms)
-        log(f"  conv1x1_dx {site} err={err} kernel={ms:.4f} ms plain={pms:.4f}"
+        add("conv1x1_dx" + tag, err, ms, pms, tb, to, count, lms)
+        log(f"  conv1x1_dx{tag} {site} err={err} kernel={ms:.4f} ms plain={pms:.4f}"
             f" ms library={lms:.4f} ms bound={max(tb, to):.4f} ms")
         got = kernels.conv1x1_dw(x, g, *spec)
         want = kernels.conv1x1_dw_plain(x, g, *spec)
@@ -705,8 +757,8 @@ def backward_rows(torch, kernels, randn, add) -> None:
         pms = time_ms(torch, lambda: kernels.conv1x1_dw_plain(x, g, *spec), 3)
         lms = time_ms(torch, lambda: torch.matmul(x.t(), g), 10)
         tb, to = bound_ms((r * c + r * o) * 2 + c * o * 4, 2.0 * r * c * o)
-        add("conv1x1_dw", err, ms, pms, tb, to, count, lms)
-        log(f"  conv1x1_dw {site} err={err} kernel={ms:.4f} ms plain={pms:.4f}"
+        add("conv1x1_dw" + tag, err, ms, pms, tb, to, count, lms)
+        log(f"  conv1x1_dw{tag} {site} err={err} kernel={ms:.4f} ms plain={pms:.4f}"
             f" ms library={lms:.4f} ms bound={max(tb, to):.4f} ms")
         del x, g, w, wt
         torch.cuda.empty_cache()
@@ -1434,18 +1486,23 @@ def same_files(a: Path, b: Path) -> bool:
         (a / n).read_bytes() == (b / n).read_bytes() for n in names)
 
 
-def brightness_head(np, torch, model, ref_model, frames):
+def brightness_head(np, torch, model, ref_model, frames, head=None):
     """Set the TSM head so that its state follows the frame brightness: of
     a decoded corpus video ``frames``, a dark window (its 8 darkest frames)
-    and a bright one (its 8 brightest) go through the fp32 plain path; the
+    and a bright one (its 8 brightest) go through the fp32 plain path (for
+    an image model, ``head`` given: its darkest and its brightest frame, and
+    ``head(model)`` is the head); the
     two classes whose logits differ most between them go to rows 0 and 1,
     their biases tie halfway between the two windows (mid-grey in logit
     space), and the other rows get weight 0 and bias −1e3. Applied to both
     models; returns the two classes."""
     from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
     order = np.argsort(frames.reshape(len(frames), -1).mean(1))
-    windows = np.stack([frames[np.sort(order[:FRAMES])],
-                        frames[np.sort(order[-FRAMES:])]])
+    if head is None:
+        windows = np.stack([frames[np.sort(order[:FRAMES])],
+                            frames[np.sort(order[-FRAMES:])]])
+    else:
+        windows = frames[[order[0], order[-1]]]
     x = torch.from_numpy(windows).to("cuda")
     with torch.no_grad():
         dark, bright = ref_model.to("cuda").eval()(normalize_clip(x)) \
@@ -1454,7 +1511,8 @@ def brightness_head(np, torch, model, ref_model, frames):
     a, b = int(np.argmin(diff)), int(np.argmax(diff))
     tie = ((dark[a] - dark[b]) + (bright[a] - bright[b])) / 2
     for m in (model, ref_model):
-        w, bias = m.fc.weight.data, m.fc.bias.data
+        fc = m.fc if head is None else head(m)
+        w, bias = fc.weight.data, fc.bias.data
         rows, biases = w[[a, b]].clone(), bias[[a, b]].clone()
         biases[0] -= float(tie)
         w.zero_()
@@ -2841,6 +2899,541 @@ def tdn_phase(np, torch, kernels, video, repo: Path, card: str) -> dict:
             "artifact_max_abs_diff": art_err, "launches": 0}
 
 
+# ---------------------------------------------------------------- phase 14
+LIT_IMG_YAML = "workoutdetector_tpu/configs/lit_img.yaml"
+IMAGE_BATCH = 64        # lit_img.yaml's batch
+IMAGE_CLASSES = 2       # lit_img.yaml's num_class
+IMAGE_TRAIN_STEPS = 3
+IMAGE_VAL = 32          # validation images: one forward
+COUNTER_SIZE = 48       # the crop of the counters held to the CPU ([14d])
+OTHER_BACKBONES = ("convnext_base", "vit_base_patch16_224")
+
+
+def image_faults() -> dict:
+    """backward_order_check's planted faults of the unshifted 1×1 backward
+    (``Conv1x1.backward`` calls the conv1x1 module's wrappers): dx from
+    the other half of the batch's output gradient, dW over the other half's
+    input rows (image i's rows paired with image j's)."""
+    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
+
+    def other_half(real):  # the wrapper on its first operand rolled by R/2
+        def fault(a, b, *rest):
+            return real(a.roll(a.shape[0] // 2, 0), b, *rest)
+        fault.launches = 0  # the real wrapper counts on its module's name
+        return fault
+
+    return {"dx from the other half's g": (c1, "conv1x1_dx", other_half),
+            "dW over the other half's x": (c1, "conv1x1_dw", other_half)}
+
+
+def backward_order_check(np, torch, build_model, load_flax_variables, cfg,
+                         variables, batch: int, faults: dict) -> dict:
+    """The image train step's gradients with the forward held fixed.
+
+    lit_img.yaml trains every BatchNorm on batch statistics, and a
+    random ResNet-50 in that regime is chaotic in its forward: a bf16
+    rounding anywhere moves the gradients of most leaves by 0.3-1.5
+    relative (the bf16 plain path against the fp32 one, a CPU
+    measurement at 64-224 px), so grad_check's comparison with the fp32
+    path cannot tell a fault from rounding. Here the forward is the same
+    in every run (the kernel path's, bf16, one generator seed); what
+    changes is the 1×1 backward: the kernels (``got``), their plain
+    versions (fp32 sums, one bf16 rounding: ``ref``) and the plain
+    versions summed in float64 (``alt``: the spread of summation order
+    alone). Per leaf e = ‖g − g_ref‖ / ‖g_ref‖ must stay within
+    GRAD_RATIO × e_alt + GRAD_FLOOR; each planted fault (``faults`` as in
+    grad_check) must put some leaf beyond it. Returns the largest e and
+    e_alt."""
+    from workoutdetector_tpu_torch.ops.kernels import conv1x1 as c1
+    from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
+    from workoutdetector_tpu_torch.train.trainer import train_loss
+
+    rng = np.random.default_rng(5)
+    x = normalize_clip(torch.from_numpy(rng.integers(
+        0, 256, (batch, 1, SIZE, SIZE, 3), dtype=np.uint8)).cuda())
+    yt = torch.from_numpy(rng.integers(0, cfg.model.num_class, batch)).cuda()
+
+    def counted(fn):
+        def wrapper(*a):
+            return fn(*a)
+        wrapper.launches = 0
+        return wrapper
+
+    plain = {"conv1x1_dx": counted(c1.conv1x1_dx_plain),
+             "conv1x1_dw": counted(c1.conv1x1_dw_plain)}
+    wide = {"conv1x1_dx": counted(lambda g, wt, *a: (
+                g.double() @ wt.double()).to(g.dtype)),
+            "conv1x1_dw": counted(lambda a, g, *r: (
+                a.double().t() @ g.double()).float())}
+
+    def grads(swap):
+        real = {n: getattr(c1, n) for n in swap}
+        for n, fn in swap.items():
+            setattr(c1, n, fn)
+        try:
+            model = build_model(cfg.model).cuda()
+            load_flax_variables(model, variables)
+            model.train()
+            loss, _ = train_loss(model(x), yt, cfg.model.aux_loss_weight)
+            loss.backward()
+            out = {n: p.grad.float().clone()
+                   for n, p in model.named_parameters()}
+        finally:
+            for n, fn in real.items():
+                setattr(c1, n, fn)
+        del model, loss
+        torch.cuda.empty_cache()
+        return out
+
+    ref, alt, got = grads(plain), grads(wide), grads({})
+
+    def rel(a):
+        return {n: float((a[n] - ref[n]).norm()
+                         / ref[n].norm().clamp(min=1e-30)) for n in ref}
+
+    err, spread = rel(got), rel(alt)
+
+    def beyond(e):
+        return [n for n in e if not math.isfinite(e[n])
+                or e[n] > GRAD_RATIO * spread[n] + GRAD_FLOOR]
+
+    worst = sorted(err, key=err.get, reverse=True)[:3]
+    log(f"    backward check, forward fixed ({len(ref)} leaves): kernels vs "
+        f"plain max rel err {max(err.values()):.5f}, float64-summed plain "
+        f"{max(spread.values()):.5f}; worst "
+        + ", ".join(f"{n} {err[n]:.5f}/{spread[n]:.5f}" for n in worst))
+    if beyond(err):
+        raise AssertionError(f"gradients of {beyond(err)[:5]} beyond "
+                             f"{GRAD_RATIO} x the summation-order spread + "
+                             f"{GRAD_FLOOR}")
+    for label, (module, name, make) in faults.items():
+        e = rel(grads({name: make(getattr(module, name))}))
+        caught = beyond(e)
+        log(f"    planted fault '{label}': max rel err {max(e.values()):.5f}, "
+            f"{len(caught)}/{len(e)} leaves beyond the limit")
+        if not caught:
+            raise AssertionError(f"the backward check misses the planted "
+                                 f"fault '{label}'")
+    return {"max_rel_err": max(err.values()),
+            "order_spread": max(spread.values())}
+
+
+def image_count_rule(np, logits, ref, err: float, what: str):
+    """count_by_image_model's pipeline on per-frame logits (argmax, the
+    7-deep majority vote, pred_to_count at step 7): the argmax equals the
+    fp32 path's on every frame whose fp32 top-2 margin exceeds 2 x err and
+    the counts are equal. Returns the two counts."""
+    from workoutdetector_tpu_torch.counting import (majority_vote_states,
+                                                    pred_to_count)
+    decided = np.abs(ref[:, 1] - ref[:, 0]) > 2 * err
+    wrong = np.flatnonzero(decided & (logits.argmax(1) != ref.argmax(1)))
+    count = pred_to_count(majority_vote_states(logits.argmax(1)), step=7)[0]
+    ref_count = pred_to_count(majority_vote_states(ref.argmax(1)), step=7)[0]
+    if len(wrong) or count != ref_count:
+        raise AssertionError(
+            f"{what}: argmax differs on decided frames {wrong.tolist()[:8]}, "
+            f"count {count} vs the fp32 path's {ref_count}")
+    return count, ref_count
+
+
+def write_image_corpus(np, root: Path, n: int):
+    """``n`` JPEGs at 320×240 through cv2.imwrite (8 threads) and the
+    ImageDataset lists ``train.txt`` (all but IMAGE_VAL) and ``val.txt``:
+    a figure high (label 1) or low (label 0) over a per-image background,
+    with noise. Returns the two list paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    rng = np.random.default_rng(3)
+    writes, lines = [], []
+    for i in range(n):
+        label = i % 2
+        img = np.empty((FILE_H, FILE_W, 3), np.int16)
+        img[:] = rng.integers(40, 110, size=3)
+        top, x0 = (20 if label else 130), int(rng.integers(8, FILE_W - 88))
+        img[top:top + 90, x0:x0 + 80] = (200, 180, 90)
+        img += rng.integers(-12, 13, size=img.shape, dtype=np.int16)
+        writes.append((str(root / f"img{i:04d}.jpg"),
+                       np.clip(img, 0, 255).astype(np.uint8)))
+        lines.append(f"img{i:04d}.jpg {label}")
+    with ThreadPoolExecutor(8) as pool:
+        if not all(pool.map(lambda pf: cv2.imwrite(*pf), writes)):
+            raise AssertionError("cv2.imwrite failed on the image corpus")
+    train, val = root / "train.txt", root / "val.txt"
+    train.write_text("\n".join(lines[:-IMAGE_VAL]) + "\n")
+    val.write_text("\n".join(lines[-IMAGE_VAL:]) + "\n")
+    return train, val
+
+
+def image_phase(np, torch, kernels, repo: Path, card: str) -> dict:
+    """Phase 14: the image models through the port's entry points.
+    [14a] lit_img.yaml's ResNet-50 image classifier (224², bf16, 2
+    classes, the brightness head) from a port checkpoint through
+    ``engine_from_checkpoint``: ``score_images`` on phase 11's 291-frame
+    video (fused-bottleneck launches, the logit rule against the fp32 plain
+    path, images/s, one profiled batch), ``count_by_image_model`` on its
+    mp4 against the fp32 plain engine's, a planted swap caught;
+    [14e] its ``.pt2`` through ``scripts/export_model`` (launches, logits
+    and count as the live engine's); [14b] lit_img.yaml's training from
+    ``ImageDataset`` over written JPEGs (``Trainer.fit``, dx/dW launches,
+    finite losses, ``backward_order_check`` with two planted faults, train
+    images/s);
+    [14c] ConvNeXt-B and ViT-B/16 at 224² (logits against fp32 plain,
+    images/s, one finite train step each, no hand kernel); [14d] the
+    counters on phase 9's corpus, card against CPU: ``eval_dataset`` in
+    ``motion``, ``similarity`` and ``image`` mode at COUNTER_SIZE, and the
+    similarity's lag profile with TF32 on. Returns the phase's numbers."""
+    import copy
+    import csv
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data import datasets
+    from workoutdetector_tpu_torch.data.video import VideoReader, write_video
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 count_by_image_model,
+                                                 engine_from_checkpoint,
+                                                 eval_dataset)
+    from workoutdetector_tpu_torch.infer.inference_count import \
+        similarity_engine
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.scripts import export_model as export_cli
+    from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    from workoutdetector_tpu_torch.utils import similarity
+
+    phase_t0 = time.perf_counter()
+    yaml = str(repo / LIT_IMG_YAML)
+    cfg = load_config(yaml)
+    m = cfg.model
+    if (m.model_type, m.base_model, m.dtype, m.num_class,
+            cfg.data.batch_size, cfg.optimizer.method) != \
+            ("image", "resnet50", "bfloat16", IMAGE_CLASSES, IMAGE_BATCH,
+             "adamw"):
+        raise AssertionError(f"{LIT_IMG_YAML} is not the image ResNet-50 "
+                             "this phase drives")
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-image-", dir=repo))
+    try:
+        # [14a] inference and the image counter
+        model = build_model(cfg.model)
+        variables = random_flax_variables(model, seed=0)
+        load_flax_variables(model, variables)
+        ref_cfg = cfg.model.clone()
+        ref_cfg.dtype = "float32"
+        ref_model = build_model(ref_cfg, use_kernels=False)
+        load_flax_variables(ref_model, variables)
+        frames, reps = sweep_frames(np, np.random.default_rng(11), "squat",
+                                    SERVE_REPS)  # phase 11's video
+        mp4 = str(tmp / "squat.mp4")
+        write_video(mp4, frames, 30.0)
+        with VideoReader(mp4) as r:
+            video = r.read_prepped(256, SIZE)
+        brightness_head(np, torch, model, ref_model, video,
+                        head=lambda mm: mm.backbone_img.fc)
+        ckpt = CheckpointManager(str(tmp / "ckpt")).save(
+            {"model": model.state_dict()}, name="best")
+        engine = engine_from_checkpoint(cfg, ckpt, image_size=SIZE,
+                                        window_batch=WINDOW_BATCH)
+        ref_engine = InferenceEngine(ref_model, window_batch=WINDOW_BATCH,
+                                     image_size=SIZE, device="cuda",
+                                     input_rank=4)
+        if engine.input_rank != 4:
+            raise AssertionError("an image config gave a rank-"
+                                 f"{engine.input_rank} engine")
+        engine.score_images(video[:WINDOW_BATCH])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits = engine.score_images(video)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        forwards = math.ceil(len(video) / WINDOW_BATCH)
+        want = dict({k: 0 for k in launches}, fused_bottleneck=6 * forwards)
+        images_s = len(video) / seconds
+        log(f"    [14a] score_images: {len(video)} images in {forwards} "
+            f"forwards, {seconds:.4f} s = {images_s:.2f} images/s on {card}; "
+            f"launches {({k: v for k, v in launches.items() if v})} "
+            f"({launches['fused_bottleneck'] / forwards:g} fused_bottleneck "
+            "a forward, fold 0, n_segment 1)")
+        if launches != want:
+            raise AssertionError(f"image launches {launches} != {want}")
+        if logits.shape != (len(video), IMAGE_CLASSES) or \
+                not np.isfinite(logits).all():
+            raise AssertionError(f"bad image logits: shape {logits.shape}")
+        idle, busy = profile_call(torch, lambda: engine.score_images(
+            video[:WINDOW_BATCH]))
+        ref = ref_engine.score_images(video)
+        logit_rule(np, logits, ref, "image ResNet-50")
+        err = float(np.abs(logits - ref).max())
+        counts = image_count_rule(np, logits, ref, err, "image ResNet-50")
+        kernels.reset_launches()
+        count, got_reps = count_by_image_model(engine, mp4)
+        count_launches = kernels.launch_counts()["fused_bottleneck"]
+        ref_count, ref_reps = count_by_image_model(ref_engine, mp4)
+        log(f"    count_by_image_model: {count} (reps {got_reps[:6]}...), "
+            f"fp32 plain {ref_count}, the video's {SERVE_REPS}; "
+            f"{count_launches} fused launches; per-frame rule {counts}")
+        if (count, got_reps) != (ref_count, ref_reps) or count < 2 or \
+                count_launches != 6 * forwards:
+            raise AssertionError("the image counter disagrees with the fp32 "
+                                 "plain path")
+        dark = int(np.flatnonzero(np.abs(ref[:, 1] - ref[:, 0]) > 2 * err)[0])
+        other = int(np.flatnonzero((ref.argmax(1) != ref[dark].argmax()) & (
+            np.abs(ref[:, 1] - ref[:, 0]) > 2 * err))[0])
+        planted = logits.copy()
+        planted[[dark, other]] = planted[[other, dark]]
+        try:
+            image_count_rule(np, planted, ref, err, "planted")
+        except AssertionError as exc:
+            log(f"    planted swap of frames {dark} and {other}: caught ({exc})")
+        else:
+            raise AssertionError("the image count rule misses a planted swap")
+        out.update(images_per_s=images_s, forwards=forwards,
+                   fused_per_forward=launches["fused_bottleneck"] / forwards,
+                   fused_launches=launches["fused_bottleneck"],
+                   logit_max_abs_diff=err, count=count, ref_count=ref_count,
+                   idle_share=idle, busy_ms=busy)
+
+        # [14e] export: the .pt2 of the checkpoint, its launches and logits
+        t0 = time.perf_counter()
+        export_cli.main(["--cfg", yaml, "--checkpoint", ckpt, "-o",
+                         str(tmp / "img"), "--batch", str(WINDOW_BATCH)])
+        export_s = time.perf_counter() - t0
+        art = engine_from_checkpoint(cfg, str(tmp / "img.pt2"))
+        art.score_images(video[:WINDOW_BATCH])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        art_logits = art.score_images(video)
+        torch.cuda.synchronize()
+        art_s = len(video) / (time.perf_counter() - t0)
+        art_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        art_err = float(np.abs(art_logits - logits).max())
+        same = bool((art_logits.argmax(1) == logits.argmax(1)).all())
+        art_count = count_by_image_model(art, mp4)
+        log(f"    [14e] export {export_s:.2f} s, "
+            f"{(tmp / 'img.pt2').stat().st_size / 2**20:.1f} MB, rank "
+            f"{art.input_rank}: launches {art_launches}, max |logit diff| vs "
+            f"live {art_err:.6f}, argmax equal {same}, count {art_count[0]}; "
+            f"{art_s:.2f} images/s")
+        if art.input_rank != 4 or \
+                art_launches != {"fused_bottleneck": 6 * forwards} or \
+                not same or art_count != (count, got_reps):
+            raise AssertionError("the image artifact differs from the live "
+                                 "engine")
+        logit_rule(np, art_logits, logits, "image artifact vs the live engine")
+        out.update(export_s=export_s, artifact_images_per_s=art_s,
+                   artifact_max_abs_diff=art_err)
+        del art, engine
+        torch.cuda.empty_cache()
+
+        # [14b] training from ImageDataset
+        t0 = time.perf_counter()
+        root = tmp / "images"
+        root.mkdir()
+        train_list, val_list = write_image_corpus(
+            np, root, IMAGE_BATCH * IMAGE_TRAIN_STEPS + IMAGE_VAL)
+        tcfg = load_config(yaml, [
+            f"data.data_root={root}", f"data.train.anno={train_list}",
+            f"data.val.anno={val_list}", f"data.test.anno={val_list}",
+            f"trainer.max_steps={IMAGE_TRAIN_STEPS}",
+            "trainer.log_every_n_steps=1", "log.tensorboard_enable=false",
+            f"trainer.default_root_dir={tmp / 'runs'}",
+            f"callbacks.modelcheckpoint.dirpath={tmp / 'train_ckpt'}"])
+        trainer = Trainer(tcfg, device="cuda")
+        if type(trainer._loader("val", False).dataset) is not \
+                datasets.ImageDataset:
+            raise AssertionError("lit_img.yaml did not build an ImageDataset")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        state, history = trainer.fit(variables=variables)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        fit_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {"conv1x1_dx": 33 * IMAGE_TRAIN_STEPS,
+                "conv1x1_dw": 33 * IMAGE_TRAIN_STEPS, "fused_bottleneck": 6}
+        runs = list((tmp / "runs").iterdir())
+        with open(runs[0] / "csv" / "metrics.csv") as f:
+            losses = [float(r["train/loss"]) for r in csv.DictReader(f)
+                      if r.get("train/loss")]
+        log(f"    [14b] fit: {state.step} steps at batch {IMAGE_BATCH} + 1 val "
+            f"forward from ImageDataset "
+            f"({datasets.decoder_path(trainer._loader('val', False).dataset.transform)}; "
+            f"corpus written in {t1 - t0:.2f} s) in {fit_s:.2f} s; launches "
+            f"{fit_launches} ({fit_launches.get('conv1x1_dx', 0) / max(state.step, 1):g} "
+            f"dx + {fit_launches.get('conv1x1_dw', 0) / max(state.step, 1):g} dW a "
+            f"step); losses {[round(v, 4) for v in losses]}; val {history}")
+        if fit_launches != want or len(losses) != IMAGE_TRAIN_STEPS or \
+                not np.isfinite(losses).all() or \
+                not math.isfinite(history["val/loss"]):
+            raise AssertionError(f"image training: launches {fit_launches} "
+                                 f"!= {want} or a non-finite loss")
+        batches = iter(trainer._loader("train", shuffle=True))
+        x_u8, y = next(batches)
+        batches.close()
+        del trainer, state
+        torch.cuda.empty_cache()
+        out["backward_check"] = backward_order_check(
+            np, torch, build_model, load_flax_variables, tcfg, variables,
+            IMAGE_BATCH, image_faults())
+        trainer = Trainer(tcfg, device="cuda")
+        state = trainer.init_state(steps_per_epoch=10, variables=variables)
+        trainer.train_step(state, x_u8, y)
+        torch.cuda.synchronize()
+        n = 5
+        t1 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(state, x_u8, y)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / n
+        train_s = IMAGE_BATCH / step_s
+        log(f"    train step {step_s * 1e3:.2f} ms = {train_s:.2f} images/s "
+            f"at batch {IMAGE_BATCH} on {card}")
+        step_idle, step_busy = profile_call(
+            torch, lambda: trainer.train_step(state, x_u8, y), top=8)
+        out.update(train_images_per_s=train_s, train_step_ms=step_s * 1e3,
+                   dx_per_step=33, dw_per_step=33,
+                   dx_launches=fit_launches["conv1x1_dx"],
+                   dw_launches=fit_launches["conv1x1_dw"], losses=losses,
+                   step_idle_share=step_idle, step_busy_ms=step_busy)
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # [14c] the other zoos: no hand kernel
+        images = video[:4 * WINDOW_BATCH]
+        xb = np.random.default_rng(4).integers(
+            0, 256, (IMAGE_BATCH, 1, SIZE, SIZE, 3), dtype=np.uint8)
+        yb = np.arange(IMAGE_BATCH) % IMAGE_CLASSES
+        for base in OTHER_BACKBONES:
+            bcfg = load_config(yaml, [f"model.base_model={base}"])
+            bm = build_model(bcfg.model)
+            bvars = random_flax_variables(bm, seed=0)
+            load_flax_variables(bm, bvars)
+            bref_cfg = bcfg.model.clone()
+            bref_cfg.dtype = "float32"
+            bref = build_model(bref_cfg, use_kernels=False)
+            load_flax_variables(bref, bvars)
+            beng = InferenceEngine(bm, window_batch=WINDOW_BATCH,
+                                   image_size=SIZE, device="cuda",
+                                   input_rank=4)
+            beng.score_images(images[:WINDOW_BATCH])
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            blogits = beng.score_images(images)
+            torch.cuda.synchronize()
+            b_s = len(images) / (time.perf_counter() - t1)
+            blaunch = {k: v for k, v in kernels.launch_counts().items() if v}
+            bref_logits = InferenceEngine(
+                bref, window_batch=WINDOW_BATCH, image_size=SIZE,
+                device="cuda", input_rank=4).score_images(images)
+            log(f"    [14c] {base}: {len(images)} images {b_s:.2f} images/s "
+                f"on {card}; launches {blaunch}")
+            logit_rule(np, blogits, bref_logits, base)
+            del beng, bref
+            torch.cuda.empty_cache()
+            btrainer = Trainer(bcfg, device="cuda")
+            bstate = btrainer.init_state(steps_per_epoch=10, variables=bvars)
+            loss = float(btrainer.train_step(bstate, xb, yb)["loss"])
+            log(f"        one train step at batch {IMAGE_BATCH}: loss {loss:.4f}")
+            if blaunch or not math.isfinite(loss):
+                raise AssertionError(f"{base}: hand-kernel launches {blaunch} "
+                                     f"or a non-finite loss {loss}")
+            out[base] = {"images_per_s": b_s, "train_loss": loss,
+                         "logit_max_abs_diff": float(
+                             np.abs(blogits - bref_logits).max())}
+            del btrainer, bstate, bm
+            torch.cuda.empty_cache()
+
+        # [14d] the counters on phase 9's corpus, card against CPU
+        corpus = tmp / "sweep"
+        write_sweep_corpus(np, corpus)
+        kw = dict(action=["all"], split="test", data_root=str(corpus))
+
+        def both(mode, card_engine, cpu_engine):
+            res = {}
+            for dev, eng in (("cuda", card_engine), ("cpu", cpu_engine)):
+                t1 = time.perf_counter()
+                counts_out = str(tmp / f"{mode}_{dev}.json")
+                metrics = eval_dataset(eng, model_type=mode, device=dev,
+                                       counts_out=counts_out, **kw)
+                with open(counts_out) as f:
+                    res[dev] = (metrics, json.load(f),
+                                time.perf_counter() - t1)
+            log(f"    [14d] eval_dataset {mode}: card {res['cuda'][0]} "
+                f"{res['cuda'][1]} in {res['cuda'][2]:.2f} s; CPU "
+                f"{res['cpu'][0]} {res['cpu'][1]} in {res['cpu'][2]:.2f} s")
+            if res["cuda"][:2] != res["cpu"][:2]:
+                raise AssertionError(f"{mode} counts on the card differ from "
+                                     "the CPU's")
+            return res["cuda"][1]
+
+        out["motion_counts"] = both("motion", None, None)
+        scfg = load_config(yaml, ["model.base_model=resnet18",
+                                  f"data.image_size={COUNTER_SIZE}"])
+        s_card, s_cpu = similarity_engine(scfg, "cuda"), \
+            similarity_engine(scfg, "cpu")
+        out["similarity_counts"] = both("similarity", s_card, s_cpu)
+        feats = similarity.video_cnn_features(
+            s_card, str(corpus / "videos" / "test" / "test0.mp4"))
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True  # the library's choice
+        try:
+            tf32 = float(np.abs(similarity.lag_profile(feats, "cuda")
+                                - similarity.lag_profile(feats, "cpu")).max())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        log(f"    lag profile with TF32 matmuls allowed: max |card - CPU| "
+            f"{tf32:.3g} (float64 in the function)")
+        if tf32 > 1e-9:
+            raise AssertionError("the similarity's precision follows the "
+                                 "caller's TF32 setting")
+        # the image counter at COUNTER_SIZE: the fp32 model on the card and
+        # on the CPU (the kernel path's counts beside, as a report: [14a]
+        # holds it to the fp32 path frame by frame), the head set anew at
+        # that crop from the corpus's darkest and brightest frames
+        small = []
+        for p in sorted((corpus / "videos" / "test").iterdir()):
+            with VideoReader(str(p)) as r:
+                small.append(r.read_prepped(
+                    round(COUNTER_SIZE * 256 / 224), COUNTER_SIZE))
+        brightness_head(np, torch, model, ref_model, np.concatenate(small),
+                        head=lambda mm: mm.backbone_img.fc)
+        cpu_model = copy.deepcopy(ref_model).cpu()
+        out["image_counts"] = both(
+            "image",
+            InferenceEngine(ref_model, window_batch=WINDOW_BATCH,
+                            image_size=COUNTER_SIZE, device="cuda",
+                            input_rank=4),
+            InferenceEngine(cpu_model, window_batch=WINDOW_BATCH,
+                            image_size=COUNTER_SIZE, device="cpu",
+                            input_rank=4))
+        kernel_engine = InferenceEngine(model, window_batch=WINDOW_BATCH,
+                                        image_size=COUNTER_SIZE,
+                                        device="cuda", input_rank=4)
+        kernels.reset_launches()
+        eval_dataset(kernel_engine, model_type="image",
+                     counts_out=str(tmp / "image_kernels.json"), **kw)
+        with open(tmp / "image_kernels.json") as f:
+            out["image_counts_kernel_path"] = json.load(f)
+        log(f"    the kernel path (bf16) at {COUNTER_SIZE}²: "
+            f"{out['image_counts_kernel_path']}, "
+            f"{kernels.launch_counts()['fused_bottleneck']} fused launches")
+        out["tf32_lag_profile_max_abs_diff"] = tf32
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - phase_t0
+    log(f"    phase [14]: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -2998,6 +3591,14 @@ def main() -> int:
         f"TDNDataset")
     tdn = tdn_phase(np, torch, kernels, video, repo, card)
 
+    torch.cuda.empty_cache()
+    log(f"[14] image models ({LIT_IMG_YAML}: ResNet-50 image classifier, "
+        f"{SIZE}, bf16, {IMAGE_CLASSES} classes): window_batch "
+        f"{WINDOW_BATCH} inference and the image counter, export, "
+        f"{IMAGE_TRAIN_STEPS} train steps at batch {IMAGE_BATCH} from "
+        f"ImageDataset; {', '.join(OTHER_BACKBONES)}; the counters")
+    image = image_phase(np, torch, kernels, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -3026,6 +3627,15 @@ def main() -> int:
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
         "attention_dq": ("workoutdetector_tpu_torch/csrc/attention_bwd.cu",
                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+        # the same kernels at the image ResNet-50's sites (phase 14): the
+        # fused blocks on 16 single images (fold 0), dx and dW unshifted at
+        # lit_img.yaml's batch of 64
+        "fused_bottleneck_image": ("workoutdetector_tpu_torch/csrc/fused_block.cu",
+                                   "workoutdetector_tpu/ops/pallas/fused_block.py:192"),
+        "conv1x1_dx_image": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
+                             "workoutdetector_tpu/ops/pallas/conv1x1.py:52"),
+        "conv1x1_dw_image": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
+                             "workoutdetector_tpu/ops/pallas/conv1x1.py:92"),
     }
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
@@ -3040,7 +3650,10 @@ def main() -> int:
                          attention_tiled=tiled_launches["attention_tiled"],
                          attention_bwd=ts_train_launches["attention_bwd"],
                          attention_dkv=tiled_launches["attention_dkv"],
-                         attention_dq=tiled_launches["attention_dq"])
+                         attention_dq=tiled_launches["attention_dq"],
+                         fused_bottleneck_image=image["fused_launches"],
+                         conv1x1_dx_image=image["dx_launches"],
+                         conv1x1_dw_image=image["dw_launches"])
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
@@ -3057,7 +3670,7 @@ def main() -> int:
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
                     "sweep": sweep, "files": files, "serve": serve,
-                    "tpn": tpn, "tdn": tdn, "card": card}))
+                    "tpn": tpn, "tdn": tdn, "image": image, "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

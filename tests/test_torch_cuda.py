@@ -929,3 +929,92 @@ def test_cuda_tpn_launches_and_logits_vs_plain(cuda_device):
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
     assert counts == {"shift_matmul": 16, "conv1x1_dx": 33, "conv1x1_dw": 33}
     assert torch.isfinite(loss)
+
+
+# the image ResNet-50's fused sites (C, F, O, downsample): stride-1 blocks of
+# stages 0-1 on single 224² images (56² and 28² maps), no shift
+IMAGE_FUSED_SITES = [(64, 64, 256, True, 56), (256, 64, 256, False, 56),
+                     (512, 128, 512, False, 28)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("c,f,o,ds,hw", IMAGE_FUSED_SITES)
+def test_cuda_fused_bottleneck_image_sites(cuda_device, c, f, o, ds, hw, n):
+    """The image path's calls: n_segment 1, fold 0, on one image, on a
+    ragged batch of 3 and on a 16-image batch; the wgmma route, one launch
+    each, against the plain version."""
+    rng = np.random.default_rng(c + n)
+    p = _fused_params(rng, c, f, o, ds, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((n, hw, hw, c)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    assert kernels.wgmma_route(c, f, o, ds)
+    before = _fused_launches()
+    _close(kernels.fused_bottleneck(x, p, n_segment=1, fold=0),
+           kernels.fused_bottleneck_plain(x, p, n_segment=1, fold=0))
+    assert _fused_launches() == (before[0] + 1, before[1])
+
+
+# the image ResNet-50's 1×1 backward sites at lit_img.yaml's batch of 64
+# 224² images (frames, H, W, C, O): conv1 and conv3 of each stage, the
+# stage-0 downsample, every one unshifted
+IMAGE_BWD_SHAPES = [(64, 56, 56, 64, 64), (64, 56, 56, 256, 64),
+                    (64, 56, 56, 64, 256), (64, 28, 28, 512, 128),
+                    (64, 28, 28, 128, 512), (64, 14, 14, 1024, 256),
+                    (64, 14, 14, 256, 1024), (64, 7, 7, 2048, 512),
+                    (64, 7, 7, 512, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,h,w,c,o", IMAGE_BWD_SHAPES)
+def test_cuda_conv1x1_dx_dw_image_sites(cuda_device, frames, h, w, c, o):
+    """dx by the elementwise rule; dW, sums of up to 200,704 products
+    here, by chip_smoke.py's rule for such sums: the fp32 rounding of a
+    sum scales with the sizes of its terms, not with the entry, so an
+    entry that nearly cancels carries an error of the row sums' order:
+    |kernel − plain| ≤ 1e-4·max|plain| (a wrong row split or shift errs by
+    the order of max|plain|)."""
+    r = frames * h * w
+    x, gy, wgt = _bwd_inputs(5, r, c, o)
+    before = (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches)
+    _close(kernels.conv1x1_dx(gy, wgt.t()), kernels.conv1x1_dx_plain(gy, wgt.t()))
+    got, want = kernels.conv1x1_dw(x, gy), kernels.conv1x1_dw_plain(x, gy)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (kernels.conv1x1_dx.launches, kernels.conv1x1_dw.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_image_resnet50_launches_and_logits_vs_plain(cuda_device):
+    """The image ResNet-50 (bf16, 64 px) launches 6 fused bottlenecks a
+    forward and 33 dx + 33 dW a train step, nothing else; its logits within
+    chip_smoke.py's rule of the fp32 plain model's."""
+    from workoutdetector_tpu_torch.models import (ImageClassifier,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import cross_entropy
+
+    model = ImageClassifier("resnet50", 2, dtype=torch.bfloat16)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    ref = ImageClassifier("resnet50", 2, use_kernels=False)
+    load_flax_variables(ref, variables)
+    model, ref = model.to(cuda_device), ref.to(cuda_device)
+    x = torch.randn(5, 1, 64, 64, 3, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda_device)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got, want = model(x), ref(x)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"fused_bottleneck": 6}
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 0.05 * (1 + want.abs().max())
+    model.train()
+    kernels.reset_launches()
+    loss = cross_entropy(model(x), torch.tensor([0, 1, 1, 0, 1],
+                                                device=cuda_device)).mean()
+    loss.backward()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"conv1x1_dx": 33, "conv1x1_dw": 33}
+    assert torch.isfinite(loss)

@@ -161,10 +161,13 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("model_type,base,rank", [("tdn", "resnet50", 6),
-                                                  ("tpn", "resnet18", 5)])
+                                                  ("tpn", "resnet18", 5),
+                                                  ("image", "resnet18", 4),
+                                                  ("image", "convnext_atto", 4)])
 def test_engine_from_checkpoint_raises_without_cuda(model_type, base, rank):
-    """TDN's rank-6 engine and TPN's ask for the card by default, and raise
-    without one unless the caller names the CPU."""
+    """TDN's rank-6 engine, TPN's and the image models' rank-4 engines ask
+    for the card by default, and raise without one unless the caller names
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from workoutdetector_tpu_torch.config import Config
@@ -257,3 +260,58 @@ def test_serving_and_export_clis_raise_without_cuda(cli, tmp_path):
            "demo": lambda: demo.main(["-i", str(tmp_path / "v.mp4")] + opts)}
     with pytest.raises(RuntimeError, match="CUDA"):
         run[cli]()
+
+
+_IMAGE_CHILD = r"""
+import sys
+import numpy as np
+import torch
+from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                             count_by_image_model,
+                                             count_by_motion_periodicity,
+                                             count_by_similarity)
+from workoutdetector_tpu_torch.infer.inference_count import similarity_engine
+from workoutdetector_tpu_torch.models import (ImageClassifier, build_model,
+                                              load_flax_variables,
+                                              port_convnext_checkpoint,
+                                              port_timesformer_checkpoint,
+                                              port_vit_checkpoint)
+from workoutdetector_tpu_torch.models.convert import random_flax_variables
+from workoutdetector_tpu_torch.models.convnext import ConvNeXt
+from workoutdetector_tpu_torch.utils import similarity as sim
+import workoutdetector_tpu_torch.serve.demo
+images = np.random.default_rng(0).integers(0, 256, (5, 32, 32, 3), np.uint8)
+for base in ("resnet50", "convnext_atto", "vit_tiny_patch16_224"):
+    model = ImageClassifier(base, 2, image_size=32)
+    load_flax_variables(model, random_flax_variables(model, seed=0))
+    engine = InferenceEngine(model, window_batch=2, image_size=32,
+                             device="cpu", input_rank=4)
+    logits = engine.score_images(images)
+    assert logits.shape == (5, 2) and np.isfinite(logits).all(), base
+t = np.arange(96)
+feats = np.stack([np.sin(2 * np.pi * t / 24), np.cos(2 * np.pi * t / 24)],
+                 1).astype(np.float32)
+assert sim.count_by_periodicity(feats, device="cpu")[:2] == (4, 24)
+frames = np.zeros((96, 32, 32, 3), np.uint8)
+frames[:, :8, :8] = (127 + 100 * np.sin(2 * np.pi * t / 24))[:, None, None,
+                                                              None]
+assert sim.count_by_spatial_periodicity(frames, grid=4,
+                                        device="cpu")[0] == 4
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "workoutdetector_tpu", "matplotlib"))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_image_models_and_counters_run_without_jax_in_a_fresh_process():
+    """The image zoo (ConvNeXt, the ViT branch, the ResNet with its head),
+    the rank-4 engine, the checkpoint ports, ``utils/similarity`` and the
+    counters import no jax, flax or JAX package (nor matplotlib, which only
+    ``plot_similarity`` takes), and score and count on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _IMAGE_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")

@@ -540,9 +540,14 @@ def test_server_cli_builds_on_cpu(tmp_path):
 def test_demo_cli_counts_as_the_engine(tmp_path, capsys, engines):
     """The demo CLI over a ``.pt2`` artifact of the R18 model: its count is
     ``count_by_video_model``'s on the artifact's engine, its scores the
-    sorted 11-label payload; the tasks of item 6 refuse."""
+    sorted 11-label payload; ``count-similarity`` prints the motion
+    periodicity counter's count (the JAX demo's), ``count-repnet`` refuses
+    (item 6)."""
     from workoutdetector_tpu_torch.data.video import write_video
-    from workoutdetector_tpu_torch.infer import (count_by_video_model,
+    from workoutdetector_tpu.infer import \
+        count_by_motion_periodicity as jax_count_by_motion_periodicity
+    from workoutdetector_tpu_torch.infer import (count_by_motion_periodicity,
+                                                 count_by_video_model,
                                                  engine_from_checkpoint)
     from workoutdetector_tpu_torch.serve import demo
     from workoutdetector_tpu_torch.utils.export import export_model
@@ -559,6 +564,14 @@ def test_demo_cli_counts_as_the_engine(tmp_path, capsys, engines):
                art])
     values = list(json.loads(capsys.readouterr().out).values())
     assert len(values) == 11 and values == sorted(values, reverse=True)
-    for task in ("count-similarity", "count-repnet"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            demo.main(["-i", path, "--task", task, "--cpu"])
+    # count-similarity: the motion periodicity counter, as the JAX demo
+    # prints it; count-repnet still refuses
+    demo.main(["-i", path, "--task", "count-similarity", "--cpu"])
+    got = json.loads(capsys.readouterr().out)
+    count, period, strength = count_by_motion_periodicity(path, device="cpu")
+    assert got == {"count": count, "period_frames": period,
+                   "strength": round(float(strength), 4)}
+    assert (count, period) == \
+        jax_count_by_motion_periodicity(path)[:2]
+    with pytest.raises(NotImplementedError, match="item 6"):
+        demo.main(["-i", path, "--task", "count-repnet", "--cpu"])

@@ -508,8 +508,19 @@ def test_sharded_eval_matches_full_and_jax_merge(corpus, bright, tmp_path):
     # resume: a shard rerun with its counts file recounts nothing
     assert ic.eval_dataset(teng, shard=(0, 2), counts_out=files[0],
                            resume=True, **kw) == partials[0]
+    # the motion counter needs no engine: counts and metrics as the JAX
+    # package's; RepNet still refuses
+    motion = [ic.eval_dataset(None, model_type="motion", device="cpu",
+                              counts_out=str(tmp_path / "motion_port.json"),
+                              **kw),
+              jic.eval_dataset(None, model_type="motion",
+                               counts_out=str(tmp_path / "motion_jax.json"),
+                               **kw)]
+    assert motion[0] == motion[1]
+    assert _load(tmp_path / "motion_port.json") == \
+        _load(tmp_path / "motion_jax.json")
     with pytest.raises(NotImplementedError, match="item 6"):
-        ic.eval_dataset(teng, model_type="motion", **kw)
+        ic.eval_dataset(teng, model_type="repnet", **kw)
 
 
 # ------------------------------------------------------------- the CLI
@@ -537,8 +548,14 @@ def test_cli_matches_jax_cli(corpus, bright, tmp_path, monkeypatch, capsys):
     assert printed["port"] == printed["jax"]
     assert json.loads(printed["port"][2])["n_pred"] == 5
     assert json.loads(printed["port"][3])["scored"] == 5
+    # the motion counter's CLI needs no engine: the JAX CLI's output;
+    # RepNet still refuses
+    jic.main(["--eval", "--model-type", "motion"] + base)
+    want = capsys.readouterr().out.strip()
+    ic.main(["--eval", "--model-type", "motion", "--cpu"] + base)
+    assert capsys.readouterr().out.strip() == want
     with pytest.raises(NotImplementedError, match="item 6"):
-        ic.main(["--eval", "--model-type", "motion"] + base)
+        ic.main(["--eval", "--model-type", "repnet"] + base)
 
 
 def test_cli_score_exit_status(corpus, bright, tmp_path, monkeypatch, capsys):
@@ -572,7 +589,8 @@ def test_cli_score_exit_status(corpus, bright, tmp_path, monkeypatch, capsys):
 def test_cli_engine_from_a_port_checkpoint(corpus, tmp_path, capsys):
     """--cpu --score through load_config and engine_from_checkpoint on a
     port checkpoint (TSM-R18 at 32 px) equals the engine built in-process
-    on the same weights; .jaxm and image-rank engines are refused."""
+    on the same weights; .jaxm is refused, and rank 4 is refused for TSM
+    and taken by an image model."""
     from workoutdetector_tpu_torch.config import load_config
     from workoutdetector_tpu_torch.models import build_model
     from workoutdetector_tpu_torch.models.convert import random_flax_variables
@@ -594,6 +612,14 @@ def test_cli_engine_from_a_port_checkpoint(corpus, tmp_path, capsys):
     assert _load(tmp_path / "cli" / name) == _load(tmp_path / "direct" / name)
     with pytest.raises(ValueError, match="StableHLO"):
         engine_mod.engine_from_checkpoint(cfg, "model.jaxm", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # rank 4 is the image models' input: refused for TSM, taken for
+    # model_type image (its default)
+    with pytest.raises(ValueError, match="rank 4"):
         engine_mod.engine_from_checkpoint(cfg, None, input_rank=4,
                                           device="cpu")
+    cfg.model.model_type = "image"
+    img = engine_mod.engine_from_checkpoint(cfg, None, input_rank=4,
+                                            image_size=32, device="cpu")
+    assert img.input_rank == 4
+    assert img.score_images(np.zeros((3, 32, 32, 3), np.uint8)).shape == \
+        (3, cfg.model.num_class)

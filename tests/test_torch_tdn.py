@@ -364,7 +364,7 @@ def test_rank6_engine_scores_as_jax():
 def test_build_model_and_engine_from_checkpoint_take_tdn():
     """build_model builds TDN (num_frames at least 5), example_input_shape
     gives its rank-6 shape, engine_from_checkpoint takes input_rank 6 and
-    still refuses 4 (the image models)."""
+    refuses 4, which is the image models' (and taken for an image config)."""
     cfg = load_config(TDN_YAML, [f"model.num_segments={SEG}",
                                  "model.dtype=float32", "model.num_frames=1"])
     model = build_model(cfg.model)
@@ -376,5 +376,11 @@ def test_build_model_and_engine_from_checkpoint_take_tdn():
     assert eng.input_rank == 6
     x = np.zeros((1, SEG, 5, 32, 32, 3), np.uint8)
     assert eng.score_windows(x).shape == (1, 12)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # rank 4 is the image models' input, not TDN's; an image config takes it
+    with pytest.raises(ValueError, match="rank 4"):
         engine_from_checkpoint(cfg, None, input_rank=4, device="cpu")
+    cfg.model.model_type, cfg.model.base_model = "image", "resnet18"
+    img = engine_from_checkpoint(cfg, None, image_size=32, window_batch=2,
+                                 input_rank=4, device="cpu")
+    assert img.score_images(np.zeros((3, 32, 32, 3), np.uint8)).shape == \
+        (3, 12)

@@ -15,7 +15,10 @@ gather reads zeros past it.
 
 An engine of ``input_rank`` 6 serves TDN: its windows are (N, T, 5, H, W,
 C) bursts, scored by ``score_windows`` / ``score_clip``; it has no video
-path, as the JAX engine has no burst gather.
+path, as the JAX engine has no burst gather. An engine of ``input_rank``
+4 serves the image models: ``score_images`` scores (N, H, W, C) frames
+(padded to ``window_batch`` as any window batch), and a headless model's
+engine returns its features (N, D).
 
 ``InferenceEngine.from_exported`` serves a ``torch.export`` artifact
 (``utils/export``) instead of a live model: its windows are gathered on
@@ -59,14 +62,11 @@ class StagedVideo(NamedTuple):
 
 
 def check_rank(input_rank: int) -> None:
-    """The engine's input ranks: 5 (video windows) and 6 (TDN's bursts);
-    rank 4, the image models', comes later (ROADMAP §1 item 6)."""
-    if input_rank == 4:
-        raise NotImplementedError(
-            "input_rank 4 (the image models, score_images) is not in the "
-            "PyTorch port yet (ROADMAP §1 item 6)")
-    if input_rank not in (5, 6):
-        raise ValueError(f"input_rank {input_rank}: 5 (video) or 6 (TDN)")
+    """The engine's input ranks: 4 (images), 5 (video windows) and 6
+    (TDN's bursts)."""
+    if input_rank not in (4, 5, 6):
+        raise ValueError(
+            f"input_rank {input_rank}: 4 (images), 5 (video) or 6 (TDN)")
 
 
 class InferenceEngine:
@@ -83,7 +83,8 @@ class InferenceEngine:
             t_fc folded into t_attn.proj on a copy, in fp32; other models
             are left as they are), as the JAX engine does.
         input_rank: 5 for video models, 6 for TDN's (B, T, 5, H, W, C)
-            bursts (windows only: ``score_windows``, ``score_clip``).
+            bursts (windows only: ``score_windows``, ``score_clip``), 4 for
+            the image models' (B, H, W, C) frames (``score_images``).
     """
 
     def __init__(self, model: torch.nn.Module, num_segments: int = 8,
@@ -121,7 +122,8 @@ class InferenceEngine:
         host gather (``supports_device_gather`` is False): ``score_video``,
         ``score_video_chunked`` and ``inference_dataset`` gather windows on
         the host and score them with ``score_windows``; a TDN artifact
-        (rank 6) scores burst windows only."""
+        (rank 6) scores burst windows only, an image artifact (rank 4)
+        images (``score_images``; ``num_segments`` 1)."""
         from workoutdetector_tpu_torch.utils.export import load_exported
         self = cls.__new__(cls)
         self.device = resolve_device(device)
@@ -134,7 +136,7 @@ class InferenceEngine:
         self.meta = art.meta
         self.labels = art.meta.get("labels")
         self.window_batch = int(shape[0])
-        self.num_segments = int(shape[1])
+        self.num_segments = int(shape[1]) if len(shape) > 4 else 1
         self.image_size = int(shape[-3])
         self._setup()
         return self
@@ -158,8 +160,11 @@ class InferenceEngine:
 
     def require_video_windows(self) -> None:
         """ValueError for an engine whose windows are not (N, T, H, W, C)
-        video windows (rank 6, TDN's bursts): the video paths gather only
-        those."""
+        video windows (rank 6, TDN's bursts; rank 4, images): the video
+        paths gather only those."""
+        if self.input_rank == 4:
+            raise ValueError("a rank-4 engine scores (N, H, W, C) images "
+                             "with score_images; it has no video windows")
         if self.input_rank != 5:
             raise ValueError(
                 f"a rank-{self.input_rank} engine (TDN's (N, T, 5, H, W, C) "
@@ -194,6 +199,16 @@ class InferenceEngine:
         """Score N windows (N, T, H, W, C) uint8 (a rank-6 engine's (N, T,
         5, H, W, C)) → (N, num_class) logits."""
         return self.chunked_call(self._run, windows_u8)
+
+    def score_images(self, images_u8: np.ndarray) -> np.ndarray:
+        """The image models' path: (N, H, W, C) uint8 frames → (N,
+        num_class) logits (a headless model's (N, D) features), in batches
+        of ``window_batch`` with the tail zero-padded and trimmed
+        (``chunked_call``). A rank-4 engine's only call."""
+        if self.input_rank != 4:
+            raise ValueError(f"score_images needs a rank-4 engine, not "
+                             f"rank {self.input_rank}")
+        return self.score_windows(images_u8)
 
     def score_clip(self, clip_u8: np.ndarray) -> np.ndarray:
         """Score one (T, H, W, C) window (rank 6: (T, 5, H, W, C)) →
@@ -396,7 +411,9 @@ def engine_from_checkpoint(cfg,
     its sidecar fixes the batch and size), or ``build_model(cfg.model)``
     with the weights of a port checkpoint (a ``CheckpointManager`` file:
     its EMA weights where it has them), or the port's initializers from
-    seed 0 where no checkpoint is given."""
+    seed 0 where no checkpoint is given. ``input_rank`` defaults to 4 for
+    ``model_type: image`` and to 5 otherwise; rank 4 is the image models'
+    alone, and they take no other (ValueError)."""
     from workoutdetector_tpu_torch.models import (build_model,
                                                   init_flax_variables,
                                                   load_flax_variables)
@@ -410,8 +427,13 @@ def engine_from_checkpoint(cfg,
             "export, which the PyTorch port cannot read; export the "
             "checkpoint with the port (scripts/export_model.py) to a .pt2 "
             "artifact")
-    rank = 5 if input_rank is None else input_rank
+    image = cfg.model.model_type.lower() == "image"
+    rank = (4 if image else 5) if input_rank is None else input_rank
     check_rank(rank)
+    if (rank == 4) != image:
+        raise ValueError(f"input_rank {rank} for model_type "
+                         f"{cfg.model.model_type!r}: rank 4 (images) is the "
+                         "image models' input, and theirs alone")
     model = build_model(cfg.model)
     if checkpoint:
         mgr = CheckpointManager(os.path.dirname(checkpoint) or ".")

@@ -1,11 +1,14 @@
 """Repetition counting and dataset scoring / evaluation.
 
-Port of ``workoutdetector_tpu/infer/inference_count.py`` for the video
-state classifier: ``count_by_video_model``, ``inference_dataset`` (the
-same per-video score-JSON schema), ``eval_dataset``,
-``eval_count_shards`` and the dataset CLI (``main``: ``--score``,
-``--eval``, ``--merge-shards``). The other counters (image, similarity,
-motion, RepNet) come with their model families (ROADMAP §1 item 6).
+Port of ``workoutdetector_tpu/infer/inference_count.py``: the counters
+of the video state classifier (``count_by_video_model``), the per-frame
+image classifier (``count_by_image_model``) and the two training-free
+ones (``count_by_similarity`` over a headless image engine's features,
+``count_by_motion_periodicity`` over pixels, no engine),
+``inference_dataset`` (the same per-video score-JSON schema),
+``eval_dataset``, ``eval_count_shards`` and the dataset CLI (``main``:
+``--score``, ``--eval``, ``--merge-shards``). The RepNet counter comes
+with its model family (ROADMAP §1 item 6).
 
 One difference from the JAX CLI: ``--score`` exits with status 1 when its
 shard scored nothing and its failure manifest is not empty, so a sweep in
@@ -23,12 +26,16 @@ from bisect import bisect_left
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
-from workoutdetector_tpu_torch.counting import pred_to_count
+from workoutdetector_tpu_torch.counting import (majority_vote_states,
+                                                pred_to_count)
 from workoutdetector_tpu_torch.data.repcount import RepcountHelper
 from workoutdetector_tpu_torch.data.video import VideoReader, write_video
 from workoutdetector_tpu_torch.infer.engine import (InferenceEngine,
                                                     score_video_chunked)
+from workoutdetector_tpu_torch.utils.similarity import (
+    count_by_periodicity, count_by_spatial_periodicity, video_cnn_features)
 
 MODEL_TYPES = ("video", "image", "similarity", "motion", "repnet")
 
@@ -93,6 +100,94 @@ def count_by_video_model(engine: InferenceEngine,
         if isinstance(video, np.ndarray):
             raise ValueError("video_out_path needs the video's path")
         write_count_video(video, video_out_path, reps, states, step=8)
+    return count, reps
+
+
+def count_by_similarity(feature_engine: InferenceEngine, video_path: str,
+                        min_period: int = 4, min_strength: float = 0.05
+                        ) -> Tuple[int, int, float]:
+    """Training-free count from the temporal self-similarity of per-frame
+    features: the fundamental period of their lag profile, count =
+    duration / period. Even a randomly initialised backbone carries the
+    photometric signal of a periodic motion, so no checkpoint is needed.
+
+    Args:
+        feature_engine: a rank-4 engine over a headless image model
+            (``ImageClassifier(base, num_class=0)``); the similarity runs
+            on its device.
+
+    Returns:
+        (count, period_frames, strength); count 0 when no periodic
+        structure clears ``min_strength``.
+    """
+    feats = video_cnn_features(feature_engine, video_path)
+    return count_by_periodicity(feats, min_period=min_period,
+                                min_strength=min_strength,
+                                device=feature_engine.device)
+
+
+def count_by_motion_periodicity(video_path: str, grid: int = 8,
+                                image_size: int = 64, min_period: int = 4,
+                                min_strength: float = 0.05,
+                                device: Union[str, torch.device, None]
+                                = "cuda") -> Tuple[int, int, float]:
+    """Training-free count from per-cell pixel periodicity (no checkpoint
+    and no backbone): the video decoded at ``image_size``, each cell of a
+    grid × grid split with its own lag profile (one batched matmul on
+    ``device``), the strongest cell's waveform cycle-counted
+    (``utils.similarity.count_by_spatial_periodicity``).
+
+    Returns:
+        (count, period_frames, strength); count 0 when no periodic
+        structure clears ``min_strength``.
+    """
+    scale = max(image_size, round(image_size * 256 / 224))
+    with VideoReader(video_path) as r:
+        frames = r.read_prepped(scale, image_size)
+    return count_by_spatial_periodicity(frames, grid=grid,
+                                        min_period=min_period,
+                                        min_strength=min_strength,
+                                        device=device)
+
+
+def count_by_image_model(engine: InferenceEngine, video_path: str,
+                         ground_truth: Optional[List[int]] = None,
+                         video_out_path: Optional[str] = None,
+                         pred_out_path: Optional[str] = None,
+                         threshold: float = 0.1) -> Tuple[int, List[int]]:
+    """Count reps with a per-frame image state classifier (reference
+    count_by_image_model, :192-243): per-frame argmax over
+    ``engine.score_images`` → 7-deep majority vote (≥ 4) → state per frame
+    → pred_to_count(step=7).
+
+    ``threshold``: frames whose largest softmax score falls below it
+    become -1 (background), which pred_to_count skips — the reference's
+    documented semantics, which its code never applies. ``pred_out_path``
+    writes {video_path, step: 1, scores: {frame: [logits]}} (the frame
+    keys strings, as JSON writes int keys).
+    """
+    with VideoReader(video_path) as r:
+        video = r.read_prepped(256, engine.image_size)
+    if len(video) == 0:
+        return 0, []
+    scores = engine.score_images(video)
+    argmaxes = np.argmax(scores, axis=1)
+    states = majority_vote_states(argmaxes, window=7)
+    if threshold > 0:
+        e = np.exp(scores - scores.max(axis=1, keepdims=True))
+        max_prob = (e / e.sum(axis=1, keepdims=True)).max(axis=1)
+        states = [-1 if p < threshold else s
+                  for s, p in zip(states, max_prob)]
+    count, reps = pred_to_count(states, step=7)
+    if pred_out_path is not None:
+        d = {"video_path": video_path, "step": 1,
+             "scores": {i: s.tolist() for i, s in enumerate(scores)}}
+        if not pred_out_path.endswith(".json"):
+            pred_out_path += ".json"
+        with open(pred_out_path, "w") as f:
+            json.dump(d, f)
+    if video_out_path is not None:
+        write_count_video(video_path, video_out_path, reps, states, step=7)
     return count, reps
 
 
@@ -325,14 +420,21 @@ def eval_dataset(engine: InferenceEngine,
                  shard: Tuple[int, int] = (0, 1),
                  counts_out: Optional[str] = None,
                  resume: bool = False,
-                 on_error: str = "raise") -> Tuple[float, float]:
+                 on_error: str = "raise",
+                 device: Union[str, torch.device, None] = "cuda"
+                 ) -> Tuple[float, float]:
     """Per-video counting over a split → ``RepcountHelper.eval_count``'s
     MAE/OBO, and a per-video CSV in ``output_dir`` when given (pandas,
     imported there).
 
-    ``model_type='video'`` only; the others raise ``NotImplementedError``
-    (their counters come with ROADMAP §1 item 6), and ``threshold`` and
-    ``grid``, which only they read, are accepted for the JAX signature.
+    ``model_type``: ``'video'`` (``count_by_video_model``), ``'image'``
+    (``count_by_image_model``, a rank-4 engine; ``threshold`` goes to it
+    alone, default 0: the reference's counts), ``'similarity'``
+    (``count_by_similarity``, a rank-4 engine over a headless model) or
+    ``'motion'`` (``count_by_motion_periodicity``, no engine: pass None; it
+    runs on ``device``). ``'repnet'`` raises ``NotImplementedError``
+    (ROADMAP §1 item 6); ``grid``, which only it reads, is accepted for
+    the JAX signature.
 
     ``shard=(i, n)`` counts worker i's disjoint slice of the split; the
     metrics are divided by the whole split's size, so the shards' partial
@@ -352,7 +454,7 @@ def eval_dataset(engine: InferenceEngine,
         anno_path = os.path.join(data_root, "annotation.csv")
     if model_type not in MODEL_TYPES:
         raise ValueError(f"Invalid model type: {model_type}")
-    if model_type != "video":
+    if model_type == "repnet":
         raise _model_type_not_ported(model_type)
     helper = RepcountHelper(data_root, anno_path)
     items = helper.get_rep_data(split=[split], action=action)
@@ -378,9 +480,20 @@ def eval_dataset(engine: InferenceEngine,
         if save_video and output_dir is not None:
             out_path = os.path.join(output_dir, name)
         try:
-            count, _ = count_by_video_model(engine, item.video_path,
-                                            ground_truth=item.reps,
-                                            video_out_path=out_path)
+            if model_type == "motion":
+                count, _, _ = count_by_motion_periodicity(item.video_path,
+                                                          device=device)
+            elif model_type == "similarity":
+                count, _, _ = count_by_similarity(engine, item.video_path)
+            elif model_type == "video":
+                count, _ = count_by_video_model(engine, item.video_path,
+                                                ground_truth=item.reps,
+                                                video_out_path=out_path)
+            else:
+                count, _ = count_by_image_model(engine, item.video_path,
+                                                ground_truth=item.reps,
+                                                video_out_path=out_path,
+                                                threshold=threshold)
         except Exception as e:
             if on_error == "raise":
                 raise
@@ -434,6 +547,28 @@ def eval_count_shards(counts_files: Sequence[str],
         anno_path = os.path.join(data_root, "annotation.csv")
     helper = RepcountHelper(data_root, anno_path)
     return helper.eval_count(merged, action=list(action), split=list(split))
+
+
+def similarity_engine(cfg, device: Union[str, torch.device, None] = "cuda"
+                      ) -> InferenceEngine:
+    """The CLI's checkpoint-free feature engine for ``count_by_similarity``:
+    a headless fp32 ResNet (``cfg.model.base_model`` where it is one of
+    the zoo's, else resnet18; no fused kernel: they take bf16) from the
+    port's initializers at seed 0, rank 4, window batch 16, at
+    ``cfg.data.image_size``. The JAX CLI draws its weights from
+    ``PRNGKey(0)``, which the port cannot reproduce, so the two CLIs'
+    counts on the same video may differ (ROADMAP §3)."""
+    from workoutdetector_tpu_torch.models import (ImageClassifier,
+                                                  init_flax_variables,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.resnet import STAGE_SIZES
+    base = cfg.model.base_model if cfg.model.base_model in STAGE_SIZES \
+        else "resnet18"
+    net = ImageClassifier(base, num_class=0, fused_block=False)
+    load_flax_variables(net, init_flax_variables(net, seed=0))
+    return InferenceEngine(net, window_batch=16,
+                           image_size=cfg.data.image_size, device=device,
+                           input_rank=4)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -523,16 +658,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                                           split=[args.split])
         print(json.dumps({"mae": mae, "obo_acc": obo, "n_pred": len(res)}))
         return
-    if args.model_type != "video":
+    if args.model_type == "repnet":
         raise _model_type_not_ported(args.model_type)
 
     from workoutdetector_tpu_torch.config import load_config
     from workoutdetector_tpu_torch.infer import engine as engine_mod
 
+    device = "cpu" if args.cpu else "cuda"
     cfg = load_config(args.cfg, args.opts)
-    engine = engine_mod.engine_from_checkpoint(
-        cfg, args.checkpoint, image_size=cfg.data.image_size,
-        device="cpu" if args.cpu else "cuda")
+    engine = None
+    if args.model_type == "similarity":
+        engine = similarity_engine(cfg, device)
+    elif args.model_type != "motion":
+        if args.model_type == "image":
+            cfg.model.model_type = "image"  # per-frame, a rank-4 engine
+        engine = engine_mod.engine_from_checkpoint(
+            cfg, args.checkpoint, image_size=cfg.data.image_size,
+            device=device)
 
     if args.score is not None:
         summary = inference_dataset(
@@ -563,7 +705,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                             threshold=args.threshold,
                             grid=args.grid,
                             shard=(i, n), counts_out=args.counts_out,
-                            resume=args.resume, on_error=args.on_error)
+                            resume=args.resume, on_error=args.on_error,
+                            device=device)
     print(json.dumps({"mae": mae, "obo_acc": obo, "shard": [i, n]}))
 
 

@@ -11,17 +11,22 @@ at this package's module names, which follow the flax tree:
   * BN and LayerNorm ``scale`` → ``weight``, ``mean`` → ``running_mean``,
     ``var`` → ``running_var``; ``bias`` stays ``bias``;
   * the TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
-    parameters keep their names and shapes.
+    parameters and ConvNeXt's γ layer scales (``gamma``) keep their names
+    and shapes; a ConvNeXt depthwise kernel (7, 7, 1, C) HWIO becomes
+    (C, 1, 7, 7) by the same 4-D rule.
 
 It also keeps its copy of the reference-checkpoint port
 (``load_torch_checkpoint``, ``strip_ddp_prefix``, ``strip_shift_wrappers``,
 ``port_tsm_checkpoint``, ``port_tdn_checkpoint``, JAX
-``convert.py:28-155, 203-261, 550``): a reference PyTorch TSM or TDN
+``convert.py:28-155, 203-261, 550``; ``port_convnext_checkpoint``,
+``port_timesformer_checkpoint`` and ``port_vit_checkpoint``, JAX
+``:328-627``): a reference PyTorch TSM or TDN
 state dict (torchvision ResNet names under ``base_model.``, DDP's
 ``module.`` prefixes, the shift's ``.net.`` wrappers, ``new_fc``; TDN's
 ``layer{i}_bak``, ``resnext_layer1``, ``conv1_5.{0,1}`` and the
-``shift.conv`` Conv1d) becomes a flax-layout tree, which
-``load_flax_variables`` sets on the port's model.
+``shift.conv`` Conv1d), a timm or facebook ConvNeXt, an mmaction or
+HuggingFace TimeSformer, or a timm ViT state dict becomes a flax-layout
+tree, which ``load_flax_variables`` sets on the port's model.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from workoutdetector_tpu_torch.models.convnext import LAYER_SCALE_INIT
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var",
          "bias": "bias", "kernel": "weight"}
@@ -42,7 +49,8 @@ _KERNEL_TO_PORT = {2: lambda a: a.T,
 _KERNEL_TO_FLAX = {2: lambda a: a.T,
                    4: lambda a: a.transpose(2, 3, 1, 0),
                    5: lambda a: a.transpose(2, 3, 4, 1, 0)}
-_RAW = ("cls_token", "pos_embed", "time_embed")  # carried as they are
+_EMBED = ("cls_token", "pos_embed", "time_embed")
+_RAW = _EMBED + ("gamma",)  # carried as they are
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -148,8 +156,8 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
     convs (2-D and 3-D), N(0, 1/fan_in) dense kernels (a TimeSformer's
     ``t_fc`` included: its JAX init is zero, which would hide the temporal
     branch), TDN's shift taps at their shift pattern plus N(0, 0.2²)
-    noise, randomised BN/LayerNorm affine and BN running statistics, and
-    truncated-normal(0.02) TimeSformer embeddings."""
+    noise, randomised BN/LayerNorm affine, ConvNeXt γ and BN running
+    statistics, and truncated-normal(0.02) TimeSformer embeddings."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
@@ -157,7 +165,7 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
         shape = tuple(t.shape)
         *mods, leaf = key.split(".")
         kind = kernel_init.get(mods[-1] if mods else "", ("", None))
-        if leaf in _RAW:
+        if leaf in _EMBED:
             a = _truncated_normal(rng, shape, 0.02)
         elif leaf == "weight" and kind[0] == "shift":
             a = shift_taps(shape, kind[1]) + rng.normal(0.0, 0.2, shape)
@@ -166,7 +174,7 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
             a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
         elif leaf == "weight" and len(shape) == 2:
             a = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
-        elif leaf == "weight":
+        elif leaf in ("weight", "gamma"):
             a = rng.uniform(0.5, 1.0, shape)
         elif leaf == "bias":
             a = rng.normal(0.0, 0.1, shape)
@@ -189,15 +197,17 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
     start as the shift pattern; a bias zero as every bias); BN and
     LayerNorm scale 1 and bias 0, running mean 0 and var 1; TimeSformer's
     ``cls_token``, ``pos_embed`` and ``time_embed`` truncated
-    normal(0.02). The distributions are flax's; the draws are not
-    jax.random's."""
+    normal(0.02); ConvNeXt's γ 1e-6. The distributions are flax's; the
+    draws are not jax.random's."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
     for key, t in model.state_dict().items():
         shape = tuple(t.shape)
         *mods, leaf = key.split(".")
-        if leaf in _RAW:
+        if leaf == "gamma":
+            a = np.full(shape, LAYER_SCALE_INIT)
+        elif leaf in _EMBED:
             a = _truncated_normal(rng, shape, 0.02)
         elif leaf == "weight" and len(shape) in (2, 4, 5):
             kind, std = kernel_init.get(mods[-1], ("lecun_normal", None))
@@ -428,6 +438,264 @@ def port_tdn_checkpoint(state_dict: Mapping[str, Any],
         arr = _convert_value(path, _to_numpy(v))
         (params if coll == "params" else stats)[path] = arr
     tree = {"params": _unflatten(params), "batch_stats": _unflatten(stats)}
+    if target_params is not None:
+        tree["params"] = merge_into(target_params, tree["params"])
+    return tree
+
+
+# ------------------------------------------------ image and ViT checkpoints
+
+
+def _torch_leaf(arr: np.ndarray, leaf: str, kind: str
+                ) -> Tuple[np.ndarray, str]:
+    """A torch ``weight`` leaf → its flax leaf: a conv's OIHW → HWIO
+    ``kernel`` (a depthwise (C, 1, 7, 7) → (7, 7, 1, C)), a dense's
+    (out, in) → (in, out) ``kernel``, a LayerNorm's → ``scale``; other
+    leaves as they are."""
+    if leaf != "weight":
+        return arr, leaf
+    if kind == "conv":
+        return np.transpose(arr, (2, 3, 1, 0)), "kernel"
+    if kind == "dense":
+        return np.transpose(arr, (1, 0)), "kernel"
+    return arr, "scale"
+
+
+def _convnext_key_to_flax(key: str) -> Optional[Tuple[Tuple[str, ...], str]]:
+    """One timm-ConvNeXt state-dict key → (flax path, leaf kind), timm's
+    block names (conv_dw, mlp.fc1) or facebook's original ones (dwconv,
+    pwconv1); None for keys to skip. A stage's ``downsample.0`` is its
+    LayerNorm (``down{i}_norm``, applied first), ``downsample.1`` its
+    conv."""
+    k = key.replace(".dwconv.", ".conv_dw.")
+    k = k.replace(".pwconv1.", ".mlp.fc1.").replace(".pwconv2.", ".mlp.fc2.")
+    parts = k.split(".")
+    if parts[-1] == "num_batches_tracked":
+        return None
+    if parts[0] == "stem":
+        mod = "stem_conv" if parts[1] == "0" else "stem_norm"
+        return (mod, parts[-1]), ("conv" if mod == "stem_conv" else "norm")
+    if parts[0] == "stages":
+        i = parts[1]
+        if parts[2] == "downsample":
+            if parts[3] == "0":
+                return (f"down{i}_norm", parts[-1]), "norm"
+            return (f"down{i}_conv", parts[-1]), "conv"
+        if parts[2] == "blocks":
+            block = f"stage{i}_block{parts[3]}"
+            rest = parts[4:]
+            if rest == ["gamma"]:
+                return (block, "gamma"), "gamma"
+            if rest[0] == "conv_dw":
+                return (block, "conv_dw", rest[-1]), "conv"
+            if rest[0] == "norm":
+                return (block, "norm", rest[-1]), "norm"
+            if rest[:2] in (["mlp", "fc1"], ["mlp", "fc2"]):
+                return (block, rest[1], rest[-1]), "dense"
+    if parts[0] == "head":
+        if parts[1] == "norm":
+            return ("head_norm", parts[-1]), "norm"
+        if parts[1] in ("fc", "head"):
+            return ("head", parts[-1]), "dense"
+    return None
+
+
+def port_convnext_checkpoint(state_dict: Mapping[str, Any], num_class: int,
+                             target_params: Optional[Mapping[str, Any]] = None,
+                             prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """A timm or facebook ConvNeXt state dict → the flax ConvNeXt layout
+    under ``prefix`` (``("backbone_img",)`` for an ``ImageClassifier``),
+    JAX ``convert.port_convnext_checkpoint``. 'module.' and 'model.'
+    prefixes are stripped; a head whose output width is not
+    ``num_class`` is dropped; with ``target_params`` the ported params are
+    overlaid onto it where paths and shapes match."""
+    sd = strip_ddp_prefix(dict(state_dict))
+    sd = {(k[len("model."):] if k.startswith("model.") else k): v
+          for k, v in sd.items()}
+    head_w = sd.get("head.fc.weight", sd.get("head.weight"))
+    drop_head = head_w is not None and \
+        _to_numpy(head_w).shape[0] != num_class
+    items = []
+    for k, v in sd.items():
+        m = _convnext_key_to_flax(k)
+        if m is not None:
+            items.append((m[0], m[1], _to_numpy(v)))
+    tree = _port_params(items, drop_head, prefix, head="head")
+    if target_params is not None:
+        tree["params"] = merge_into(target_params, tree["params"])
+    return tree
+
+
+def _timesformer_normalize_key(key: str) -> str:
+    """An mmaction-TimeSformer key (the layout of the checkpoint the
+    reference config loads) → the HuggingFace layout
+    ``_timesformer_key_to_flax`` reads; HF keys pass through."""
+    k = key
+    if not (k.startswith("backbone.") or k.startswith("cls_head.")):
+        return k
+    for old, new in (
+            ("backbone.cls_token", "timesformer.embeddings.cls_token"),
+            ("backbone.pos_embed",
+             "timesformer.embeddings.position_embeddings"),
+            ("backbone.time_embed", "timesformer.embeddings.time_embeddings"),
+            ("backbone.patch_embed.projection",
+             "timesformer.embeddings.patch_embeddings.projection"),
+            ("backbone.norm.", "timesformer.layernorm."),
+            ("cls_head.fc_cls", "classifier")):
+        k = k.replace(old, new)
+    m = re.match(r"backbone\.transformer_layers\.layers\.(\d+)\.(.*)", k)
+    if m:
+        i, rest = m.group(1), m.group(2)
+        for old, new in (
+                ("attentions.0.norm", "temporal_layernorm"),
+                ("attentions.0.attn.in_proj_weight",
+                 "temporal_attention.attention.qkv.weight"),
+                ("attentions.0.attn.in_proj_bias",
+                 "temporal_attention.attention.qkv.bias"),
+                ("attentions.0.attn.out_proj", "temporal_attention.output.dense"),
+                ("attentions.0.temporal_fc", "temporal_dense"),
+                ("attentions.1.norm", "layernorm_before"),
+                ("attentions.1.attn.in_proj_weight",
+                 "attention.attention.qkv.weight"),
+                ("attentions.1.attn.in_proj_bias",
+                 "attention.attention.qkv.bias"),
+                ("attentions.1.attn.out_proj", "attention.output.dense"),
+                ("ffns.0.norm", "layernorm_after"),
+                ("ffns.0.layers.0.0", "intermediate.dense"),
+                ("ffns.0.layers.1", "output.dense")):
+            rest = rest.replace(old, new)
+        k = f"timesformer.encoder.layer.{i}.{rest}"
+    return k
+
+
+_TIMESFORMER_BLOCK = {
+    ("temporal_layernorm",): (("t_norm",), "norm"),
+    ("temporal_attention", "attention", "qkv"): (("t_attn", "qkv"), "dense"),
+    ("temporal_attention", "output", "dense"): (("t_attn", "proj"), "dense"),
+    ("temporal_dense",): (("t_fc",), "dense"),
+    ("layernorm_before",): (("s_norm",), "norm"),
+    ("attention", "attention", "qkv"): (("s_attn", "qkv"), "dense"),
+    ("attention", "output", "dense"): (("s_attn", "proj"), "dense"),
+    ("layernorm_after",): (("mlp_norm",), "norm"),
+    ("intermediate", "dense"): (("mlp", "fc1"), "dense"),
+    ("output", "dense"): (("mlp", "fc2"), "dense"),
+}
+
+
+def _timesformer_key_to_flax(key: str
+                             ) -> Optional[Tuple[Tuple[str, ...], str]]:
+    """One HF-layout TimeSformer key → (flax path, leaf kind); None for
+    keys to skip."""
+    parts = key.split(".")
+    if parts[0] == "classifier":
+        return ("fc", parts[-1]), "dense"
+    if parts[0] != "timesformer":
+        return None
+    if parts[1] == "layernorm":
+        return ("norm", parts[-1]), "norm"
+    if parts[1] == "embeddings":
+        embed = {"cls_token": "cls_token", "position_embeddings": "pos_embed",
+                 "time_embeddings": "time_embed"}.get(parts[2])
+        if embed is not None:
+            return (embed,), "embed"
+        if parts[2] == "patch_embeddings":
+            return ("patch_embed", parts[-1]), "conv"
+        return None
+    if parts[1] == "encoder" and parts[2] == "layer":
+        hit = _TIMESFORMER_BLOCK.get(tuple(parts[4:-1]))
+        if hit is None:
+            return None
+        path, kind = hit
+        return (f"block_{parts[3]}",) + path + (parts[-1],), kind
+    return None
+
+
+def _port_params(items, drop_head: bool, prefix: Tuple[str, ...] = (),
+                 head: str = "fc") -> Dict[str, Any]:
+    """(flax path, leaf kind, array) triples → {'params', 'batch_stats'}
+    under ``prefix``, the ``head`` module left out when ``drop_head``; an
+    embedding's path is its leaf."""
+    params: Dict[Tuple[str, ...], np.ndarray] = {}
+    for path, kind, arr in items:
+        if drop_head and path[0] == head:
+            continue
+        if kind == "embed":
+            params[prefix + path] = arr
+            continue
+        arr, leaf = _torch_leaf(arr, path[-1], kind)
+        params[prefix + path[:-1] + (leaf,)] = arr
+    return {"params": _unflatten(params), "batch_stats": {}}
+
+
+def port_timesformer_checkpoint(state_dict: Mapping[str, Any],
+                                num_class: int,
+                                target_params: Optional[Mapping[str, Any]]
+                                = None) -> Dict[str, Any]:
+    """An mmaction (the reference config's pretrained file) or HuggingFace
+    ``TimesformerForVideoClassification`` state dict → the flax
+    TimeSformer layout, JAX ``convert.port_timesformer_checkpoint``. A head
+    whose output width is not ``num_class`` is dropped; with
+    ``target_params`` the ported params are overlaid onto it."""
+    sd = strip_ddp_prefix(dict(state_dict))
+    sd = {_timesformer_normalize_key(k): v for k, v in sd.items()}
+    head_w = sd.get("classifier.weight")
+    drop_head = head_w is not None and \
+        _to_numpy(head_w).shape[0] != num_class
+    items = []
+    for k, v in sd.items():
+        m = _timesformer_key_to_flax(k)
+        if m is not None:
+            items.append((m[0], m[1], _to_numpy(v)))
+    tree = _port_params(items, drop_head)
+    if target_params is not None:
+        tree["params"] = merge_into(target_params, tree["params"])
+    return tree
+
+
+_VIT_BLOCK = {
+    "norm1": (("s_norm",), "norm"), "attn.qkv": (("s_attn", "qkv"), "dense"),
+    "attn.proj": (("s_attn", "proj"), "dense"),
+    "norm2": (("mlp_norm",), "norm"), "mlp.fc1": (("mlp", "fc1"), "dense"),
+    "mlp.fc2": (("mlp", "fc2"), "dense"),
+}
+
+
+def port_vit_checkpoint(state_dict: Mapping[str, Any], num_class: int,
+                        target_params: Optional[Mapping[str, Any]] = None,
+                        prefix: Tuple[str, ...] = ("backbone_img",)
+                        ) -> Dict[str, Any]:
+    """A timm-layout ViT state dict (``cls_token``, ``pos_embed``,
+    ``patch_embed.proj``, ``blocks.N.{norm1, attn.qkv, attn.proj, norm2,
+    mlp.fc1, mlp.fc2}``, ``norm``, ``head``) → the ``ImageClassifier``'s
+    ViT branch (TimeSformer ``space_only`` at T = 1) under ``prefix``, JAX
+    ``convert.port_vit_checkpoint``. A head whose output width is not
+    ``num_class`` is dropped; with ``target_params`` the ported params are
+    overlaid onto it."""
+    sd = strip_ddp_prefix(dict(state_dict))
+    head_w = sd.get("head.weight")
+    drop_head = head_w is not None and \
+        _to_numpy(head_w).shape[0] != num_class
+    blk = re.compile(r"blocks\.(\d+)\.(.*)")
+    items = []
+    for k, v in sd.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if k in ("cls_token", "pos_embed"):
+            path, kind = (k,), "embed"
+        elif k.startswith("patch_embed.proj."):
+            path, kind = ("patch_embed", leaf), "conv"
+        elif k.startswith("norm."):
+            path, kind = ("norm", leaf), "norm"
+        elif k.startswith("head."):
+            path, kind = ("fc", leaf), "dense"
+        else:
+            m = blk.match(k)
+            hit = _VIT_BLOCK.get(m.group(2).rsplit(".", 1)[0]) if m else None
+            if hit is None:
+                continue
+            path = (f"block_{m.group(1)}",) + hit[0] + (leaf,)
+            kind = hit[1]
+        items.append((path, kind, _to_numpy(v)))
+    tree = _port_params(items, drop_head, prefix)
     if target_params is not None:
         tree["params"] = merge_into(target_params, tree["params"])
     return tree

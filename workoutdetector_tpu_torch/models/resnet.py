@@ -22,6 +22,9 @@ Two regimes, by ``torch.is_grad_enabled()`` and the module's mode:
   the JAX package's ``conv1x1_bwd='pallas'`` does; the 3×3 convs and the
   stride-2 downsamples stay cuDNN convs with autograd.
 
+With ``num_classes`` the trunk carries its own ``fc`` head (the image
+classifiers' ResNet zoo, ``models/factory.ImageClassifier``).
+
 The TSM hooks of the JAX ResNet become constructor arguments: per-block
 shift specs (``shift_spec``: the shift fused into conv1; ``pre_shift``:
 the whole block input shifted), a stage-input hook, and the whole-block
@@ -372,6 +375,9 @@ class ResNet(nn.Module):
         out_indices: return these stages' (N, h, w, C) outputs, in stage
             order, instead of the pooled features (mmaction's ResNetTSM
             taps, JAX ``resnet.py:336-340``).
+        num_classes: > 0 adds the linear head ``fc`` on the pooled
+            features (the image classifiers' zoo, JAX ``resnet.py:380``);
+            0 returns the pooled features.
     """
 
     def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True,
@@ -382,7 +388,8 @@ class ResNet(nn.Module):
                  fuse_spec: Optional[Callable[[int, int], bool]] = None,
                  use_kernels: bool = True, eps: float = 1e-5,
                  partial_bn: bool = False,
-                 out_indices: Optional[Sequence[int]] = None):
+                 out_indices: Optional[Sequence[int]] = None,
+                 num_classes: int = 0):
         super().__init__()
         self.out_indices = None if out_indices is None else tuple(out_indices)
         # the last block of each tapped stage
@@ -413,6 +420,9 @@ class ResNet(nn.Module):
                     (i, name, pre_shift(i, j) if pre_shift else None))
                 cin = out
         self.num_features = cin
+        if num_classes > 0:
+            self.fc = Dense(cin, num_classes)
+        self.num_classes = num_classes
 
     def forward(self, x: torch.Tensor):
         x = torch.relu(self.conv1(x, self.bn1))
@@ -431,4 +441,28 @@ class ResNet(nn.Module):
                 taps.append(x)
         if self.out_indices is not None:
             return tuple(taps)
-        return x.mean(dim=(1, 2))
+        x = x.mean(dim=(1, 2))
+        return self.fc(x) if self.num_classes > 0 else x
+
+
+def make_resnet(arch: str, num_classes: int = 1000, **kw) -> ResNet:
+    """The zoo's ``arch`` (resnet18/34/50/101) with ``num_classes`` (0:
+    the pooled features), JAX ``resnet._make``; ``kw`` as ``ResNet``'s."""
+    return ResNet(STAGE_SIZES[arch], bottleneck=BOTTLENECK[arch],
+                  num_classes=num_classes, **kw)
+
+
+def resnet18(**kw) -> ResNet:
+    return make_resnet("resnet18", **kw)
+
+
+def resnet34(**kw) -> ResNet:
+    return make_resnet("resnet34", **kw)
+
+
+def resnet50(**kw) -> ResNet:
+    return make_resnet("resnet50", **kw)
+
+
+def resnet101(**kw) -> ResNet:
+    return make_resnet("resnet101", **kw)

@@ -11,7 +11,8 @@ Port of ``workoutdetector_tpu/scripts/export_model.py``:
 
 The artifact is exported for the card (its graph launches the hand
 kernels), or with ``--cpu`` for the CPU, at the input shape
-``models.example_input_shape`` gives (TDN's is rank 6);
+``models.example_input_shape`` gives (TDN's is rank 6, an image model's
+(``model.model_type=image``) rank 4);
 ``InferenceEngine.from_exported`` and ``engine_from_checkpoint`` load it
 where this package is importable.
 """
@@ -72,8 +73,9 @@ def main(argv=None) -> None:
                                                    tree["batch_stats"])}
         load_flax_variables(model, variables)
 
-    # TDN takes rank-6 bursts, TimeSformer its own model.image_size, the
-    # others the data pipeline's crop
+    # TDN takes rank-6 bursts, the image models rank-4 frames, TimeSformer
+    # and the ViT image models their own model.image_size, the others the
+    # data pipeline's crop
     shape = example_input_shape(cfg.model, batch=args.batch,
                                 image_size=cfg.data.image_size)
     path = export_model(model, args.output, input_shape=shape, device=device,

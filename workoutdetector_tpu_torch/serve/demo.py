@@ -7,9 +7,9 @@ count_by_video_model and 'action recognition' via one sampled window).
 gradio is imported only where the interface comes up; without it the CLI
 prints the same outputs (JSON, and with ``-o`` the annotated video).
 
-The checkpoint-free counter (``count-similarity``, the motion
-periodicity counter) and the RepNet one (``count-repnet``) come with
-their model families (ROADMAP §1 item 6).
+``count-similarity`` is the checkpoint-free counter (the per-cell motion
+periodicity, ``count_by_motion_periodicity``); the RepNet one
+(``count-repnet``) comes with its model family (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -20,12 +20,12 @@ from typing import Dict, List, Optional, Tuple
 from workoutdetector_tpu_torch.data.sampling import sample_frames
 from workoutdetector_tpu_torch.data.video import VideoReader
 from workoutdetector_tpu_torch.infer.engine import InferenceEngine
-from workoutdetector_tpu_torch.infer.inference_count import \
-    count_by_video_model
+from workoutdetector_tpu_torch.infer.inference_count import (
+    count_by_motion_periodicity, count_by_video_model)
 from workoutdetector_tpu_torch.serve.server import scores_to_payload
 from workoutdetector_tpu_torch.settings import WORKOUT_LABELS
 
-LATER_TASKS = ("count-similarity", "count-repnet")
+LATER_TASKS = ("count-repnet",)
 
 
 def inference_video_action(engine: InferenceEngine, video_path: str,
@@ -88,8 +88,11 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     parser = argparse.ArgumentParser(description="Workout demo (CLI fallback)")
     parser.add_argument("-i", "--video", required=True)
-    parser.add_argument("--task", choices=["count", "recognize"] +
-                        list(LATER_TASKS), default="count")
+    parser.add_argument("--task", choices=["count", "recognize",
+                                           "count-similarity"] +
+                        list(LATER_TASKS), default="count",
+                        help="count-similarity: the training-free motion "
+                             "periodicity counter (no checkpoint)")
     parser.add_argument("--cfg", default=None)
     parser.add_argument("--checkpoint", default=None,
                         help="port checkpoint file or .pt2 artifact")
@@ -104,11 +107,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise NotImplementedError(
             f"--task {args.task}: its counter is not in the PyTorch port yet "
             "(ROADMAP §1 item 6)")
+    device = "cpu" if args.cpu else "cuda"
+    if args.task == "count-similarity":
+        count, period, strength = count_by_motion_periodicity(
+            args.video, device=device)
+        print(json.dumps({"count": count, "period_frames": period,
+                          "strength": round(float(strength), 4)}))
+        return
     cfg = load_config(args.cfg, args.opts)
     if args.task == "recognize":
         cfg.model.num_class = len(WORKOUT_LABELS)
-    engine = engine_from_checkpoint(cfg, args.checkpoint,
-                                    device="cpu" if args.cpu else "cuda")
+    engine = engine_from_checkpoint(cfg, args.checkpoint, device=device)
     if args.task == "count":
         count, reps = inference_video_reps(engine, args.video, args.output)
         print(json.dumps({"count": count, "reps": reps}))

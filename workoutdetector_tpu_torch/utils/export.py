@@ -39,7 +39,8 @@ SUFFIX = ".pt2"
 
 class InferenceModule(torch.nn.Module):
     """The deployed graph: uint8 (B, T, H, W, 3) windows (TDN's (B, T, 5,
-    H, W, 3) bursts) → logits, without autograd."""
+    H, W, 3) bursts, an image model's (B, H, W, 3) frames) → logits,
+    without autograd."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
