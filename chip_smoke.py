@@ -193,10 +193,35 @@ not printed; no CUDA device → exit 2):
      mode (the fp32 model at 48² on the card and on the CPU, the kernel
      path's counts beside), and the similarity's lag profile with TF32
      matmuls allowed;
- 15. one JSON line of per-kernel numbers (and the sweep's, the file
-     training's, the serving phase's, TPN's, TDN's and the image phase's
-     numbers), the card line again, the script's wall time, and the
-     contract line ``{"ok": true, "device": {...}}`` last.
+ 15. RepNet-base (``workoutdetector_tpu/configs/repnet.yaml``: 64-frame
+     windows at 64², bf16, the port's initializers from seed 0; no hand
+     kernel) and TimeSformer-B/16 with MoE MLPs (``timesformer.yaml`` with
+     ``model.moe_experts=8``: capacity 1.25, load-balance weight 0.01):
+     RepNet's per-frame logits on windows of a written periodic video
+     (``synth_periodic_clip``, period 8, 60 reps) by phase 4's rule
+     against the fp32 model, windows/s and a profiled batch;
+     ``count_by_repnet`` with the grid under a head that leaves no frame
+     near the 0.5 threshold (``periodic_head``): the bf16 count, the fp32
+     path's and the video's reps equal; its ``.pt2`` through
+     ``scripts/export_model`` (frame logits and count as live);
+     ``StreamingPeriodicCounter`` card against CPU; a server with
+     ``--repnet-checkpoint`` and 3 WebSocket clients in
+     ``mode:count-periodic``, their statuses the direct counter's, the
+     periodic batcher's coalescing; ``Trainer.fit`` from
+     ``SyntheticPeriodic`` at batch 32 (losses, loader-fed and in-memory
+     clips/s, idle shares). The MoE model: 12 attention launches a
+     forward on phase 4's video, logits by the rule against the fp32
+     plain model routed as the kernel path (``RouteTape``), each block's
+     dropped share and the share of tokens the two paths route apart;
+     train steps at batch 16 (12 + 12 launches, clips/s beside phase
+     8's), ``grad_check`` on one routing with phase 8's planted fault;
+     ``MoEMlp`` alone, card against CPU on identical inputs: equal
+     routing;
+ 16. one JSON line of per-kernel numbers (and the sweep's, the file
+     training's, the serving phase's, TPN's, TDN's, the image phase's,
+     RepNet's and the MoE model's numbers), the card line again, the
+     script's wall time, and the contract line ``{"ok": true, "device":
+     {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -893,7 +918,7 @@ def shift_faults() -> dict:
 
 
 def grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
-               batch: int, faults: dict) -> None:
+               batch: int, faults: dict, shared_routes: bool = False) -> None:
     """One batch's gradients of the main path (bf16, kernels) against the
     port's plain path in fp32 on the card, per leaf, with the bf16 plain
     path's own error beside; the loss is the train step's (``train_loss``:
@@ -904,7 +929,11 @@ def grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
     repeats one colour, so a fault in a temporal direction would barely
     show). Then the same check with each planted fault, which it must
     catch: ``faults`` maps a label to (module, attribute, make), and the
-    attribute is replaced by ``make(real)`` for that run."""
+    attribute is replaced by ``make(real)`` for that run.
+    ``shared_routes``: a MoE model's every run takes the fp32 run's
+    routing (``RouteTape``), so a token routed apart by rounding does not
+    pass for a gradient fault."""
+    import contextlib
     from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
     from workoutdetector_tpu_torch.train.trainer import train_loss
 
@@ -913,6 +942,8 @@ def grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
         0, 256, (batch, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)).cuda())
     yt = torch.from_numpy(rng.integers(0, NUM_CLASS, batch)).cuda()
 
+    routes = []
+
     def grads(dtype, use_kernels):
         c = cfg.clone()
         c.model.dtype = dtype
@@ -920,8 +951,14 @@ def grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
         load_flax_variables(model, variables)
         model.train()
         g = torch.Generator(device="cuda").manual_seed(7)
-        loss, _ = train_loss(model(x, dropout_generator=g), yt,
-                             c.model.aux_loss_weight)
+        tape = RouteTape(routes or None) if shared_routes \
+            else contextlib.nullcontext()
+        with tape:
+            loss, _ = train_loss(model(x, dropout_generator=g), yt,
+                                 c.model.aux_loss_weight,
+                                 c.model.moe_aux_weight)
+        if shared_routes and not routes:
+            routes.extend(tape.calls)
         loss.backward()
         out = {n: p.grad.float().clone() for n, p in model.named_parameters()}
         del model, loss
@@ -1080,16 +1117,17 @@ def timesformer_phase(np, torch, kernels, video, card: str):
     return launches["attention"], clips_per_s
 
 
-def ts_train_config(repo: Path, steps: int, dataset_size: int, root: str):
+def ts_train_config(repo: Path, steps: int, dataset_size: int, root: str,
+                    opts=()):
     """workoutdetector_tpu/configs/timesformer.yaml as the CLI loads it
     (ViT-B/16 224², 8 segments, 12 classes, divided attention, drop_path
     0.1, bf16; SGD Nesterov, wd 1e-4 with the embeddings exempt, clip 40,
     multistep; batch 16) with a DebugDataset of 12 classes in place of its
     FrameDataset, which needs data the repo lacks, and the run's step
-    count and paths."""
+    count and paths; ``opts``: dotted overrides."""
     from workoutdetector_tpu_torch.config import load_config
     cfg = load_config(str(repo / "workoutdetector_tpu" / "configs"
-                          / "timesformer.yaml"))
+                          / "timesformer.yaml"), list(opts))
     d, t = cfg.data, cfg.trainer
     d.dataset_type, d.debug_num_class, d.debug_size = "DebugDataset", \
         cfg.model.num_class, dataset_size
@@ -3434,6 +3472,573 @@ def image_phase(np, torch, kernels, repo: Path, card: str) -> dict:
     return out
 
 
+REPNET_YAML = "workoutdetector_tpu/configs/repnet.yaml"
+REPNET_FRAMES = 480     # the periodic video's frames
+REPNET_VIDEO = 128      # its side: the grid's 2x decode reads it whole
+REPNET_PERIOD = 8       # its period, in frames: 60 reps
+REPNET_TRAIN_STEPS = 4
+PERIODIC_CLIENTS = 3
+MOE_EXPERTS = 8
+MOE_TRAIN_STEPS = 3
+
+
+def periodic_head(np, torch, models, ref_logits, period: int) -> float:
+    """The count check's head: RepNet's ``period_fc`` bias moved on every
+    model in ``models`` alike. The fp32 path's mean frame logit comes off
+    each class; class 0 (aperiodic) goes down by 200 more, so its
+    probability underflows to 0 in fp32 and every frame reads periodic
+    with probability exactly 1 on both paths (no rounding decides the 0.5
+    threshold, nor the winning rate and view); the class of ``period``
+    goes up by 2 x the largest deviation + 1 (its argmax decided by a
+    margin wider than any bf16 error). Returns that boost."""
+    flat = ref_logits.reshape(-1, ref_logits.shape[-1])
+    center = flat.mean(0)
+    boost = 2 * float(np.abs(flat - center).max()) + 1.0
+    shift = -center.astype(np.float64)
+    shift[0] -= 200.0
+    shift[period - 1] += boost
+    for m in models:
+        fc = m.period_fc
+        fc.bias.data = fc.bias.data + torch.from_numpy(shift).to(fc.bias)
+    return boost
+
+
+def repnet_phase(np, torch, kernels, repo: Path, card: str) -> dict:
+    """Phase 15, RepNet-base (``repnet.yaml``: T 64, 64², bf16, the port's
+    initializers from seed 0) through the port's entry points: [15a] the
+    engine's per-frame logits on windows of a written periodic video
+    (``synth_periodic_clip``, period REPNET_PERIOD) by the logit rule
+    against the fp32 model, windows/s, one profiled batch; [15b]
+    ``count_by_repnet`` with the grid, the bf16 count equal to the fp32
+    path's and to the video's reps under ``periodic_head``; [15c] its
+    ``.pt2`` through ``scripts/export_model`` (frame logits and count as
+    the live engine's); [15d] ``StreamingPeriodicCounter`` over the video,
+    card against CPU; [15e] a ``WorkoutServer`` with
+    ``--repnet-checkpoint`` and PERIODIC_CLIENTS WebSocket clients in
+    ``mode:count-periodic``, statuses equal to the direct streaming
+    counter's; [15f] ``Trainer.fit`` from ``SyntheticPeriodic`` at batch
+    32, loader-fed and in-memory train clips/s, the idle share. Returns
+    the phase's numbers."""
+    import asyncio
+    import base64
+    import csv
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data.datasets import synth_periodic_clip
+    from workoutdetector_tpu_torch.data.video import VideoReader, write_video
+    from workoutdetector_tpu_torch.infer import (InferenceEngine,
+                                                 count_by_repnet,
+                                                 engine_from_checkpoint)
+    from workoutdetector_tpu_torch.infer.inference_count import \
+        repnet_frame_logits_batch
+    from workoutdetector_tpu_torch.infer.streaming import \
+        StreamingPeriodicCounter
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  init_flax_variables,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.scripts import export_model as export_cli
+    from workoutdetector_tpu_torch.serve import server
+    from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    yaml = str(repo / REPNET_YAML)
+    cfg = load_config(yaml)
+    m, d = cfg.model, cfg.data
+    if (m.model_type, m.base_model, m.num_segments, m.dtype, d.image_size,
+            d.batch_size, d.dataset_type) != ("repnet", "base", 64,
+                                              "bfloat16", 64, 32,
+                                              "SyntheticPeriodic"):
+        raise AssertionError(f"{REPNET_YAML} is not the RepNet-base this "
+                             "phase drives")
+    t_win, size = m.num_segments, d.image_size
+    reps = REPNET_FRAMES // REPNET_PERIOD
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-repnet-", dir=repo))
+    srv = thread = None
+    try:
+        # [15a] the engine's per-frame logits
+        clip = synth_periodic_clip(np.random.default_rng(15), REPNET_FRAMES,
+                                   REPNET_VIDEO, period=REPNET_PERIOD,
+                                   kind="translate")
+        mp4 = str(tmp / "periodic.mp4")
+        write_video(mp4, clip, 30.0)
+        model = build_model(cfg.model)
+        variables = init_flax_variables(model, seed=0)
+        load_flax_variables(model, variables)
+        ref_cfg = cfg.model.clone()
+        ref_cfg.dtype = "float32"
+        ref_model = build_model(ref_cfg, use_kernels=False)
+        load_flax_variables(ref_model, variables)
+        engine = InferenceEngine(model, t_win, WINDOW_BATCH, image_size=size,
+                                 device="cuda")
+        ref_engine = InferenceEngine(ref_model, t_win, WINDOW_BATCH,
+                                     image_size=size, device="cuda")
+        with VideoReader(mp4) as r:
+            frames = r.read_prepped(round(size * 256 / 224), size)
+        n = len(frames) // t_win
+        windows = frames[:n * t_win].reshape(n, t_win, size, size, 3)
+        batch = windows[np.arange(4 * WINDOW_BATCH) % n]
+        score = repnet_frame_logits_batch(engine)
+        score(batch[:WINDOW_BATCH])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fl = score(batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        windows_s = len(batch) / seconds
+        log(f"    [15a] video: {REPNET_FRAMES} frames {REPNET_VIDEO}², period "
+            f"{REPNET_PERIOD} ({reps} reps), read at {size}²: {n} windows of "
+            f"{t_win}; frame logits of {len(batch)} windows in {seconds:.4f} s "
+            f"= {windows_s:.2f} windows/s at window batch {WINDOW_BATCH} on "
+            f"{card}; hand-kernel launches {launches} (RepNet has none)")
+        if launches or fl.shape != (len(batch), t_win, t_win // 2) or \
+                not np.isfinite(fl).all():
+            raise AssertionError(f"RepNet frame logits: shape {fl.shape}, "
+                                 f"launches {launches}")
+        idle, busy = profile_call(torch, lambda: score(batch[:WINDOW_BATCH]))
+        ref_fl = repnet_frame_logits_batch(ref_engine)(windows)
+        classes = t_win // 2
+        logit_rule(np, fl[:n].reshape(-1, classes),
+                   ref_fl.reshape(-1, classes), "RepNet frame logits")
+        free = (count_by_repnet(engine, mp4, grid=True),
+                count_by_repnet(ref_engine, mp4, grid=True))
+        log(f"    the seed-0 model's own counts (a report): kernel path "
+            f"{free[0]}, fp32 {free[1]} (count, period, strength)")
+        out.update(windows_per_s=windows_s, idle_share=idle, busy_ms=busy,
+                   frame_logit_max_abs_diff=float(np.abs(
+                       fl[:n] - ref_fl).max()))
+
+        # [15b] count_by_repnet with the grid under the count check's head
+        boost = periodic_head(np, torch, [model, ref_model], ref_fl,
+                              REPNET_PERIOD)
+        got = count_by_repnet(engine, mp4, grid=True)
+        want = count_by_repnet(ref_engine, mp4, grid=True)
+        log(f"    [15b] count_by_repnet(grid=True) under the count check's "
+            f"head (boost {boost:.3f}): kernel path {got}, fp32 {want}, the "
+            f"video's ({reps}, {REPNET_PERIOD}, 1.0)")
+        if got != want or got != (reps, REPNET_PERIOD, 1.0):
+            raise AssertionError("the RepNet count differs from the fp32 "
+                                 "path's or the video's reps")
+        out.update(count=got[0], period=got[1])
+
+        # [15c] the .pt2 of that model through scripts/export_model
+        ckpt = CheckpointManager(str(tmp / "ckpt")).save(
+            {"model": model.state_dict()}, name="repnet")
+        t0 = time.perf_counter()
+        export_cli.main(["--cfg", yaml, "--checkpoint", ckpt, "-o",
+                         str(tmp / "repnet"), "--batch", str(WINDOW_BATCH)])
+        export_s = time.perf_counter() - t0
+        art_path = str(tmp / "repnet.pt2")
+        art = engine_from_checkpoint(cfg, art_path)
+        art_score = repnet_frame_logits_batch(art)
+        art_score(batch[:WINDOW_BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art_fl = art_score(batch)
+        torch.cuda.synchronize()
+        art_s = len(batch) / (time.perf_counter() - t0)
+        live_fl = score(batch)
+        art_err = float(np.abs(art_fl - live_fl).max())
+        art_count = count_by_repnet(art, mp4, grid=True)
+        log(f"    [15c] export {export_s:.2f} s, "
+            f"{Path(art_path).stat().st_size / 2**20:.1f} MB, sidecar "
+            f"model_type {art.meta.get('model_type')} num_class "
+            f"{art.num_class}: frame logits {art_fl.shape}, max |diff| vs "
+            f"live {art_err:.6f}, count {art_count}; {art_s:.2f} windows/s "
+            f"(live {windows_s:.2f})")
+        if art.meta.get("model_type") != "repnet" or \
+                art.num_class != classes or art_count != got:
+            raise AssertionError("the RepNet artifact differs from the live "
+                                 "engine")
+        logit_rule(np, art_fl.reshape(-1, classes),
+                   live_fl.reshape(-1, classes),
+                   "RepNet artifact vs the live engine")
+        out.update(export_s=export_s, artifact_windows_per_s=art_s,
+                   artifact_max_abs_diff=art_err)
+
+        # [15d] the streaming counter, card against CPU
+        cpu_cfg = load_config(yaml, ["model.dtype=float32"])
+        cpu = engine_from_checkpoint(cpu_cfg, ckpt, image_size=size,
+                                     window_batch=1, device="cpu")
+        on_card, on_cpu = StreamingPeriodicCounter(engine), \
+            StreamingPeriodicCounter(cpu)
+        t0 = time.perf_counter()
+        card_status = [s for s in map(on_card.push, clip) if s is not None]
+        stream_s = time.perf_counter() - t0
+        cpu_status = [s for s in map(on_cpu.push, clip) if s is not None]
+        log(f"    [15d] StreamingPeriodicCounter (hop {on_card.hop}): "
+            f"{len(card_status)} statuses on the card in {stream_s:.3f} s, "
+            f"final {card_status[-1]}; CPU (fp32) final {cpu_status[-1]}; "
+            f"equal {card_status == cpu_status}")
+        if card_status != cpu_status or card_status[-1]["count"] != reps:
+            raise AssertionError("the streaming counter on the card differs "
+                                 "from the CPU's or the video's reps")
+
+        # [15e] the server's count-periodic mode over the artifact
+        found = {}
+        for mod in ("websockets", "PIL"):
+            try:
+                found[mod] = importlib.import_module(mod).__version__
+            except ImportError as exc:
+                found[mod] = f"missing ({exc})"
+        have_ws = not found["websockets"].startswith("missing")
+
+        def jpeg(frame):
+            if not found["PIL"].startswith("missing"):
+                from PIL import Image
+                buf = io.BytesIO()
+                Image.fromarray(frame).save(buf, format="JPEG")
+                return buf.getvalue()
+            import cv2
+            return cv2.imencode(".jpg", frame[..., ::-1])[1].tobytes()
+
+        urls = ["data:image/jpeg;base64," + base64.b64encode(
+            jpeg(f)).decode() for f in clip]
+        direct = StreamingPeriodicCounter(art)
+        want_status = [s for s in (direct.push(server.decode_data_url(u))
+                                   for u in urls) if s is not None]
+        port = free_port()
+        srv = server.build_server(["--cfg", str(repo / TSM_YAML), "--port",
+                                   str(port), "--repnet-checkpoint",
+                                   art_path])
+        srv.host, srv.ws_port = "127.0.0.1", free_port()
+        thread = start_server(srv, threading, have_ws)
+        code, health = http_json(f"http://127.0.0.1:{port}/healthz")
+
+        async def client():
+            async with ws_connect(asyncio, srv, srv.ws_port, have_ws) as ws:
+                await ws.send("mode:count-periodic")
+                for url in urls:
+                    await ws.send(url)
+                got = [json.loads(await asyncio.wait_for(ws.recv(), 120))
+                       for _ in want_status]
+                await ws.send("stop")
+            return got
+
+        async def clients():
+            return await asyncio.gather(*[client() for _ in
+                                          range(PERIODIC_CLIENTS)])
+
+        t0 = time.perf_counter()
+        served = asyncio.run(clients())
+        serve_s = time.perf_counter() - t0
+        code, stats = http_json(f"http://127.0.0.1:{port}/stats")
+        pb = stats.get("periodic_batcher") or {}
+        log(f"    [15e] server.build_server(--repnet-checkpoint): /healthz "
+            f"periodic {health.get('periodic')}; {PERIODIC_CLIENTS} "
+            f"count-periodic clients x {len(urls)} frames in {serve_s:.3f} s; "
+            f"final counts {[r[-1]['count'] for r in served]} (direct "
+            f"{want_status[-1]['count']}); /stats periodic_batcher {pb}")
+        strip = [[{k: v for k, v in r.items() if k not in ("success",
+                                                            "mode")}
+                  for r in rs] for rs in served]
+        if health.get("periodic") is not True or \
+                any(rs != want_status for rs in strip) or \
+                pb.get("requests") != PERIODIC_CLIENTS * len(want_status):
+            raise AssertionError("the served periodic counts differ from the "
+                                 "direct streaming counter's")
+        stop_server(srv, thread)
+        srv = thread = None
+        out.update(served_count=want_status[-1]["count"],
+                   periodic_coalescing=pb.get("coalescing"),
+                   serve_s=serve_s)
+        del art, cpu, engine, ref_engine, model, ref_model
+        torch.cuda.empty_cache()
+
+        # [15f] training from SyntheticPeriodic at batch 32
+        steps = REPNET_TRAIN_STEPS
+        tcfg = load_config(yaml, [
+            f"trainer.max_steps={steps}", "trainer.log_every_n_steps=1",
+            f"data.debug_size={steps * d.batch_size}",
+            "log.tensorboard_enable=false",
+            f"trainer.default_root_dir={tmp / 'runs'}",
+            f"callbacks.modelcheckpoint.dirpath={tmp / 'train_ckpt'}"])
+        trainer = Trainer(tcfg, device="cuda")
+        t0 = time.perf_counter()
+        state, history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        runs = [p for p in (tmp / "runs").iterdir()]
+        with open(runs[0] / "csv" / "metrics.csv") as f:
+            losses = [float(r["train/loss"]) for r in csv.DictReader(f)
+                      if r.get("train/loss")]
+        if len(losses) != steps or not np.isfinite(losses).all() or \
+                not math.isfinite(history["val/loss"]):
+            raise AssertionError("RepNet training gave a non-finite or "
+                                 "missing loss")
+        loader = iter(trainer._loader("train", shuffle=True))
+        x_u8, y = next(loader)
+        trainer.train_step(state, x_u8, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            trainer.train_step(state, *next(loader))
+        torch.cuda.synchronize()
+        fed_s = (steps - 1) * d.batch_size / (time.perf_counter() - t0)
+        loader.close()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.train_step(state, x_u8, y)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        mem_s = d.batch_size / step_ms * 1e3
+
+        def fed_steps():
+            it = iter(trainer._loader("train", shuffle=True))
+            for _ in range(3):
+                trainer.train_step(state, *next(it))
+            it.close()
+
+        fed_idle, fed_busy = profile_call(torch, fed_steps, top=8)
+        step_idle, step_busy = profile_call(
+            torch, lambda: trainer.train_step(state, x_u8, y), top=8)
+        log(f"    [15f] fit: {steps} steps + validation in {fit_s:.2f} s, "
+            f"losses {[round(v, 4) for v in losses]}, val {history}; "
+            f"loader-fed {fed_s:.2f} train clips/s (idle {fed_idle}); "
+            f"one batch in memory {step_ms:.2f} ms = {mem_s:.2f} clips/s "
+            f"(idle {step_idle}) at batch {d.batch_size} on {card}")
+        out.update(train_clips_per_s=fed_s, train_idle_share=fed_idle,
+                   train_busy_ms=fed_busy, step_ms=step_ms,
+                   step_clips_per_s=mem_s, step_idle_share=step_idle,
+                   losses=losses, fit_s=fit_s)
+        del trainer, state
+        torch.cuda.empty_cache()
+    finally:
+        if srv is not None:
+            try:
+                stop_server(srv, thread)
+            except Exception:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - phase_t0
+    return out
+
+
+class RouteTape:
+    """``MoEMlp.route`` recorded or replayed, to hold two paths to one
+    routing: recording keeps each call's experts and slots; replaying
+    hands each call the recorded ones in order (the gates still from the
+    model's own router, so the gradient path is the model's)."""
+
+    def __init__(self, replay=None):
+        from workoutdetector_tpu_torch.models import moe
+        self.cls = moe.MoEMlp
+        self.replay = replay
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = self.cls.route
+        tape = self
+
+        def route(mod, tokens):
+            gates, expert, slot, cap = real(mod, tokens)
+            if tape.replay is None:
+                tape.calls.append((expert.detach(), slot.detach(), cap))
+                return gates, expert, slot, cap
+            e, s, c = tape.replay[len(tape.calls)]
+            if e.shape != expert.shape:
+                raise AssertionError("replayed routing of another shape")
+            tape.calls.append((e, s, c))
+            return gates, e, s, c
+
+        self.cls.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.route = self.real
+
+
+def moe_phase(np, torch, kernels, video, repo: Path, card: str,
+              dense_clips_s: float, dense_train_clips_s: float) -> dict:
+    """Phase 15, MoE TimeSformer-B/16 (``timesformer.yaml`` with
+    ``model.moe_experts=8``: capacity 1.25, load-balance weight 0.01):
+    [15g] inference on phase 4's video (12 attention launches a forward),
+    logits by the logit rule against the fp32 plain model routed as the
+    kernel path (``RouteTape``; a routing flip is a real difference, not a
+    kernel fault), each block's dropped share and the share of tokens the
+    two paths route apart when each routes freely; [15h] train steps at
+    batch 16 (12 + 12 launches a step, finite losses, clips/s beside phase
+    8's) and ``grad_check`` with one routing for its three runs and phase
+    8's planted fault; [15i] ``MoEMlp`` alone on the card against the CPU
+    on identical inputs: equal routing. Returns the phase's numbers."""
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (MoEMlp, build_model,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    cfg = ts_train_config(repo, 0, 0, "unused",
+                          [f"model.moe_experts={MOE_EXPERTS}"])
+    m = cfg.model
+    if (m.moe_experts, m.moe_capacity_factor, m.moe_aux_weight,
+            cfg.data.batch_size) != (MOE_EXPERTS, 1.25, 0.01, TS_TRAIN_BATCH):
+        raise AssertionError("the MoE configuration is not timesformer.yaml "
+                             f"with {MOE_EXPERTS} experts")
+    out = {}
+    # [15g] inference
+    model = build_model(cfg.model)
+    variables = random_flax_variables(model, seed=0)
+    load_flax_variables(model, variables)
+    engine = InferenceEngine(model, FRAMES, WINDOW_BATCH, device="cuda")
+    engine.score_video(video[:24], step=8, stride=2)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    starts, logits = engine.score_video(video, step=8, stride=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    forwards = math.ceil(len(starts) / WINDOW_BATCH)
+    want = dict({k: 0 for k in launches}, attention=TS_LAYERS * forwards)
+    clips_s = len(starts) / seconds
+    log(f"    [15g] MoE TimeSformer-B/16 ({MOE_EXPERTS} experts, capacity "
+        f"{m.moe_capacity_factor}): score_video {len(starts)} windows in "
+        f"{forwards} forwards, {seconds:.4f} s = {clips_s:.2f} clips/s on "
+        f"{card} (dense, phase 7: {dense_clips_s:.2f}); launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    if launches != want or not np.isfinite(logits).all():
+        raise AssertionError(f"MoE launches {launches} != {want}")
+    idle, busy = profile_call(torch, lambda: engine.score_windows(
+        engine.gather_windows(video, starts[:WINDOW_BATCH], stride=2)))
+    ref_cfg = cfg.model.clone()
+    ref_cfg.dtype = "float32"
+    ref_model = build_model(ref_cfg, use_kernels=False)
+    load_flax_variables(ref_model, variables)
+    ref_engine = InferenceEngine(ref_model, FRAMES, WINDOW_BATCH,
+                                 device="cuda", optimize=False)
+    with RouteTape() as kernel_routes:
+        engine.score_video(video, step=8, stride=2)
+    with RouteTape(kernel_routes.calls):
+        _, ref = ref_engine.score_video(video, step=8, stride=2)
+    logit_rule(np, logits, ref, "MoE TimeSformer (one routing)")
+    with RouteTape() as free_routes:
+        _, ref_free = ref_engine.score_video(video, step=8, stride=2)
+    calls = kernel_routes.calls
+    flips = [float((a[0] != b[0]).float().mean())
+             for a, b in zip(calls, free_routes.calls)]
+    dropped = [float((s > c).float().mean()) for _, s, c in calls]
+    per = 2 * TS_LAYERS  # calls a forward: cls tokens, patches per block
+    drop_blocks = [float(np.mean(dropped[2 * b + 1::per]))
+                   for b in range(TS_LAYERS)]
+    flip_blocks = [float(np.mean(flips[2 * b + 1::per]))
+                   for b in range(TS_LAYERS)]
+    cls_flips = float(np.mean(flips[0::2]))
+    free_err = float(np.abs(logits - ref_free).max())
+    log(f"    dropped share of the patch tokens by block "
+        f"{[round(v, 4) for v in drop_blocks]} (cls groups "
+        f"{float(np.mean(dropped[0::2])):.4f}); tokens routed apart by the "
+        f"bf16 kernel path and the fp32 path, each routing freely, by block "
+        f"{[round(v, 4) for v in flip_blocks]} (cls {cls_flips:.4f}); max "
+        f"|logit diff| against the freely routed fp32 path {free_err:.5f}")
+    out.update(clips_per_s=clips_s, idle_share=idle, busy_ms=busy,
+               forward_launches=TS_LAYERS,
+               dropped_share=drop_blocks, routed_apart_share=flip_blocks,
+               cls_routed_apart_share=cls_flips,
+               free_routing_max_abs_diff=free_err,
+               logit_max_abs_diff=float(np.abs(logits - ref).max()))
+    del engine, ref_engine, model, ref_model
+    torch.cuda.empty_cache()
+
+    # [15h] train steps at batch 16 and the gradient check
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=10, variables=variables)
+    rng = np.random.default_rng(7)
+    x_u8 = rng.integers(0, 256, (TS_TRAIN_BATCH, FRAMES, SIZE, SIZE, 3),
+                        dtype=np.uint8)
+    y = rng.integers(0, NUM_CLASS, TS_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, x_u8, y)  # first step: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(state, x_u8, y)["loss"]
+              for _ in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_TRAIN_STEPS
+    launches = kernels.launch_counts()
+    want = dict({k: 0 for k in launches},
+                attention=TS_LAYERS * MOE_TRAIN_STEPS,
+                attention_bwd=TS_LAYERS * MOE_TRAIN_STEPS)
+    losses = [float(v) for v in losses]
+    train_s = TS_TRAIN_BATCH / step_s
+    log(f"    [15h] {MOE_TRAIN_STEPS} train steps at batch "
+        f"{TS_TRAIN_BATCH}: {step_s * 1e3:.2f} ms = {train_s:.2f} clips/s on "
+        f"{card} (dense, phase 8: {dense_train_clips_s:.2f}); losses "
+        f"{[round(v, 4) for v in losses]}; launches "
+        f"{({k: v for k, v in launches.items() if v})}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want or not np.isfinite(losses).all():
+        raise AssertionError(f"MoE train launches {launches} != {want}")
+    step_idle, step_busy = profile_call(
+        torch, lambda: trainer.train_step(state, x_u8, y), top=12)
+    out.update(train_clips_per_s=train_s, train_step_ms=step_s * 1e3,
+               train_idle_share=step_idle, train_busy_ms=step_busy,
+               step_launches={k: v // MOE_TRAIN_STEPS
+                              for k, v in launches.items() if v},
+               losses=losses)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    def neighbour_head(real):  # the kernel reads the next head's dO
+        def fault(q, k, v, o, lse, do, *rest, **kw):
+            return real(q, k, v, o, lse, do.roll(1, dims=1), *rest, **kw)
+        fault.launches = 0  # the wrapper counts on its module's name
+        return fault
+
+    ka = importlib.import_module("workoutdetector_tpu_torch.ops.kernels.attention")
+    grad_check(np, torch, build_model, load_flax_variables, cfg, variables,
+               TS_TRAIN_BATCH, {"dO of the neighbouring head":
+                                (ka, "attention_bwd", neighbour_head)},
+               shared_routes=True)
+
+    # [15i] MoEMlp alone: the card against the CPU on identical inputs
+    mlp = MoEMlp(768, 3072, MOE_EXPERTS, 1.25)
+    load_flax_variables(mlp, random_flax_variables(mlp, seed=1))
+    tokens = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4096, 768)).astype(np.float32))
+    res = []
+    for dev in ("cpu", "cuda"):
+        mm = mlp.to(dev)
+        with torch.no_grad():
+            _, expert, slot, cap = mm.route(tokens.to(dev))
+            y_, loss_ = mm(tokens.to(dev))
+        res.append((expert.cpu(), slot.cpu(), cap, y_.cpu(), float(loss_)))
+    (e0, s0, cap, y0, l0), (e1, s1, _, y1, l1) = res
+    mlp_err = float((y1 - y0).abs().max())
+    same = bool(torch.equal(e0, e1) and torch.equal(s0, s1))
+    xb = torch.randn(TS_TRAIN_BATCH * 196 * FRAMES, 768, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def mlp_call():
+        with torch.no_grad():
+            mlp(xb)
+
+    mlp_ms = time_ms(torch, mlp_call, 10)
+    log(f"    [15i] MoEMlp (768 -> 3072, {MOE_EXPERTS} experts) on 4096 "
+        f"tokens, fp32: routing on the card equal to the CPU's {same} "
+        f"(dropped {float((s0 > cap).float().mean()):.4f}), max |y diff| "
+        f"{mlp_err:.2e}, loss {l1:.6f} / {l0:.6f}; one bf16 call on the "
+        f"{xb.shape[0]} patch tokens of a batch-16 block {mlp_ms:.3f} ms "
+        f"on {card}")
+    if not same or mlp_err > 1e-3 or abs(l1 - l0) > 1e-5:
+        raise AssertionError("MoEMlp on the card differs from the CPU")
+    out.update(mlp_routing_equal=same, mlp_max_abs_diff=mlp_err,
+               mlp_ms=mlp_ms)
+    del mlp, xb
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - phase_t0
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -3599,6 +4204,19 @@ def main() -> int:
         f"ImageDataset; {', '.join(OTHER_BACKBONES)}; the counters")
     image = image_phase(np, torch, kernels, repo, card)
 
+    torch.cuda.empty_cache()
+    log(f"[15] RepNet-base ({REPNET_YAML}: T 64, 64², bf16, window_batch "
+        f"{WINDOW_BATCH}, batch 32) and MoE TimeSformer-B/16 ({TS_YAML} with "
+        f"model.moe_experts={MOE_EXPERTS}, bf16)")
+    t15 = time.perf_counter()
+    repnet = repnet_phase(np, torch, kernels, repo, card)
+    torch.cuda.empty_cache()
+    moe = moe_phase(np, torch, kernels, video, repo, card, ts_clips_s,
+                    ts_train_clips_s)
+    phase15_s = time.perf_counter() - t15
+    log(f"    phase [15]: {phase15_s:.1f} s (RepNet {repnet['seconds']:.1f} "
+        f"s, MoE {moe['seconds']:.1f} s)")
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -3670,7 +4288,9 @@ def main() -> int:
                     "timesformer_clips_per_s": ts_clips_s,
                     "timesformer_train_clips_per_s": ts_train_clips_s,
                     "sweep": sweep, "files": files, "serve": serve,
-                    "tpn": tpn, "tdn": tdn, "image": image, "card": card}))
+                    "tpn": tpn, "tdn": tdn, "image": image,
+                    "repnet": repnet, "moe": moe, "phase15_s": phase15_s,
+                    "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

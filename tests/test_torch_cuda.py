@@ -1018,3 +1018,103 @@ def test_cuda_image_resnet50_launches_and_logits_vs_plain(cuda_device):
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
     assert counts == {"conv1x1_dx": 33, "conv1x1_dw": 33}
     assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_cuda_moe_mlp_routes_and_computes_as_the_cpu(cuda_device, cf):
+    """``MoEMlp`` in fp32 on the card against its CPU result on identical
+    inputs: the same experts and slots for every token (dropped tokens
+    too, at capacity factor 0.5), outputs and the load-balance loss within
+    1e-4, gradients of the router and the experts within 1e-4."""
+    from workoutdetector_tpu_torch.models import MoEMlp, load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    m = MoEMlp(64, 256, 8, cf)
+    load_flax_variables(m, random_flax_variables(m, seed=0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 50, 64)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        mm = m.to(dev)
+        mm.zero_grad()
+        route = [r.cpu() if torch.is_tensor(r) else r
+                 for r in mm.route(x.to(dev).reshape(-1, 64))]
+        y, loss = mm(x.to(dev))
+        (y.square().sum() + loss).backward()
+        # copies: moving the module moves the gradients it holds too
+        outs.append((route, y.detach().cpu(), float(loss.detach()),
+                     {n: p.grad.detach().cpu().clone()
+                      for n, p in mm.named_parameters()}))
+    (r0, y0, l0, g0), (r1, y1, l1, g1) = outs
+    assert torch.equal(r0[1], r1[1]) and torch.equal(r0[2], r1[2])
+    assert r0[3] == r1[3]
+    if cf < 1:
+        assert (r0[2] > r0[3]).any()
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+    assert abs(l1 - l0) < 1e-5
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_timesformer_runs_the_attention_kernels(cuda_device):
+    """A small divided MoE TimeSformer (bf16) on the card: one attention
+    launch per block a forward, one more and one backward launch per block
+    a train step (l = 17), logits within bf16 rounding of the plain bf16
+    model, finite gradients for every expert leaf and the routers."""
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (TimeSformer,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.train.trainer import train_loss
+
+    def model(use_kernels):
+        m = TimeSformer(3, 4, 32, 8, 128, 2, 2, dtype=torch.bfloat16,
+                        use_kernels=use_kernels, moe_experts=4)
+        load_flax_variables(m, random_flax_variables(m, seed=0))
+        return m
+
+    clips = np.random.default_rng(0).integers(0, 256, (2, 4, 32, 32, 3),
+                                              dtype=np.uint8)
+    before = launches()
+    got = InferenceEngine(model(True), 4, 2, device=cuda_device) \
+        .score_windows(clips)
+    assert launches() == (before[0] + 2,) + before[1:]
+    want = InferenceEngine(model(False), 4, 2, device=cuda_device) \
+        .score_windows(clips)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 0.05 * (1 + np.abs(want).max())
+    m = model(True).to(cuda_device).train()
+    before = launches()
+    loss, _ = train_loss(m(torch.randn(2, 4, 32, 32, 3, device=cuda_device)),
+                         torch.tensor([0, 2], device=cuda_device), 0.5, 0.01)
+    loss.backward()
+    assert launches() == (before[0] + 2, before[1] + 2) + before[2:]
+    for name, p in m.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.cuda
+def test_cuda_repnet_frame_logits_vs_cpu(cuda_device):
+    """The tiny RepNet's per-frame logits in fp32 on the card against the
+    CPU within 1e-4, and the bf16 model within bf16 rounding; no hand
+    kernel launches (RepNet has none)."""
+    from workoutdetector_tpu_torch.models import RepNet, load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+
+    m = RepNet(16, 4, 8, 16, 2)
+    variables = random_flax_variables(m, seed=0)
+    load_flax_variables(m, variables)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 16, 24, 24, 3)).astype(np.float32))
+    counts = kernels.launch_counts()
+    with torch.no_grad():
+        want = m(x, per_frame=True)
+        got = m.to(cuda_device)(x.to(cuda_device), per_frame=True).cpu()
+        half = RepNet(16, 4, 8, 16, 2, dtype=torch.bfloat16)
+        load_flax_variables(half, variables)
+        h = half.to(cuda_device)(x.to(cuda_device), per_frame=True).cpu()
+    assert kernels.launch_counts() == counts
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert (h - want).abs().max() <= 0.05 * (1 + want.abs().max())

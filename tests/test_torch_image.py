@@ -176,7 +176,9 @@ def test_build_model_image_and_its_refusals():
     """``model_type: image`` builds each zoo from lit_img.yaml (the ViT's
     patch grid at ``model.image_size``), refuses an unknown backbone with
     KeyError as JAX ``build_model`` does, and gives rank-4 example input;
-    RepNet and the MoE MLPs still refuse, naming item 6."""
+    the other families of the config build too: RepNet (an unknown
+    backbone name takes its ``base`` variant, as in the JAX factory) and a
+    TimeSformer with MoE MLPs."""
     for base, kind in (("resnet50", "ResNet"), ("convnext_tiny", "ConvNeXt"),
                        ("vit_base_patch32_224", "TimeSformer")):
         cfg = load_config(LIT_IMG, [f"model.base_model={base}"])
@@ -200,12 +202,13 @@ def test_build_model_image_and_its_refusals():
     with pytest.raises(KeyError, match="efficientnet_b0"):
         build_model(cfg.model)
     cfg.model.model_type = "repnet"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(cfg.model)
+    assert type(build_model(cfg.model)).__name__ == "RepNet"
     ts = load_config(os.path.join(REPO, "workoutdetector_tpu", "configs",
-                                  "timesformer.yaml"), ["model.moe_experts=4"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(ts.model)
+                                  "timesformer.yaml"),
+                     ["model.moe_experts=4", "model.base_model=custom",
+                      "model.embed_dims=64", "model.num_layers=1",
+                      "model.num_heads=2"])
+    assert type(build_model(ts.model).block_0.mlp).__name__ == "MoEMlp"
 
 
 def test_engine_from_checkpoint_takes_rank_4_for_images(tmp_path):

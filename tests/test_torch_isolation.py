@@ -162,10 +162,12 @@ def test_default_device_raises_without_cuda():
 
 @pytest.mark.parametrize("model_type,base,rank", [("tdn", "resnet50", 6),
                                                   ("tpn", "resnet18", 5),
+                                                  ("repnet", "tiny", 5),
                                                   ("image", "resnet18", 4),
                                                   ("image", "convnext_atto", 4)])
 def test_engine_from_checkpoint_raises_without_cuda(model_type, base, rank):
-    """TDN's rank-6 engine, TPN's and the image models' rank-4 engines ask
+    """TDN's rank-6 engine, TPN's, RepNet's and the image models' rank-4
+    engines ask
     for the card by default, and raise without one unless the caller names
     the CPU."""
     if torch.cuda.is_available():
@@ -246,7 +248,8 @@ def test_serving_and_export_run_without_jax_in_a_fresh_process():
     assert out.stdout.strip().endswith("isolated")
 
 
-@pytest.mark.parametrize("cli", ["server", "export_model", "demo"])
+@pytest.mark.parametrize("cli", ["server", "export_model", "demo",
+                                 "demo_repnet"])
 def test_serving_and_export_clis_raise_without_cuda(cli, tmp_path):
     """Without ``--cpu`` the CLIs ask for the card, and raise without one."""
     if torch.cuda.is_available():
@@ -257,7 +260,10 @@ def test_serving_and_export_clis_raise_without_cuda(cli, tmp_path):
     run = {"server": lambda: server.build_server(opts),
            "export_model": lambda: export_model.main(
                ["-o", str(tmp_path / "m")] + opts),
-           "demo": lambda: demo.main(["-i", str(tmp_path / "v.mp4")] + opts)}
+           "demo": lambda: demo.main(["-i", str(tmp_path / "v.mp4")] + opts),
+           "demo_repnet": lambda: demo.main(
+               ["-i", str(tmp_path / "v.mp4"), "--task", "count-repnet",
+                "model.base_model=tiny", "data.image_size=32"])}
     with pytest.raises(RuntimeError, match="CUDA"):
         run[cli]()
 
@@ -312,6 +318,67 @@ def test_image_models_and_counters_run_without_jax_in_a_fresh_process():
     ``plot_similarity`` takes), and score and count on the CPU."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _IMAGE_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")
+
+
+_REPNET_CHILD = r"""
+import sys
+import numpy as np
+import torch
+from workoutdetector_tpu_torch.config import Config
+from workoutdetector_tpu_torch.data import SyntheticPeriodicDataset
+from workoutdetector_tpu_torch.infer import InferenceEngine
+from workoutdetector_tpu_torch.infer.inference_count import (
+    count_by_repnet, repnet_frame_logits_batch)
+from workoutdetector_tpu_torch.infer.streaming import StreamingPeriodicCounter
+from workoutdetector_tpu_torch.models import (RepNet, TimeSformer,
+                                              count_from_frame_logits,
+                                              load_flax_variables)
+from workoutdetector_tpu_torch.models.convert import random_flax_variables
+from workoutdetector_tpu_torch.train.trainer import Trainer
+clip, label = SyntheticPeriodicDataset(8, 4, 24)[3]
+assert clip.shape == (8, 24, 24, 3) and label == 3
+rep = RepNet(8, 4, 8, 16, 2)
+load_flax_variables(rep, random_flax_variables(rep, seed=0))
+eng = InferenceEngine(rep, 8, window_batch=2, image_size=24, device="cpu")
+fl = repnet_frame_logits_batch(eng)(np.stack([clip] * 3))
+assert fl.shape == (3, 8, 4) and np.isfinite(fl).all()
+count_from_frame_logits(fl)
+counter = StreamingPeriodicCounter(eng, hop=4)
+assert [counter.push(f) is None for f in np.concatenate([clip, clip])] \
+    == [True] * 7 + [False] + [True] * 3 + [False] + [True] * 3 + [False]
+ts = TimeSformer(3, 4, 32, 8, 64, 2, 2, moe_experts=4)
+load_flax_variables(ts, random_flax_variables(ts, seed=0))
+ts.train()
+logits, _, moe = ts(torch.zeros(2, 4, 32, 32, 3))
+assert logits.shape == (2, 3) and moe.shape == (4,)
+cfg = Config()
+cfg.model.model_type, cfg.model.base_model = "timesformer", "custom"
+cfg.model.embed_dims, cfg.model.num_layers, cfg.model.num_heads = 64, 1, 2
+cfg.model.image_size, cfg.model.patch_size = 32, 8
+cfg.model.num_segments, cfg.model.num_class = 4, 2
+cfg.model.moe_experts, cfg.model.dtype = 2, "float32"
+trainer = Trainer(cfg, device="cpu")
+state = trainer.init_state(steps_per_epoch=2)
+x = np.random.default_rng(0).integers(0, 256, (2, 4, 32, 32, 3), np.uint8)
+m = trainer.train_step(state, x, np.array([0, 1], np.int32))
+assert np.isfinite(float(m["loss"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "workoutdetector_tpu", "pandas"))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_repnet_and_moe_run_without_jax_in_a_fresh_process():
+    """RepNet (model, engine, frame logits, the streaming counter), the
+    synthetic periodic data and a MoE TimeSformer train step import no
+    jax, flax, optax or JAX package (nor pandas), on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _REPNET_CHILD], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")

@@ -230,7 +230,8 @@ def test_streaming_rep_counter_matches_jax(engines):
                 {k: b[k] for k in ("state", "count", "reps", "rep_completed")}
             np.testing.assert_allclose(a["scores"], b["scores"], atol=TOL)
     assert replies == 5
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the periodic counter needs a RepNet engine
+    with pytest.raises(ValueError, match="RepNet"):
         streaming.StreamingPeriodicCounter(teng)
 
 
@@ -533,16 +534,16 @@ def test_server_cli_builds_on_cpu(tmp_path):
         assert srv.engine.num_class == 11
     finally:
         srv.shutdown()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tserver.build_server(["--cpu", "--repnet-checkpoint", "r.pt2"])
+    with pytest.raises(SystemExit, match="repnet .pt2"):
+        tserver.build_server(["--cpu", "--repnet-checkpoint", "r.jaxm"])
 
 
 def test_demo_cli_counts_as_the_engine(tmp_path, capsys, engines):
     """The demo CLI over a ``.pt2`` artifact of the R18 model: its count is
     ``count_by_video_model``'s on the artifact's engine, its scores the
     sorted 11-label payload; ``count-similarity`` prints the motion
-    periodicity counter's count (the JAX demo's), ``count-repnet`` refuses
-    (item 6)."""
+    periodicity counter's count (the JAX demo's), ``count-repnet`` prints
+    ``count_by_repnet``'s result over the RepNet of the config."""
     from workoutdetector_tpu_torch.data.video import write_video
     from workoutdetector_tpu.infer import \
         count_by_motion_periodicity as jax_count_by_motion_periodicity
@@ -565,7 +566,7 @@ def test_demo_cli_counts_as_the_engine(tmp_path, capsys, engines):
     values = list(json.loads(capsys.readouterr().out).values())
     assert len(values) == 11 and values == sorted(values, reverse=True)
     # count-similarity: the motion periodicity counter, as the JAX demo
-    # prints it; count-repnet still refuses
+    # prints it; count-repnet: the RepNet counter
     demo.main(["-i", path, "--task", "count-similarity", "--cpu"])
     got = json.loads(capsys.readouterr().out)
     count, period, strength = count_by_motion_periodicity(path, device="cpu")
@@ -573,5 +574,14 @@ def test_demo_cli_counts_as_the_engine(tmp_path, capsys, engines):
                    "strength": round(float(strength), 4)}
     assert (count, period) == \
         jax_count_by_motion_periodicity(path)[:2]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        demo.main(["-i", path, "--task", "count-repnet", "--cpu"])
+    opts = ["model.base_model=tiny", "data.image_size=32",
+            "model.dtype=float32"]
+    demo.main(["-i", path, "--task", "count-repnet", "--cpu"] + opts)
+    got = json.loads(capsys.readouterr().out)
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.infer import count_by_repnet
+    cfg = load_config(None, opts + ["model.model_type=repnet"])
+    count, period, strength = count_by_repnet(engine_from_checkpoint(
+        cfg, None, image_size=32, window_batch=4, device="cpu"), path)
+    assert got == {"count": count, "period_frames": period,
+                   "strength": round(float(strength), 4)}

@@ -245,7 +245,8 @@ def test_eval_dataset_modes_match_jax(corpus, bright_images, features, mode,
                                       tmp_path):
     """``eval_dataset`` over the corpus's val split: MAE/OBO and the count
     JSON equal in each mode (the image counter's threshold 0 by default,
-    motion without an engine); RepNet still refuses."""
+    motion without an engine); ``repnet`` mode refuses an engine that is
+    not a RepNet's."""
     engines = {"image": bright_images, "similarity": features,
                "motion": (None, None)}[mode]
     kw = dict(action=["all"], split="val", data_root=corpus, model_type=mode)
@@ -257,8 +258,8 @@ def test_eval_dataset_modes_match_jax(corpus, bright_images, features, mode,
     with open(tmp_path / "t.json") as f, open(tmp_path / "j.json") as g:
         assert json.load(f) == json.load(g)
     if mode == "motion":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ic.eval_dataset(None, **dict(kw, model_type="repnet"))
+        with pytest.raises(ValueError, match="RepNet"):
+            ic.eval_dataset(features[1], **dict(kw, model_type="repnet"))
 
 
 def test_cli_image_and_similarity(corpus, bright_images, tmp_path,

@@ -509,7 +509,7 @@ def test_sharded_eval_matches_full_and_jax_merge(corpus, bright, tmp_path):
     assert ic.eval_dataset(teng, shard=(0, 2), counts_out=files[0],
                            resume=True, **kw) == partials[0]
     # the motion counter needs no engine: counts and metrics as the JAX
-    # package's; RepNet still refuses
+    # package's; repnet mode refuses a TSM engine
     motion = [ic.eval_dataset(None, model_type="motion", device="cpu",
                               counts_out=str(tmp_path / "motion_port.json"),
                               **kw),
@@ -519,7 +519,7 @@ def test_sharded_eval_matches_full_and_jax_merge(corpus, bright, tmp_path):
     assert motion[0] == motion[1]
     assert _load(tmp_path / "motion_port.json") == \
         _load(tmp_path / "motion_jax.json")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="RepNet"):
         ic.eval_dataset(teng, model_type="repnet", **kw)
 
 
@@ -549,13 +549,14 @@ def test_cli_matches_jax_cli(corpus, bright, tmp_path, monkeypatch, capsys):
     assert json.loads(printed["port"][2])["n_pred"] == 5
     assert json.loads(printed["port"][3])["scored"] == 5
     # the motion counter's CLI needs no engine: the JAX CLI's output;
-    # RepNet still refuses
+    # repnet mode refuses the TSM engine
     jic.main(["--eval", "--model-type", "motion"] + base)
     want = capsys.readouterr().out.strip()
     ic.main(["--eval", "--model-type", "motion", "--cpu"] + base)
     assert capsys.readouterr().out.strip() == want
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ic.main(["--eval", "--model-type", "repnet"] + base)
+    with pytest.raises(ValueError, match="RepNet"):
+        ic.main(["--eval", "--model-type", "repnet", "--on-error", "raise"]
+                + base)
 
 
 def test_cli_score_exit_status(corpus, bright, tmp_path, monkeypatch, capsys):

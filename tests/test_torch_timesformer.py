@@ -358,9 +358,14 @@ def test_build_model_from_the_timesformer_yaml():
                    build_model(cfg.model, use_kernels=False).blocks())
     cfg.model.flash_attention = "false"
     assert not any(b.s_attn.flash for b in build_model(cfg.model).blocks())
-    cfg.model.moe_experts = 4
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(cfg.model)
+    # moe_experts > 0 puts a MoEMlp in each divided block (narrowed here:
+    # the expert stacks of a ViT-B/16 are 450 MB of fp32 zeros)
+    m = cfg.model
+    m.moe_experts, m.base_model, m.embed_dims, m.num_layers, m.num_heads = \
+        4, "custom", 64, 2, 2
+    mlps = [b.mlp for b in build_model(m).blocks()]
+    assert [type(x).__name__ for x in mlps] == ["MoEMlp"] * 2
+    assert mlps[0].num_experts == 4 and mlps[0].capacity_factor == 1.25
 
 
 def test_build_model_sizes_without_a_variant():

@@ -276,8 +276,9 @@ def test_repo_yamls_load_and_file_datasets_build():
     """Every YAML of the repo loads into the same config as the JAX
     package's load_config gives. The flagship's FrameDataset is built as
     the JAX build_dataset builds it: a missing list raises the same
-    AssertionError, for TDNDataset too; SyntheticPeriodic and a test
-    split's person crop are refused, naming ROADMAP item 6."""
+    AssertionError, for TDNDataset too; SyntheticPeriodic builds the
+    JAX dataset's items; a test split's person crop is refused, naming
+    ROADMAP item 6."""
     configs = os.path.join(REPO, "workoutdetector_tpu", "configs")
     for name in sorted(os.listdir(configs)):
         if name.endswith(".yaml"):
@@ -304,10 +305,14 @@ def test_repo_yamls_load_and_file_datasets_build():
     with pytest.raises(AssertionError) as want:
         j_build_dataset(jtdn.data, "train")
     assert str(got.value) == str(want.value) == f"{missing} is not a file"
+    synth_opts = ["data.dataset_type=SyntheticPeriodic", "data.image_size=32"]
     synth = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
-                        ["data.dataset_type=SyntheticPeriodic"])
-    with pytest.raises(NotImplementedError, match="RepNet.*item 6"):
-        build_dataset(synth.data, "train")
+                        synth_opts)
+    jsynth = j_load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
+                           synth_opts)
+    got, want = build_dataset(synth.data, "val")[3], \
+        j_build_dataset(jsynth.data, "val")[3]
+    assert got[1] == want[1] and np.array_equal(got[0], want[0])
     crop = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
                        ["data.test.person_crop=true"])
     with pytest.raises(NotImplementedError, match="detector.*item 6"):

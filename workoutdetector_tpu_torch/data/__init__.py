@@ -6,8 +6,10 @@ from workoutdetector_tpu_torch.data.datasets import (DebugDataset,
                                                      FrameDataset,
                                                      ImageDataset,
                                                      SuperImageDataset,
+                                                     SyntheticPeriodicDataset,
                                                      TDNDataset,
-                                                     build_dataset)
+                                                     build_dataset,
+                                                     synth_periodic_clip)
 from workoutdetector_tpu_torch.data.image_folder import ImageFolderDataset
 from workoutdetector_tpu_torch.data.repcount import (RepcountHelper,
                                                      RepcountItem,
@@ -22,7 +24,7 @@ __all__ = [
     "sample_frames", "tdn_sample_indices", "RepcountHelper",
     "RepcountItem", "RepcountItemWithPred", "build_label_list",
     "FrameDataset", "TDNDataset", "ImageDataset", "DebugDataset",
-    "SuperImageDataset",
+    "SuperImageDataset", "SyntheticPeriodicDataset", "synth_periodic_clip",
     "ImageFolderDataset", "RepcountImageDataset", "RepcountVideoDataset",
     "RepcountRecognitionDataset", "build_dataset"
 ]

@@ -3,7 +3,7 @@
 The port's own copy of ``workoutdetector_tpu/data/datasets.py``
 (``read_image``, the rawframe lists, ``FrameDataset``, ``TDNDataset``,
 ``ImageDataset``, ``SuperImageDataset``, ``DebugDataset``,
-``build_dataset``). Items are ``(uint8 (T, H, W, 3) clip, int label)``
+``synth_periodic_clip``, ``SyntheticPeriodicDataset``, ``build_dataset``). Items are ``(uint8 (T, H, W, 3) clip, int label)``
 (TDN's: (T·5, H, W, 3) bursts), ``__getitem__(idx, rng)``
 taking the loader's per-item generator; the normalize runs on the device.
 JPEGs decode through the native libjpeg reader where it loads and take
@@ -25,12 +25,6 @@ from workoutdetector_tpu_torch.data.sampling import (sample_frames,
 from workoutdetector_tpu_torch.data.transforms import (TestTransform,
                                                        build_transform,
                                                        resize_clip)
-
-# dataset_type → where the port will bring it (ROADMAP.md §1)
-LATER = {
-    "SyntheticPeriodic": "the RepNet slice (ROADMAP §1 item 6)",
-}
-
 
 def read_image(path: str) -> np.ndarray:
     """Read an image file → RGB uint8 (H, W, 3): JPEGs through the native
@@ -285,6 +279,168 @@ class SuperImageDataset:
         return len(self.labels)
 
 
+def synth_periodic_clip(rng: np.random.Generator,
+                        length: int,
+                        image_size: int,
+                        period: int = 0,
+                        mode: Optional[str] = None,
+                        kind: Optional[str] = None) -> np.ndarray:
+    """Render one synthetic motion clip → (length, S, S, 3) uint8.
+
+    One rectangular "actor" moves over a noisy constant background with
+    0-2 static distractor squares and handheld-style camera jitter.
+    period ≥ 2 ⇒ sinusoidal repetition of that period with a motion
+    ``kind`` (random when None) chosen to span how real exercise looks
+    at low resolution:
+
+      translate — whole-body displacement (jumping jacks, pull-ups)
+      squash    — height compresses about a fixed bottom edge, width
+                  anti-phase (squats, push-ups)
+      scale     — approach/retreat about the center
+      swing     — rotation of the actor about an off-body pivot (arm
+                  curls, leg raises)
+
+    (A periodic-brightness 'flash' kind was measured HARMFUL on real
+    footage: it teaches appearance periodicity, and codec/sensor flicker
+    then reads as fast reps — a squat video counted 3→23 at a 0.5 s
+    period. Brightness variation appears only as a NEGATIVE.)
+
+    period 0 ⇒ an aperiodic negative from ``mode`` ∈ {static, drift,
+    walk, scalewalk, flicker} (random when None) — the class-0 clips.
+    Negatives get the same camera jitter/distractors so structural
+    periodicity is the only separating signal; 'flicker' (random
+    brightness jumps on a static actor) explicitly maps appearance
+    noise to class 0.
+    """
+    s = image_size
+    bg = rng.integers(0, 256, size=3)
+    color = (bg + 96 + rng.integers(0, 64, size=3)) % 256
+    side = int(rng.integers(max(s // 6, 2), max(s // 3, 3)))
+    lo, hi = 0.0, float(s - side)
+    c0 = (lo + hi) / 2.0
+    amp = rng.uniform(0.5, 0.96) * (hi - lo) / 2.0
+    t = np.arange(length, dtype=np.float32)
+    # defaults: fixed position/size/brightness, overridden per kind
+    px = py = np.full_like(t, c0)
+    w_t = np.full_like(t, float(side))
+    h_t = np.full_like(t, float(side))
+    gain = np.ones_like(t)
+    if period >= 2:
+        phase = rng.uniform(0, 2 * np.pi)
+        wave = np.sin(2 * np.pi * t / period + phase)
+        kind = kind or str(rng.choice(
+            ["translate", "squash", "scale", "swing"]))
+        if kind == "translate":
+            axis = rng.choice(["x", "y", "xy"])
+            if axis == "xy":  # circular motion
+                px = c0 + amp * wave
+                py = c0 + amp * np.sin(2 * np.pi * t / period + phase
+                                       + np.pi / 2)
+            elif axis == "x":
+                px = c0 + amp * wave
+            else:
+                py = c0 + amp * wave
+        elif kind == "squash":
+            # height oscillates about a FIXED bottom edge, width
+            # anti-phase — a squatting silhouette
+            depth = rng.uniform(0.35, 0.65)
+            h_t = side * (1.0 - depth * (0.5 + 0.5 * wave))
+            w_t = side * (1.0 + 0.5 * depth * (0.5 + 0.5 * wave))
+            py = (c0 + side) - h_t  # bottom edge pinned at c0 + side
+            px = c0 + (side - w_t) / 2.0
+        elif kind == "scale":
+            g = 1.0 + rng.uniform(0.3, 0.6) * wave
+            w_t, h_t = side * g, side * g
+            px, py = c0 + (side - w_t) / 2.0, c0 + (side - h_t) / 2.0
+        else:  # swing
+            r = rng.uniform(0.5, 0.9) * (hi - lo) / 2.0
+            th0 = rng.uniform(0, 2 * np.pi)
+            swing = rng.uniform(0.6, 1.4) * wave  # radians
+            px = c0 + r * np.cos(th0 + swing)
+            py = c0 + r * np.sin(th0 + swing)
+    else:
+        mode = mode or str(rng.choice(["static", "drift", "walk",
+                                       "scalewalk", "flicker"]))
+        if mode == "static":
+            pass
+        elif mode == "drift":
+            px = lo + (hi - lo) * t / max(length - 1, 1)
+        elif mode == "scalewalk":  # aperiodic size change
+            g = np.clip(1.0 + np.cumsum(rng.normal(0, 0.04, length)),
+                        0.4, 1.8)
+            w_t, h_t = side * g, side * g
+            px, py = c0 + (side - w_t) / 2.0, c0 + (side - h_t) / 2.0
+        elif mode == "flicker":  # appearance noise on a static actor
+            gain = np.clip(1.0 + rng.normal(0, 0.25, length), 0.4, 1.6)
+        else:  # random walk, step scale ~ the periodic case's speed
+            steps = rng.normal(0.0, amp / 6.0, size=(2, length))
+            px = np.clip(c0 + np.cumsum(steps[0]), lo, hi)
+            py = np.clip(c0 + np.cumsum(steps[1]), lo, hi)
+    # handheld camera jitter: bounded random walk applied to EVERYTHING
+    jit = np.clip(np.cumsum(rng.normal(0, 0.35, size=(2, length)), axis=1),
+                  -2.0, 2.0)
+    # static distractors (jitter with the camera, never periodic)
+    distractors = []
+    for _ in range(int(rng.integers(0, 3))):
+        d_side = int(rng.integers(max(s // 8, 2), max(s // 5, 3)))
+        distractors.append((float(rng.uniform(0, s - d_side)),
+                            float(rng.uniform(0, s - d_side)), d_side,
+                            (bg + rng.integers(32, 224, size=3)) % 256))
+    frames = np.empty((length, s, s, 3), np.float32)
+    frames[:] = bg
+    for i in range(length):
+        for dx, dy, d_side, d_color in distractors:
+            x0 = int(round(dx + jit[0, i]))
+            y0 = int(round(dy + jit[1, i]))
+            x0, y0 = max(x0, 0), max(y0, 0)
+            frames[i, y0:y0 + d_side, x0:x0 + d_side] = d_color
+        x0 = int(round(px[i] + jit[0, i]))
+        y0 = int(round(py[i] + jit[1, i]))
+        x1 = min(max(x0 + int(round(w_t[i])), x0 + 1), s)
+        y1 = min(max(y0 + int(round(h_t[i])), y0 + 1), s)
+        x0, y0 = min(max(x0, 0), s - 1), min(max(y0, 0), s - 1)
+        frames[i, y0:y1, x0:x1] = np.clip(color * gain[i], 0, 255)
+    frames += rng.normal(0.0, 6.0, size=frames.shape)
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+class SyntheticPeriodicDataset:
+    """On-the-fly periodic-motion clips for the RepNet counting family.
+
+    Label convention matches models/repnet.RepNet: 0 = aperiodic,
+    k ≥ 1 = sinusoidal motion of period (k+1) frames; num_class =
+    num_segments // 2 so at least two full cycles fit in every clip.
+    Items are deterministic in (split, idx) when the loader doesn't
+    supply an rng — val/test sets are stable across epochs.
+    """
+
+    def __init__(self,
+                 num_segments: int = 64,
+                 size: int = 2000,
+                 image_size: int = 64,
+                 split: str = "train") -> None:
+        self.num_segments = num_segments
+        self.num_class = num_segments // 2
+        self.size = size
+        self.image_size = image_size
+        # disjoint deterministic streams per split
+        self.index_offset = {"train": 0, "val": 1, "test": 2}.get(split, 0) \
+            * 1_000_003
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None
+                   ) -> Tuple[np.ndarray, int]:
+        if rng is None:
+            rng = np.random.default_rng(self.index_offset + idx)
+        label = idx % self.num_class
+        period = 0 if label == 0 else label + 1
+        clip = synth_periodic_clip(rng, self.num_segments, self.image_size,
+                                   period=period)
+        return clip, label
+
+
 def build_dataset(cfg, split: str):
     """The dataset ``cfg.dataset_type`` names for ``split`` (cfg:
     ``DataConfig``)."""
@@ -292,10 +448,13 @@ def build_dataset(cfg, split: str):
         return DebugDataset(num_class=cfg.debug_num_class,
                             num_segments=cfg.num_segments,
                             size=cfg.debug_size, image_size=cfg.image_size)
-    if cfg.dataset_type in LATER:
-        raise NotImplementedError(
-            f"dataset_type {cfg.dataset_type!r} ({split}) is not in the "
-            f"PyTorch port yet: it comes with {LATER[cfg.dataset_type]}")
+    if cfg.dataset_type == "SyntheticPeriodic":
+        # RepNet trains on synthesized repetitions; val and test draw
+        # from disjoint deterministic streams
+        return SyntheticPeriodicDataset(num_segments=cfg.num_segments,
+                                        size=cfg.debug_size,
+                                        image_size=cfg.image_size,
+                                        split=split)
     if cfg.dataset_type not in ("FrameDataset", "TDNDataset", "ImageDataset"):
         raise KeyError(f"Dataset '{cfg.dataset_type}' is not supported.")
     is_test = split != "train"

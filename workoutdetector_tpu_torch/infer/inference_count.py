@@ -2,13 +2,13 @@
 
 Port of ``workoutdetector_tpu/infer/inference_count.py``: the counters
 of the video state classifier (``count_by_video_model``), the per-frame
-image classifier (``count_by_image_model``) and the two training-free
-ones (``count_by_similarity`` over a headless image engine's features,
-``count_by_motion_periodicity`` over pixels, no engine),
-``inference_dataset`` (the same per-video score-JSON schema),
+image classifier (``count_by_image_model``), the learnable period model
+(``count_by_repnet`` over a RepNet engine's per-frame logits) and the two
+training-free ones (``count_by_similarity`` over a headless image
+engine's features, ``count_by_motion_periodicity`` over pixels, no
+engine), ``inference_dataset`` (the same per-video score-JSON schema),
 ``eval_dataset``, ``eval_count_shards`` and the dataset CLI (``main``:
-``--score``, ``--eval``, ``--merge-shards``). The RepNet counter comes
-with its model family (ROADMAP §1 item 6).
+``--score``, ``--eval``, ``--merge-shards``).
 
 One difference from the JAX CLI: ``--score`` exits with status 1 when its
 shard scored nothing and its failure manifest is not empty, so a sweep in
@@ -34,16 +34,14 @@ from workoutdetector_tpu_torch.data.repcount import RepcountHelper
 from workoutdetector_tpu_torch.data.video import VideoReader, write_video
 from workoutdetector_tpu_torch.infer.engine import (InferenceEngine,
                                                     score_video_chunked)
+from workoutdetector_tpu_torch.models.repnet import (RepNet,
+                                                     count_from_frame_logits,
+                                                     period_of_class)
+from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
 from workoutdetector_tpu_torch.utils.similarity import (
     count_by_periodicity, count_by_spatial_periodicity, video_cnn_features)
 
 MODEL_TYPES = ("video", "image", "similarity", "motion", "repnet")
-
-
-def _model_type_not_ported(model_type: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"model_type {model_type!r} is not in the PyTorch port yet: its "
-        "counter comes with its model family (ROADMAP §1 item 6)")
 
 
 def write_count_video(video_path: str, output_path: str, reps: List[int],
@@ -148,6 +146,106 @@ def count_by_motion_periodicity(video_path: str, grid: int = 8,
                                         min_period=min_period,
                                         min_strength=min_strength,
                                         device=device)
+
+
+def repnet_frame_logits_fn(engine: InferenceEngine):
+    """The per-frame period-logits call of a RepNet engine, kept on the
+    engine: a (window_batch, T, S, S, 3) uint8 tensor → (window_batch, T,
+    C) fp32 on the engine's device. A live engine runs its model with
+    ``per_frame=True``; a ``.pt2`` artifact of a RepNet already returns
+    exactly these (``utils/export``)."""
+    fn = getattr(engine, "_repnet_fn", None)
+    if fn is not None:
+        return fn
+    if engine.model is None:
+        if engine.meta.get("model_type") != "repnet":
+            raise ValueError("the artifact was not exported from a RepNet "
+                             f"(model_type {engine.meta.get('model_type')!r})")
+        fn = engine._run
+    else:
+        model = engine.model
+        if not isinstance(model, RepNet):
+            raise ValueError(f"a RepNet engine is needed, not one over "
+                             f"{type(model).__name__}")
+
+        @torch.no_grad()
+        def fn(x_u8: torch.Tensor) -> torch.Tensor:
+            return model(normalize_clip(x_u8.to(engine.device)),
+                         per_frame=True)
+    engine._repnet_fn = fn
+    return fn
+
+
+def repnet_frame_logits_batch(engine: InferenceEngine):
+    """Any-N (N, T, S, S, 3) uint8 windows → (N, T, C) frame logits on the
+    host, through the engine's chunk-and-pad loop (``chunked_call``), so
+    every device call has the engine's one window batch. The score
+    function the serving batcher takes."""
+    fn = repnet_frame_logits_fn(engine)
+    return lambda windows: engine.chunked_call(fn, windows)
+
+
+def count_by_repnet(engine: InferenceEngine, video_path: str,
+                    rates: Sequence[int] = (1, 2, 4, 8),
+                    min_periodicity: float = 0.5,
+                    grid: bool = False) -> Tuple[int, int, float]:
+    """Count reps with the learnable RepNet period model.
+
+    The video is scored at several temporal subsampling rates; the rate
+    whose frames look most periodic to the model wins. The count itself
+    (Σ 1/period over periodic frames, ``count_from_frame_logits``) is
+    rate-invariant; the rate decides which periods fall in the model's
+    range (2..T/2 window frames). Windows are T consecutive (subsampled)
+    frames, the last padded with its last frame and masked out of the
+    count.
+
+    ``grid=True`` also scores the four quadrants of a 2× decode (and its
+    2× subsampled whole frame) and keeps the most periodic view: motion
+    confined to a small region fills a quadrant.
+
+    Returns:
+        (count, period_frames, strength): the period in source frames
+        (the median over periodic frames), the strength the mean periodic
+        probability at the winning rate and view.
+    """
+    t_win = engine.num_segments
+    score_windows = repnet_frame_logits_batch(engine)
+    s = engine.image_size
+    with VideoReader(video_path) as r:
+        if grid:
+            big = r.read_prepped(round(2 * s * 256 / 224), 2 * s)
+            views = [big[:, ::2, ::2], big[:, :s, :s], big[:, :s, s:],
+                     big[:, s:, :s], big[:, s:, s:]]
+        else:
+            views = [r.read_prepped(round(s * 256 / 224), s)]
+    best = (0, 0, 0.0)  # (count, period_frames, strength)
+    best_strength = -1.0
+    for video, rate in ((v, r_) for v in views for r_ in rates):
+        xs = video[::rate]
+        if len(xs) < 2:
+            continue
+        n_win = -(-len(xs) // t_win)
+        pad = n_win * t_win - len(xs)
+        valid = np.arange(n_win * t_win) < len(xs)
+        if pad:
+            xs = np.concatenate([xs, np.repeat(xs[-1:], pad, axis=0)])
+        wins = xs.reshape(n_win, t_win, *xs.shape[1:])
+        valid = valid.reshape(n_win, t_win)
+        fl = score_windows(wins)  # (n_win, T, C)
+        count, strength = count_from_frame_logits(fl, valid,
+                                                  min_periodicity)
+        if strength > best_strength:
+            p = np.exp(fl - fl.max(-1, keepdims=True))
+            p /= p.sum(-1, keepdims=True)
+            periodic = (1.0 - p[..., 0] >= min_periodicity) & valid
+            if periodic.any():
+                ids = np.argmax(p[..., 1:], -1)[periodic] + 1
+                period = int(np.median(period_of_class(ids))) * rate
+            else:
+                period = 0
+            best = (int(round(count)), period, float(strength))
+            best_strength = strength
+    return best
 
 
 def count_by_image_model(engine: InferenceEngine, video_path: str,
@@ -432,9 +530,8 @@ def eval_dataset(engine: InferenceEngine,
     alone, default 0: the reference's counts), ``'similarity'``
     (``count_by_similarity``, a rank-4 engine over a headless model) or
     ``'motion'`` (``count_by_motion_periodicity``, no engine: pass None; it
-    runs on ``device``). ``'repnet'`` raises ``NotImplementedError``
-    (ROADMAP §1 item 6); ``grid``, which only it reads, is accepted for
-    the JAX signature.
+    runs on ``device``) or ``'repnet'`` (``count_by_repnet`` over a RepNet
+    engine, with ``grid``, which only it reads).
 
     ``shard=(i, n)`` counts worker i's disjoint slice of the split; the
     metrics are divided by the whole split's size, so the shards' partial
@@ -454,8 +551,6 @@ def eval_dataset(engine: InferenceEngine,
         anno_path = os.path.join(data_root, "annotation.csv")
     if model_type not in MODEL_TYPES:
         raise ValueError(f"Invalid model type: {model_type}")
-    if model_type == "repnet":
-        raise _model_type_not_ported(model_type)
     helper = RepcountHelper(data_root, anno_path)
     items = helper.get_rep_data(split=[split], action=action)
     if output_dir is not None:
@@ -483,6 +578,9 @@ def eval_dataset(engine: InferenceEngine,
             if model_type == "motion":
                 count, _, _ = count_by_motion_periodicity(item.video_path,
                                                           device=device)
+            elif model_type == "repnet":
+                count, _, _ = count_by_repnet(engine, item.video_path,
+                                              grid=grid)
             elif model_type == "similarity":
                 count, _, _ = count_by_similarity(engine, item.video_path)
             elif model_type == "video":
@@ -658,8 +756,6 @@ def main(argv: Optional[List[str]] = None) -> None:
                                           split=[args.split])
         print(json.dumps({"mae": mae, "obo_acc": obo, "n_pred": len(res)}))
         return
-    if args.model_type == "repnet":
-        raise _model_type_not_ported(args.model_type)
 
     from workoutdetector_tpu_torch.config import load_config
     from workoutdetector_tpu_torch.infer import engine as engine_mod
@@ -670,8 +766,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.model_type == "similarity":
         engine = similarity_engine(cfg, device)
     elif args.model_type != "motion":
-        if args.model_type == "image":
-            cfg.model.model_type = "image"  # per-frame, a rank-4 engine
+        if args.model_type in ("image", "repnet"):
+            # image: per-frame, a rank-4 engine
+            cfg.model.model_type = args.model_type
         engine = engine_mod.engine_from_checkpoint(
             cfg, args.checkpoint, image_size=cfg.data.image_size,
             device=device)

@@ -10,10 +10,11 @@ at this package's module names, which follow the flax tree:
   * Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
   * BN and LayerNorm ``scale`` → ``weight``, ``mean`` → ``running_mean``,
     ``var`` → ``running_var``; ``bias`` stays ``bias``;
-  * the TimeSformer's ``cls_token``, ``pos_embed`` and ``time_embed``
-    parameters and ConvNeXt's γ layer scales (``gamma``) keep their names
-    and shapes; a ConvNeXt depthwise kernel (7, 7, 1, C) HWIO becomes
-    (C, 1, 7, 7) by the same 4-D rule.
+  * the TimeSformer's (and RepNet's) ``cls_token``, ``pos_embed`` and
+    ``time_embed`` parameters, ConvNeXt's γ layer scales (``gamma``) and
+    the MoE MLP's stacked expert leaves (``w1`` (E, d, h), ``b1``, ``w2``,
+    ``b2``) keep their names and shapes; a ConvNeXt depthwise kernel (7,
+    7, 1, C) HWIO becomes (C, 1, 7, 7) by the same 4-D rule.
 
 It also keeps its copy of the reference-checkpoint port
 (``load_torch_checkpoint``, ``strip_ddp_prefix``, ``strip_shift_wrappers``,
@@ -50,7 +51,9 @@ _KERNEL_TO_FLAX = {2: lambda a: a.T,
                    4: lambda a: a.transpose(2, 3, 1, 0),
                    5: lambda a: a.transpose(2, 3, 4, 1, 0)}
 _EMBED = ("cls_token", "pos_embed", "time_embed")
-_RAW = _EMBED + ("gamma",)  # carried as they are
+_EXPERT_KERNELS = ("w1", "w2")  # MoEMlp's stacked (E, in, out) kernels
+_EXPERT = _EXPERT_KERNELS + ("b1", "b2")
+_RAW = _EMBED + _EXPERT + ("gamma",)  # carried as they are
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -157,7 +160,9 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
     ``t_fc`` included: its JAX init is zero, which would hide the temporal
     branch), TDN's shift taps at their shift pattern plus N(0, 0.2²)
     noise, randomised BN/LayerNorm affine, ConvNeXt γ and BN running
-    statistics, and truncated-normal(0.02) TimeSformer embeddings."""
+    statistics, truncated-normal(0.02) TimeSformer and RepNet embeddings,
+    and MoE expert kernels N(0, 1/fan_in) (fan-in E·in, flax's for a 3-D
+    leaf) with N(0, 0.1²) biases."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
@@ -167,6 +172,8 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
         kind = kernel_init.get(mods[-1] if mods else "", ("", None))
         if leaf in _EMBED:
             a = _truncated_normal(rng, shape, 0.02)
+        elif leaf in _EXPERT_KERNELS:
+            a = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
         elif leaf == "weight" and kind[0] == "shift":
             a = shift_taps(shape, kind[1]) + rng.normal(0.0, 0.2, shape)
         elif leaf == "weight" and len(shape) in (4, 5):
@@ -176,7 +183,7 @@ def random_flax_variables(model: torch.nn.Module, seed: int = 0
             a = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
         elif leaf in ("weight", "gamma"):
             a = rng.uniform(0.5, 1.0, shape)
-        elif leaf == "bias":
+        elif leaf in ("bias", "b1", "b2"):
             a = rng.normal(0.0, 0.1, shape)
         elif leaf == "running_mean":
             a = rng.normal(0.0, 0.2, shape)
@@ -197,18 +204,31 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
     start as the shift pattern; a bias zero as every bias); BN and
     LayerNorm scale 1 and bias 0, running mean 0 and var 1; TimeSformer's
     ``cls_token``, ``pos_embed`` and ``time_embed`` truncated
-    normal(0.02); ConvNeXt's γ 1e-6. The distributions are flax's; the
-    draws are not jax.random's."""
+    normal(0.02) unless ``FLAX_KERNEL_INIT`` names the leaf (RepNet's
+    ``pos_embed``: ``("normal", 0.02)``, untruncated); the MoE experts'
+    3-D ``w1``/``w2`` ``lecun_normal`` with flax's fan-in of a 3-D leaf,
+    E · in (every axis but the last); ConvNeXt's γ 1e-6. The distributions
+    are flax's; the draws are not jax.random's."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
+
+    def lecun(shape, fan_in):
+        # std of N(0, 1) cut at ±2 is 0.8796...
+        return _truncated_normal(
+            rng, shape, np.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
     for key, t in model.state_dict().items():
         shape = tuple(t.shape)
         *mods, leaf = key.split(".")
         if leaf == "gamma":
             a = np.full(shape, LAYER_SCALE_INIT)
         elif leaf in _EMBED:
-            a = _truncated_normal(rng, shape, 0.02)
+            kind, std = kernel_init.get(leaf, ("truncated_normal", 0.02))
+            a = rng.normal(0.0, std, shape) if kind == "normal" else \
+                _truncated_normal(rng, shape, std)
+        elif leaf in _EXPERT_KERNELS:
+            a = lecun(shape, int(np.prod(shape[:-1])))
         elif leaf == "weight" and len(shape) in (2, 4, 5):
             kind, std = kernel_init.get(mods[-1], ("lecun_normal", None))
             if kind == "normal":
@@ -218,10 +238,7 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
             elif kind == "shift":
                 a = shift_taps(shape, std)
             else:
-                fan_in = int(np.prod(shape[1:]))
-                # std of N(0, 1) cut at ±2 is 0.8796...
-                a = _truncated_normal(
-                    rng, shape, np.sqrt(1.0 / fan_in) / 0.87962566103423978)
+                a = lecun(shape, int(np.prod(shape[1:])))
         elif leaf in ("weight", "running_var") and len(shape) == 1:
             a = np.ones(shape)
         else:  # biases, running means

@@ -2,9 +2,8 @@
 
 Port of ``workoutdetector_tpu/models/factory.py`` (``build_model``,
 ``ImageClassifier``, ``example_input``) for the model families the port
-has: TSM, TDN, TPN, TimeSformer and the image classifiers (the ResNet,
-ConvNeXt and ViT zoos). RepNet and TimeSformer's MoE MLPs come with a
-later slice (ROADMAP §1 item 6).
+has: TSM, TDN, TPN, TimeSformer (with its MoE MLPs), RepNet and the
+image classifiers (the ResNet, ConvNeXt and ViT zoos).
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 from workoutdetector_tpu_torch.models.convnext import (CONVNEXT_VARIANTS,
                                                        make_convnext)
+from workoutdetector_tpu_torch.models.repnet import REPNET_VARIANTS, RepNet
 from workoutdetector_tpu_torch.models.resnet import STAGE_SIZES, make_resnet
 from workoutdetector_tpu_torch.models.tdn import TDN
 from workoutdetector_tpu_torch.models.timesformer import (VIT_VARIANTS,
@@ -32,8 +32,11 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
 
     The hand kernels are the main path: ``fused_block`` (TSM and TPN's
     backbone, the image ResNet-50/101) and ``flash_attention``
-    (TimeSformer) are on unless the config says ``'false'``; TDN, ConvNeXt
-    and the ViT image models have no hand kernel. ``model_type: image``
+    (TimeSformer, its MoE variant too) are on unless the config says
+    ``'false'``; TDN, RepNet, ConvNeXt and the ViT image models have no
+    hand kernel. RepNet's ``num_class`` is derived (``num_segments // 2``,
+    class 0 aperiodic; ``cfg.num_class`` is ignored) and an unknown
+    ``base_model`` takes the ``base`` variant, as in the JAX factory. ``model_type: image``
     raises KeyError for a backbone outside the three zoos. Under autograd the
     1×1 convs' backward always takes the dx/dW kernels
     (``models/resnet.py``); nothing in the port reads ``pallas_conv_bwd``.
@@ -41,10 +44,6 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
     """
     mt = cfg.model_type.lower()
     if mt == "timesformer":
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "TimeSformer MoE MLPs (moe_experts > 0) are not in the "
-                "PyTorch port yet (ROADMAP §1 item 6)")
         embed, depth, heads = VIT_VARIANTS.get(
             cfg.base_model, (cfg.embed_dims, cfg.num_layers, cfg.num_heads))
         return TimeSformer(
@@ -53,7 +52,13 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
             dtype=DTYPES[cfg.dtype],
             flash=str(cfg.flash_attention).lower() != "false",
             use_kernels=use_kernels, dropout=cfg.dropout,
-            drop_path_rate=cfg.drop_path_rate)
+            drop_path_rate=cfg.drop_path_rate, moe_experts=cfg.moe_experts,
+            moe_capacity_factor=cfg.moe_capacity_factor)
+    if mt == "repnet":
+        width, embed, model_dim, heads = REPNET_VARIANTS.get(
+            cfg.base_model, REPNET_VARIANTS["base"])
+        return RepNet(cfg.num_segments, width, embed, model_dim, heads,
+                      dropout=cfg.dropout, dtype=DTYPES[cfg.dtype])
     fused = str(cfg.fused_block).lower() != "false"
     if mt == "image":
         return ImageClassifier(cfg.base_model, cfg.num_class,
@@ -75,9 +80,7 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
                    fused_stages=tuple(cfg.fused_stages),
                    use_kernels=use_kernels)
     if mt != "tsm":
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} (RepNet) is not in the PyTorch "
-            "port yet (ROADMAP §1 item 6)")
+        raise KeyError(f"Model '{cfg.model_type}' is not supported.")
     return TSM(cfg.num_class, cfg.num_segments, cfg.base_model,
                is_shift=cfg.is_shift, shift_div=cfg.shift_div,
                shift_place=cfg.shift_place,

@@ -36,7 +36,7 @@ on-card reference).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -87,13 +87,15 @@ def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
 
 class Conv(nn.Module):
     """NHWC convolution with an OIHW fp32 weight (a bias with ``bias``, as
-    TDN's convs have; ``groups`` as flax's ``feature_group_count``),
-    followed by ``bn`` when given: folded into the weight and a bias when
-    the BN can fold (``BatchNorm.foldable``), else applied after the
-    conv."""
+    TDN's convs have; ``groups`` as flax's ``feature_group_count``;
+    ``pad`` a symmetric pad or ``"SAME"``, flax's default, as RepNet's
+    convs have), followed by ``bn`` when given: folded into the weight and
+    a bias when the BN can fold (``BatchNorm.foldable``), else applied
+    after the conv."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 pad: int = 0, bias: bool = False, groups: int = 1):
+                 pad: Union[int, str] = 0, bias: bool = False,
+                 groups: int = 1):
         super().__init__()
         # zeros until load_flax_variables sets them
         self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
@@ -106,7 +108,7 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 bn: Optional["BatchNorm"] = None) -> torch.Tensor:
         p = self.pad
-        pads = ((p, p), (p, p))
+        pads = p if isinstance(p, str) else ((p, p), (p, p))
         strides = (self.stride, self.stride)
         if bn is None or not bn.foldable():
             y = conv2d_nhwc(x, self.weight, strides, pads, self.bias,

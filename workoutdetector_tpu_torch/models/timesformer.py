@@ -24,21 +24,28 @@ the JAX model has them (``dropout``), every mask drawn in fp32 from the
 forward's ``dropout_generator``, so the bf16 and fp32 paths of one step
 draw the same masks.
 
-Not ported (parallel work): ``seq_mesh``, ``block_barrier``, the MoE MLP
-and the attention dropout, which no configuration sets (ROADMAP).
+``moe_experts > 0`` puts the Switch MLP (``models/moe.MoEMlp``) in place
+of each divided block's MLP; it routes the cls tokens and the patches as
+two groups, and the train-mode forward returns the 2·L load-balance
+losses beside the logits. One device holds every expert.
+
+Not ported (parallel work): ``seq_mesh``, ``block_barrier``, expert
+parallelism, and the attention dropout, which no configuration sets
+(ROADMAP).
 """
 
 from __future__ import annotations
 
 import copy
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from workoutdetector_tpu_torch.models.moe import MoEMlp
 from workoutdetector_tpu_torch.models.resnet import Dense
 from workoutdetector_tpu_torch.models.tsm import dropout
 from workoutdetector_tpu_torch.ops import kernels
@@ -160,11 +167,16 @@ class DividedBlock(nn.Module):
     mode with ``drop_path`` > 0, three masks:
     per (b·p) row of the temporal branch (before ``t_fc``), per (b·t) row
     of the spatial branch (the cls row and that frame's patches alike),
-    and one per sample shared by the cls and patch MLP outputs."""
+    and one per sample shared by the cls and patch MLP outputs.
+    ``moe_experts > 0``: the MLP is a ``MoEMlp`` (one router and expert
+    stack for the cls tokens and the patches, called once on each), whose
+    two load-balance losses ``forward`` appends to ``moe_losses`` where
+    given."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  flash: bool = False, fold_temporal_fc: bool = False,
-                 drop: float = 0.0, drop_path: float = 0.0):
+                 drop: float = 0.0, drop_path: float = 0.0,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.fold_temporal_fc = fold_temporal_fc
         self.drop_path = drop_path
@@ -175,10 +187,15 @@ class DividedBlock(nn.Module):
         self.s_norm = LayerNorm(dim)
         self.s_attn = MHA(dim, num_heads, flash=flash, proj_drop=drop)
         self.mlp_norm = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
+        if moe_experts > 0:
+            self.mlp = MoEMlp(dim, int(dim * mlp_ratio), moe_experts,
+                              moe_capacity_factor, drop)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
 
     def forward(self, cls_tok: torch.Tensor, patches: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                moe_losses: Optional[List[torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, p, t, d = patches.shape
         rate = self.drop_path if self.training else 0.0
@@ -209,6 +226,10 @@ class DividedBlock(nn.Module):
         # stochastic-depth mask per sample shared by both
         y_cls = self.mlp(self.mlp_norm(cls_tok), generator)
         y_pat = self.mlp(self.mlp_norm(patches), generator)
+        if isinstance(self.mlp, MoEMlp):
+            (y_cls, l_cls), (y_pat, l_pat) = y_cls, y_pat
+            if moe_losses is not None:
+                moe_losses += [l_cls, l_pat]
         if rate > 0:
             keep = 1.0 - rate
             mask = torch.rand((b, 1, 1), generator=generator,
@@ -249,6 +270,10 @@ class TimeSformer(nn.Module):
     ``flash`` picks the kernels for the divided blocks' spatial attention.
     Built in eval mode; ``train()`` turns on stochastic depth and the
     dropouts, whose masks come from ``forward``'s ``dropout_generator``.
+    ``moe_experts > 0`` (divided attention) gives each block a ``MoEMlp``;
+    the train-mode forward then returns ``(logits, None, moe_losses)``,
+    the (2·L,) load-balance losses of the blocks' routing groups (the
+    trainer adds ``moe_aux_weight`` × their mean).
     """
 
     # kernels whose JAX initializer is not lecun_normal, by module name
@@ -262,7 +287,8 @@ class TimeSformer(nn.Module):
                  attention_type: str = "divided_space_time",
                  dtype: torch.dtype = torch.float32, flash: bool = True,
                  use_kernels: bool = True, dropout: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         if attention_type not in ATTENTION_TYPES:
             raise ValueError(f"Unknown attention type: {attention_type}")
@@ -275,6 +301,8 @@ class TimeSformer(nn.Module):
         self.attention_type = attention_type
         self.dtype = dtype
         self.dropout = dropout
+        self.moe_experts = moe_experts if \
+            attention_type == "divided_space_time" else 0
         self.fold_temporal_fc = False  # fold_for_inference sets it
         d = embed_dims
         p = (image_size // patch_size) ** 2
@@ -292,7 +320,9 @@ class TimeSformer(nn.Module):
             if attention_type == "divided_space_time":
                 blk = DividedBlock(d, num_heads, mlp_ratio,
                                    flash=flash and use_kernels, drop=dropout,
-                                   drop_path=float(rates[i]))
+                                   drop_path=float(rates[i]),
+                                   moe_experts=moe_experts,
+                                   moe_capacity_factor=moe_capacity_factor)
             else:
                 blk = JointBlock(d, num_heads, mlp_ratio, drop=dropout,
                                  drop_path=float(rates[i]))
@@ -305,11 +335,11 @@ class TimeSformer(nn.Module):
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
 
     def forward(self, x: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None):
         """Logits of (B, T, H, W, C) clips. In train mode stochastic depth
         and the dropouts draw their masks from ``dropout_generator`` (the
-        trainer seeds one per step)."""
+        trainer seeds one per step), and a MoE model returns ``(logits,
+        None, moe_losses)``."""
         b, t, hh, ww, c = x.shape
         if t != self.num_segments:
             raise ValueError(f"expected T={self.num_segments}, got {t}")
@@ -335,9 +365,12 @@ class TimeSformer(nn.Module):
 
         if self.attention_type == "divided_space_time":
             patches = patches.transpose(1, 2).contiguous()  # (B, P, T, D)
+            losses = [] if self.moe_experts and self.training else None
             for blk in self.blocks():
-                cls_tok, patches = blk(cls_tok, patches, g)
+                cls_tok, patches = blk(cls_tok, patches, g, losses)
             feat = self.norm(cls_tok[:, 0])
+            if losses is not None:
+                return self.fc(drop(feat)).float(), None, torch.stack(losses)
         elif self.attention_type == "joint_space_time":
             tokens = torch.cat(
                 [cls_tok, patches.transpose(1, 2).reshape(b, p * t, d)], dim=1)

@@ -12,7 +12,8 @@ Port of ``workoutdetector_tpu/scripts/export_model.py``:
 The artifact is exported for the card (its graph launches the hand
 kernels), or with ``--cpu`` for the CPU, at the input shape
 ``models.example_input_shape`` gives (TDN's is rank 6, an image model's
-(``model.model_type=image``) rank 4);
+(``model.model_type=image``) rank 4; a RepNet's graph returns the
+per-frame logits, and its sidecar the derived ``num_class``, T // 2);
 ``InferenceEngine.from_exported`` and ``engine_from_checkpoint`` load it
 where this package is importable.
 """
@@ -80,7 +81,7 @@ def main(argv=None) -> None:
                                 image_size=cfg.data.image_size)
     path = export_model(model, args.output, input_shape=shape, device=device,
                         meta={"model_type": cfg.model.model_type,
-                              "num_class": cfg.model.num_class,
+                              "num_class": model.num_class,
                               "checkpoint": args.checkpoint or args.torch_ckpt})
     print(f"exported to {path} (+ {path}.json)")
 

@@ -8,8 +8,10 @@ gradio is imported only where the interface comes up; without it the CLI
 prints the same outputs (JSON, and with ``-o`` the annotated video).
 
 ``count-similarity`` is the checkpoint-free counter (the per-cell motion
-periodicity, ``count_by_motion_periodicity``); the RepNet one
-(``count-repnet``) comes with its model family (ROADMAP §1 item 6).
+periodicity, ``count_by_motion_periodicity``); ``count-repnet`` counts
+with the learnable RepNet period model (``count_by_repnet``; ``--cfg
+workoutdetector_tpu/configs/repnet.yaml --checkpoint ...``, ``--grid``
+for the quadrant views).
 """
 
 from __future__ import annotations
@@ -21,12 +23,9 @@ from workoutdetector_tpu_torch.data.sampling import sample_frames
 from workoutdetector_tpu_torch.data.video import VideoReader
 from workoutdetector_tpu_torch.infer.engine import InferenceEngine
 from workoutdetector_tpu_torch.infer.inference_count import (
-    count_by_motion_periodicity, count_by_video_model)
+    count_by_motion_periodicity, count_by_repnet, count_by_video_model)
 from workoutdetector_tpu_torch.serve.server import scores_to_payload
 from workoutdetector_tpu_torch.settings import WORKOUT_LABELS
-
-LATER_TASKS = ("count-repnet",)
-
 
 def inference_video_action(engine: InferenceEngine, video_path: str,
                            labels: List[str]) -> Dict[str, float]:
@@ -89,24 +88,26 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(description="Workout demo (CLI fallback)")
     parser.add_argument("-i", "--video", required=True)
     parser.add_argument("--task", choices=["count", "recognize",
-                                           "count-similarity"] +
-                        list(LATER_TASKS), default="count",
+                                           "count-similarity",
+                                           "count-repnet"], default="count",
                         help="count-similarity: the training-free motion "
-                             "periodicity counter (no checkpoint)")
+                             "periodicity counter (no checkpoint); "
+                             "count-repnet: the learnable period counter "
+                             "(--cfg workoutdetector_tpu/configs/repnet.yaml "
+                             "--checkpoint ...)")
     parser.add_argument("--cfg", default=None)
     parser.add_argument("--checkpoint", default=None,
                         help="port checkpoint file or .pt2 artifact")
     parser.add_argument("-o", "--output", default=None,
                         help="annotated video output path")
+    parser.add_argument("--grid", action="store_true",
+                        help="count-repnet: also score quadrant crops "
+                             "(motion confined to a small region)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions)")
     parser.add_argument("opts", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
 
-    if args.task in LATER_TASKS:
-        raise NotImplementedError(
-            f"--task {args.task}: its counter is not in the PyTorch port yet "
-            "(ROADMAP §1 item 6)")
     device = "cpu" if args.cpu else "cuda"
     if args.task == "count-similarity":
         count, period, strength = count_by_motion_periodicity(
@@ -115,6 +116,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                           "strength": round(float(strength), 4)}))
         return
     cfg = load_config(args.cfg, args.opts)
+    if args.task == "count-repnet":
+        cfg.model.model_type = "repnet"
+        engine = engine_from_checkpoint(cfg, args.checkpoint,
+                                        image_size=cfg.data.image_size,
+                                        window_batch=4, device=device)
+        count, period, strength = count_by_repnet(engine, args.video,
+                                                  grid=args.grid)
+        print(json.dumps({"count": count, "period_frames": period,
+                          "strength": round(float(strength), 4)}))
+        return
     if args.task == "recognize":
         cfg.model.num_class = len(WORKOUT_LABELS)
     engine = engine_from_checkpoint(cfg, args.checkpoint, device=device)

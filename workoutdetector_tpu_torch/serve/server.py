@@ -24,8 +24,12 @@ which runs the model's hand kernels on the card. The engine serializes
 its device calls itself (``InferenceEngine``), since the batcher's
 executor threads and the HTTP threads call it at once.
 
-``mode:count-periodic`` (RepNet) answers as the JAX server does when it
-has no RepNet engine: RepNet is not in the port yet (ROADMAP §1 item 6).
+``mode:count-periodic`` counts live with a RepNet (``periodic_engine``,
+the CLI's ``--repnet-checkpoint`` artifact): every connection's due
+windows coalesce through one more batcher into the RepNet's per-frame
+logits (``infer.streaming.StreamingPeriodicCounter``). Without that
+engine the mode answers as the JAX server does and the connection falls
+back to recognize.
 """
 
 from __future__ import annotations
@@ -135,6 +139,8 @@ class WorkoutServer:
             (Upgrade splice) AND directly on ws_port (http_port + 1).
         count_engine: engine of the live rep-counting mode (the binary
             state classifier); defaults to ``engine``.
+        periodic_engine: a RepNet engine for ``mode:count-periodic``
+            (optional); its windows go through their own batcher.
     """
 
     def __init__(self,
@@ -144,10 +150,21 @@ class WorkoutServer:
                  http_port: int = 8000,
                  ws_port: Optional[int] = None,
                  batch_delay_ms: float = 10.0,
-                 count_engine: Optional[InferenceEngine] = None):
+                 count_engine: Optional[InferenceEngine] = None,
+                 periodic_engine: Optional[InferenceEngine] = None):
         self.engine = engine
         self.count_engine = count_engine or engine
-        self.periodic_engine = None  # RepNet: ROADMAP §1 item 6
+        # the live periodic counter's RepNet; the windows of every
+        # periodic connection coalesce through one batcher
+        self.periodic_engine = periodic_engine
+        self.periodic_batcher = None
+        if periodic_engine is not None:
+            from workoutdetector_tpu_torch.infer.inference_count import \
+                repnet_frame_logits_batch
+            self.periodic_batcher = AsyncBatcher(
+                repnet_frame_logits_batch(periodic_engine),
+                max_batch=max(periodic_engine.window_batch, 8),
+                max_delay_ms=batch_delay_ms)
         self.labels = labels if labels is not None else list(WORKOUT_LABELS)
         self.host = host
         self.http_port = http_port
@@ -206,6 +223,8 @@ class WorkoutServer:
         }
         if self.count_batcher is not self.batcher:
             out["count_batcher"] = bstats(self.count_batcher)
+        if self.periodic_batcher is not None:
+            out["periodic_batcher"] = bstats(self.periodic_batcher)
         return out
 
     # ---------------- video upload path ---------------- #
@@ -232,9 +251,10 @@ class WorkoutServer:
           (app/inference.py:109-111).
         - 'count': live rep counting (send 'mode:count') — every 8 frames
           → running count + state, through the online counter.
-        - 'count-periodic' needs RepNet, which the port does not have
-          yet: the client is told so and the connection falls back to
-          recognize, as the JAX server does without a RepNet engine.
+        - 'count-periodic': live counting with the RepNet period model
+          (needs ``periodic_engine``; without it the client is told so
+          and the connection falls back to recognize) — a status message
+          per scored window hop (``StreamingPeriodicCounter``).
 
         Overload policy: frames accumulate in a per-connection
         ``deque(maxlen=8)`` and scoring runs as a task, so the reader keeps
@@ -246,12 +266,14 @@ class WorkoutServer:
         stay serialized (at most one in-flight window), so the count
         stream keeps its order.
         """
-        from workoutdetector_tpu_torch.infer.streaming import OnlineRepCounter
+        from workoutdetector_tpu_torch.infer.streaming import (
+            OnlineRepCounter, StreamingPeriodicCounter)
         ConnectionClosed = _connection_closed()
 
         frame_queue: deque = deque(maxlen=SAMPLE_LENGTH)
         mode = "recognize"
         counter: Optional[OnlineRepCounter] = None
+        pcounter: Optional[StreamingPeriodicCounter] = None
         inflight: Optional[asyncio.Task] = None
         self._ws_active += 1
 
@@ -330,11 +352,15 @@ class WorkoutServer:
                     if mode == "count":
                         counter = OnlineRepCounter(step=SAMPLE_LENGTH)
                     elif mode == "count-periodic":
-                        mode = "recognize"
-                        await websocket.send(json.dumps({
-                            "success": False,
-                            "msg": "count-periodic unavailable: server "
-                                   "started without a repnet engine"}))
+                        if self.periodic_engine is None:
+                            mode = "recognize"
+                            await websocket.send(json.dumps({
+                                "success": False,
+                                "msg": "count-periodic unavailable: server "
+                                       "started without a repnet engine"}))
+                        else:
+                            pcounter = StreamingPeriodicCounter(
+                                self.periodic_engine)
                     frame_queue.clear()
                     continue
                 loop = asyncio.get_running_loop()
@@ -342,6 +368,18 @@ class WorkoutServer:
                     self._prep_pool, decode_data_url, message) \
                     if isinstance(message, str) else None
                 if frame is None:
+                    continue
+                if mode == "count-periodic" and pcounter is not None:
+                    # prep off the event loop; due windows of every
+                    # periodic connection coalesce into one device call
+                    window = await loop.run_in_executor(
+                        self._prep_pool, pcounter.prepare, frame)
+                    if window is not None:
+                        fl = await self.periodic_batcher.score(window)
+                        status = pcounter.ingest(fl)
+                        await websocket.send(json.dumps(
+                            {"success": True, "mode": "count-periodic",
+                             **status}))
                     continue
                 # shed-oldest overload policy — the deque evicts a frame
                 # when full (only possible while a score is in flight; an
@@ -521,7 +559,7 @@ class WorkoutServer:
                         "status": "draining" if server._draining else "ok",
                         "model_type": server.engine.meta.get("model_type",
                                                              "tsm"),
-                        "periodic": False,
+                        "periodic": server.periodic_engine is not None,
                         "warm": server._warm,
                     }, code=503 if server._draining else 200)
                     return
@@ -582,6 +620,11 @@ class WorkoutServer:
         self.engine.score_windows(zwin(self.engine))
         if self.count_engine is not self.engine:
             self.count_engine.score_windows(zwin(self.count_engine))
+        if self.periodic_engine is not None:
+            from workoutdetector_tpu_torch.infer.inference_count import \
+                repnet_frame_logits_batch
+            repnet_frame_logits_batch(self.periodic_engine)(
+                zwin(self.periodic_engine))
         self._warm = True
         log.info("serving kernels built and launched in %.1fs",
                  time.time() - t0)
@@ -659,7 +702,10 @@ def build_server(argv: Optional[List[str]] = None) -> WorkoutServer:
     """The server ``main`` runs, from its command line: the engine of
     ``engine_from_checkpoint`` (a port checkpoint, a ``.pt2`` artifact,
     or the initializers from seed 0) on the card, or on the CPU with
-    ``--cpu``."""
+    ``--cpu``; ``--repnet-checkpoint`` takes a RepNet ``.pt2`` artifact
+    for ``mode:count-periodic`` and refuses any other, and a RepNet
+    artifact is refused as the main engine (its outputs are per-frame
+    period logits, not class scores)."""
     import argparse
 
     from workoutdetector_tpu_torch.config import load_config
@@ -672,8 +718,8 @@ def build_server(argv: Optional[List[str]] = None) -> WorkoutServer:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--num-class", type=int, default=11)
     parser.add_argument("--repnet-checkpoint", default=None,
-                        help="RepNet artifact for 'mode:count-periodic' "
-                             "(not in the PyTorch port yet)")
+                        help="RepNet .pt2 artifact enabling the live "
+                             "'mode:count-periodic' WS mode")
     parser.add_argument("--window-batch", type=int, default=None,
                         help="device batch of the serving engine; default "
                              "4 for timesformer, 16 otherwise")
@@ -682,10 +728,17 @@ def build_server(argv: Optional[List[str]] = None) -> WorkoutServer:
     parser.add_argument("opts", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
 
+    device = "cpu" if args.cpu else "cuda"
+    periodic_engine = None
     if args.repnet_checkpoint:
-        raise NotImplementedError(
-            "--repnet-checkpoint: RepNet is not in the PyTorch port yet "
-            "(ROADMAP §1 item 6)")
+        if not args.repnet_checkpoint.endswith(".pt2"):
+            raise SystemExit("--repnet-checkpoint must be a repnet .pt2 "
+                             "artifact")
+        periodic_engine = InferenceEngine.from_exported(
+            args.repnet_checkpoint, device=device)
+        if periodic_engine.meta.get("model_type") != "repnet":
+            raise SystemExit("--repnet-checkpoint must be a repnet .pt2 "
+                             "artifact")
     cfg = load_config(args.cfg, args.opts)
     cfg.model.num_class = args.num_class
     window_batch = args.window_batch if args.window_batch else \
@@ -693,8 +746,14 @@ def build_server(argv: Optional[List[str]] = None) -> WorkoutServer:
     engine = engine_from_checkpoint(cfg, args.checkpoint,
                                     image_size=cfg.data.image_size,
                                     window_batch=window_batch,
-                                    device="cpu" if args.cpu else "cuda")
-    return WorkoutServer(engine, labels=engine.labels, http_port=args.port)
+                                    device=device)
+    if engine.meta.get("model_type") == "repnet":
+        raise SystemExit(
+            "repnet artifacts carry per-frame period logits, not class "
+            "scores: count with `serve.demo --task count-repnet` instead "
+            "of the classification server")
+    return WorkoutServer(engine, labels=engine.labels, http_port=args.port,
+                         periodic_engine=periodic_engine)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -11,8 +11,10 @@ Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
   statistics, dropout from a generator seeded by
   ``seed + 1`` and the step — the counterpart of
   ``jax.random.fold_in(base_key, step)``), takes the mean softmax CE on
-  fp32 logits (plus ``aux_loss_weight`` times the CE of an auxiliary head,
-  where the model returns one: ``train_loss``), back-propagates (the 1×1 backward kernels on the main
+  fp32 logits (plus ``aux_loss_weight`` times the CE of an auxiliary head
+  or of RepNet's per-frame logits, and ``moe_aux_weight`` times the mean
+  of a MoE model's load-balance losses, where the model returns them:
+  ``train_loss``), back-propagates (the 1×1 backward kernels on the main
   path), clips and updates (``train/optim.TrainOptimizer``) and moves the
   EMA;
 * the eval step runs the inference path (fused-block and shift-matmul
@@ -65,14 +67,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -(logp * F.one_hot(labels.long(), logits.shape[-1])).sum(-1)
 
 
-def train_loss(out, labels: torch.Tensor, aux_weight: float
+def train_loss(out, labels: torch.Tensor, aux_weight: float,
+               moe_weight: float = 0.0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, logits) of a train-mode forward: the mean CE of the logits,
-    and where the model also returned auxiliary logits (``(logits, aux)``:
-    TPN's aux head) ``aux_weight`` times their mean CE. (B, T, C) auxiliary
-    logits are dense per-frame supervision: the clip's label holds for
-    each of its frames (JAX ``trainer.py:188-198``)."""
-    logits, aux = out if isinstance(out, tuple) else (out, None)
+    """(loss, logits) of a train-mode forward: the mean CE of the logits;
+    where the model also returned auxiliary logits (``(logits, aux)``:
+    TPN's aux head, RepNet's per-frame logits) ``aux_weight`` times their
+    mean CE; and where it returned load-balance losses (``(logits, aux,
+    moe_losses)``: a MoE TimeSformer, one loss per routing group)
+    ``moe_weight`` times their mean (JAX ``trainer.py:188-204``). (B, T, C)
+    auxiliary logits are dense per-frame supervision: the clip's label
+    holds for each of its frames."""
+    logits, aux, moe = (tuple(out) + (None, None))[:3] \
+        if isinstance(out, tuple) else (out, None, None)
     loss = cross_entropy(logits, labels).mean()
     if aux is not None:
         ya = labels
@@ -80,6 +87,8 @@ def train_loss(out, labels: torch.Tensor, aux_weight: float
             ya = labels.repeat_interleave(aux.shape[1])
             aux = aux.reshape(-1, aux.shape[-1])
         loss = loss + aux_weight * cross_entropy(aux, ya).mean()
+    if moe is not None:
+        loss = loss + moe_weight * moe.mean()
     return loss, logits
 
 
@@ -178,7 +187,7 @@ class Trainer:
         x, y = self._batch(x_u8, y, state.step)
         loss, logits = train_loss(
             model(x, dropout_generator=self.dropout_generator(state.step)), y,
-            self.cfg.model.aux_loss_weight)
+            self.cfg.model.aux_loss_weight, self.cfg.model.moe_aux_weight)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()

@@ -10,7 +10,9 @@ place of ``platforms``).
 
 The graph is uint8 windows → ``normalize_clip`` → the model with
 ``fold_for_inference`` applied → fp32 logits, its weights held by the
-program. The hand kernels appear in it as the ops ``torch.ops.wd.*``
+program; a RepNet's graph returns its per-frame logits (B, T, C), which
+counting needs (their frame mean is the consensus), as the JAX export
+does. The hand kernels appear in it as the ops ``torch.ops.wd.*``
 (``ops/kernels/library.py``): a program exported on ``cuda`` launches
 the same kernels as the live model, one exported on the CPU runs their
 plain versions. So, unlike a ``.jaxm``, the artifact is not
@@ -31,6 +33,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from workoutdetector_tpu_torch.device import resolve_device
+from workoutdetector_tpu_torch.models.repnet import RepNet
 from workoutdetector_tpu_torch.models.timesformer import fold_for_inference
 from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
 
@@ -39,16 +42,20 @@ SUFFIX = ".pt2"
 
 class InferenceModule(torch.nn.Module):
     """The deployed graph: uint8 (B, T, H, W, 3) windows (TDN's (B, T, 5,
-    H, W, 3) bursts, an image model's (B, H, W, 3) frames) → logits,
-    without autograd."""
+    H, W, 3) bursts, an image model's (B, H, W, 3) frames) → logits
+    (a RepNet's per-frame (B, T, C)), without autograd."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
         self.model = model
+        self.per_frame = isinstance(model, RepNet)
 
     def forward(self, x_u8: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return self.model(normalize_clip(x_u8))
+            x = normalize_clip(x_u8)
+            if self.per_frame:
+                return self.model(x, per_frame=True)
+            return self.model(x)
 
 
 def make_inference_fn(model: torch.nn.Module) -> InferenceModule:
