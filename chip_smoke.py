@@ -217,11 +217,32 @@ not printed; no CUDA device → exit 2):
      8's), ``grad_check`` on one routing with phase 8's planted fault;
      ``MoEMlp`` alone, card against CPU on identical inputs: equal
      routing;
- 16. one JSON line of per-kernel numbers (and the sweep's, the file
+ 16. the person detector, the person crop and pose (``models/detector.py``,
+     ``data/person.py``, ``models/pose.py``, their scripts): the tiny
+     detector at its defaults (TinyFCN width 32, head 64, input 128,
+     fp32) trained by ``train_detector`` on ``person_dataset`` at 128²
+     (steps/s, a profiled 20-step call, held-out mean IoU > 0.5, the JAX
+     test's bar); ``LearnedDetectorBackend`` on a 40-frame 240×320 clip,
+     card against the CPU on the same weights (maps within 1e-4 and boxes
+     within 1e-2 px with TF32 off, the TF32 gap printed beside);
+     ``Detector(backend="learned")`` on its saved file, ``PersonCrop``
+     card = CPU, ``build_dataset`` on a test split with ``person_crop``
+     over 3 written JPEG clips (items equal to the CPU backend's), and
+     ``scripts/bbox.py json`` on a written video; the ResNet-50 detector
+     and pose model at 128² in bf16 (6 fused-bottleneck launches a
+     forward, maps by phase 4's rule against the fp32 plain models, peak
+     cells equal where the fp32 margin exceeds twice the error, and there
+     the detector's decoded top boxes within stride·(max|Δoffset| +
+     max|Δwh|/2)); the tiny
+     pose model trained by ``train_pose`` at 128² to a mean keypoint error
+     under 0.1·128, ``estimate_clip`` card = CPU, and ``scripts/pose.py``'s
+     ``inference_one_video`` with the learned crop (card = CPU) and
+     ``render_pose_video``;
+ 17. one JSON line of per-kernel numbers (and the sweep's, the file
      training's, the serving phase's, TPN's, TDN's, the image phase's,
-     RepNet's and the MoE model's numbers), the card line again, the
-     script's wall time, and the contract line ``{"ok": true, "device":
-     {...}}`` last.
+     RepNet's, the MoE model's and phase 16's numbers), the card line
+     again, the script's wall time, and the contract line ``{"ok": true,
+     "device": {...}}`` last.
 
 Kernel times are CUDA-event means over repeated launches on the current
 stream; ``ms``, ``plain_ms`` and ``bound_ms`` are per R50 forward (the sum
@@ -246,7 +267,10 @@ the fastest of its backends, which also computes D = rowsum(dO ∘ O)), the
 same number in the dK/dV and dQ rows; phase 3 prints the tiled route's
 dK/dV + dQ + D beside it. The ``*_image`` rows are the same kernels at the
 image ResNet-50's sites: the fused bottleneck per forward of 16 images at
-fold 0, dx and dW per train step of 64 unshifted images (33 sites).
+fold 0, dx and dW per train step of 64 unshifted images (33 sites); the
+``fused_bottleneck_person`` row is the fused bottleneck at the detector's
+and pose's ResNet-50 sites at 128² (16 images, fold 0), its launches
+those of phase 16's two 40-frame runs.
 """
 
 from __future__ import annotations
@@ -308,6 +332,11 @@ FUSED_SITES = [  # (h, w, c, f, o, ds, count) — stride-1 blocks of stages 0-1
     (56, 56, 256, 64, 256, False, 2),   # layer1_1..2
     (28, 28, 512, 128, 512, False, 3),  # layer2_1..3
 ]
+# the same stride-1 blocks in the detector's and pose's ResNet-50 backbone
+# at their 128² input (phase 16): layer1 at 32², layer2 at 16²
+PERSON_SIZE = 128
+PERSON_FUSED_SITES = [(h * PERSON_SIZE // SIZE, w * PERSON_SIZE // SIZE, c, f,
+                       o, ds, n) for h, w, c, f, o, ds, n in FUSED_SITES]
 SHIFT_SITES = [  # (h, w, c, count) — block inputs under shift_place='block'
     (56, 56, 64, 1), (56, 56, 256, 3), (28, 28, 512, 4),
     (14, 14, 1024, 6), (7, 7, 2048, 2),
@@ -564,6 +593,27 @@ def kernel_phase(torch, kernels, g) -> dict:
         tb, to = fused_bound(WINDOW_BATCH * h * w, c, f, o, ds)
         add("fused_bottleneck_image", err, ms, pms, tb, to, count)
         log(f"  fused_bottleneck_image x{tuple(x.shape)} F={f} O={o} ds={ds} "
+            f"err={err} kernel={ms:.4f} ms plain={pms:.4f} ms "
+            f"bound={max(tb, to):.4f} ms")
+        del x, p
+    # the detector's and pose's ResNet-50 sites: WINDOW_BATCH images at
+    # 128² (the learned backend's batch of 16), fold 0 ([16b])
+    for h, w, c, f, o, ds, count in PERSON_FUSED_SITES:
+        x = randn(WINDOW_BATCH, h, w, c)
+        p = fused_params(c, f, o, ds)
+        got = kernels.fused_bottleneck(x, p, n_segment=1, fold=0)
+        want = kernels.fused_bottleneck_plain(x, p, n_segment=1, fold=0)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"fused_bottleneck_person {tuple(x.shape)} "
+                          f"F={f} O={o}", got, want)
+        del got, want
+        ms = time_ms(torch, lambda: kernels.fused_bottleneck(
+            x, p, n_segment=1, fold=0), 20)
+        pms = time_ms(torch, lambda: kernels.fused_bottleneck_plain(
+            x, p, n_segment=1, fold=0), 5)
+        tb, to = fused_bound(WINDOW_BATCH * h * w, c, f, o, ds)
+        add("fused_bottleneck_person", err, ms, pms, tb, to, count)
+        log(f"  fused_bottleneck_person x{tuple(x.shape)} F={f} O={o} ds={ds} "
             f"err={err} kernel={ms:.4f} ms plain={pms:.4f} ms "
             f"bound={max(tb, to):.4f} ms")
         del x, p
@@ -4039,6 +4089,345 @@ def moe_phase(np, torch, kernels, video, repo: Path, card: str,
     return out
 
 
+PERSON_IMAGES = 96       # person_dataset / pose_dataset images at 128²
+DETECTOR_STEPS = 150
+DETECTOR_BATCH = 8
+POSE_STEPS = 1000
+POSE_BATCH = 16
+PERSON_FRAMES = 40       # the clip the backends run: 3 batches of 16
+PERSON_HW = (240, 320)   # its frames, another size than the input's
+BOX_TOL = 1e-2           # card vs CPU boxes, px (fp32, TF32 off)
+MAP_TOL = 1e-4           # card vs CPU maps (fp32, TF32 off)
+
+
+def person_clip(np, person_scene, frames: int, seed: int):
+    """A drifting synthetic person at 240×320: ``person_scene`` at 240²,
+    its edge columns repeated to 320."""
+    clip, _ = person_scene(np.random.default_rng(seed), size=PERSON_HW[0],
+                           t=frames, drift=2.0)
+    pad = (PERSON_HW[1] - PERSON_HW[0]) // 2
+    return np.ascontiguousarray(np.pad(clip, ((0, 0), (0, 0), (pad, pad),
+                                              (0, 0)), mode="edge"))
+
+
+def same_boxes(np, got, want, what: str) -> float:
+    """Per-frame boxes: the same number, within BOX_TOL px. Returns the
+    largest difference."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: {len(g)} boxes against {len(w)}")
+        if len(g):
+            worst = max(worst, float(np.abs(g - w).max()))
+    if worst > BOX_TOL:
+        raise AssertionError(f"{what}: boxes {worst} px apart")
+    return worst
+
+
+def decided_boxes(np, decode_boxes, maps, ref, frames, stride: int):
+    """The top box of each decided frame, the bf16 maps' against the fp32
+    plain maps': within stride·(max|Δoffset| + max|Δwh| / 2) px of the
+    input (+ 1e-3 for fp32 rounding). Returns (largest difference,
+    bound)."""
+    got = decode_boxes({k: v[frames] for k, v in maps.items()}, stride,
+                       k=1, threshold=0.0)
+    want = decode_boxes({k: v[frames] for k, v in ref.items()}, stride,
+                        k=1, threshold=0.0)
+    bound = stride * (float(np.abs(maps["offset"] - ref["offset"])[frames]
+                            .max()) +
+                      float(np.abs(maps["wh"] - ref["wh"])[frames].max()) / 2)
+    err = max(float(np.abs(g[0, :4] - w[0, :4]).max())
+              for g, w in zip(got, want, strict=True))
+    if err > bound + 1e-3:
+        raise AssertionError(f"decoded boxes {err} px apart, beyond {bound}")
+    return err, bound
+
+
+def person_phase(np, torch, kernels, repo: Path, card: str) -> dict:
+    """Phase 16: the person detector, the person crop and pose.
+    [16a] the tiny detector at its defaults (TinyFCN width 32, head 64,
+    input 128, fp32): ``train_detector`` on ``person_dataset`` at 128²
+    (steps/s, a profiled 20-step call, mean IoU on held-out scenes > 0.5);
+    ``LearnedDetectorBackend`` on a 40-frame 240×320 clip, card against
+    the CPU on the same weights; save, then ``Detector(backend="learned",
+    checkpoint=...)``; ``PersonCrop`` card = CPU; ``build_dataset`` on a
+    test split with ``person_crop`` over written JPEG clips, card = CPU;
+    ``scripts/bbox.py json`` on a written video. [16b] ResNet-50 detector
+    and pose at 128², bf16, random weights from seed 0: fused-bottleneck
+    launches (6 a forward), maps by phase 4's rule against the fp32 plain
+    models, peaks (and the detector's decoded top boxes) compared where the
+    fp32 margin exceeds twice the error.
+    [16c] tiny pose at 128: ``train_pose`` to a mean keypoint error
+    < 0.1·128, ``estimate_clip`` card against CPU, ``scripts/pose.py``'s
+    ``inference_one_video`` with the learned detector's crop (card = CPU)
+    and ``render_pose_video``."""
+    import cv2
+    import shutil
+    import tempfile
+
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data.datasets import build_dataset
+    from workoutdetector_tpu_torch.data.person import Detector, PersonCrop
+    from workoutdetector_tpu_torch.data.synthetic import (iou,
+                                                          person_dataset,
+                                                          person_scene,
+                                                          pose_dataset,
+                                                          pose_scene)
+    from workoutdetector_tpu_torch.data.video import write_video
+    from workoutdetector_tpu_torch.models import load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.models.detector import (
+        CenterNetDetector, LearnedDetectorBackend, decode_boxes,
+        train_detector)
+    from workoutdetector_tpu_torch.models.pose import (PoseEstimator,
+                                                       TopDownPose,
+                                                       train_pose)
+    from workoutdetector_tpu_torch.scripts import bbox as bbox_cli
+    from workoutdetector_tpu_torch.scripts import pose as pose_script
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-person-", dir=repo))
+    try:
+        # [16a] the tiny detector
+        imgs, boxes = person_dataset(PERSON_IMAGES, size=PERSON_SIZE, seed=0)
+        train_detector(imgs, boxes, steps=3, batch=DETECTOR_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        backend = train_detector(imgs, boxes, steps=DETECTOR_STEPS, lr=2e-3,
+                                 batch=DETECTOR_BATCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if any(kernels.launch_counts().values()):
+            raise AssertionError("the tiny detector launched a hand kernel")
+        steps_s = DETECTOR_STEPS / seconds
+        log(f"    [16a] train_detector: {DETECTOR_STEPS} steps at batch "
+            f"{DETECTOR_BATCH}, {PERSON_SIZE}², in {seconds:.3f} s = "
+            f"{steps_s:.2f} steps/s on {card}")
+        idle, busy = profile_call(torch, lambda: train_detector(
+            imgs, boxes, steps=20, lr=2e-3, batch=DETECTOR_BATCH), top=6)
+        rng = np.random.default_rng(123)
+        ious = []
+        for _ in range(12):
+            scene, gt = person_scene(rng, size=PERSON_SIZE, t=1, drift=0.0)
+            det = backend(scene)
+            ious.append(iou(det[0][0], gt[0]) if len(det[0]) else 0.0)
+        mean_iou = float(np.mean(ious))
+        log(f"    held-out mean IoU {mean_iou:.4f} over 12 scenes (bar 0.5)")
+        if mean_iou <= 0.5:
+            raise AssertionError(f"the trained detector's IoU {mean_iou}")
+        clip = person_clip(np, person_scene, PERSON_FRAMES, seed=5)
+        det_file = str(tmp / "detector.pt")
+        backend.save(det_file)
+        cpu_backend = LearnedDetectorBackend.load(det_file, device="cpu")
+        maps = backend.heatmaps(clip)
+        cpu_maps = cpu_backend.heatmaps(clip)
+        map_err = max(float(np.abs(maps[k] - cpu_maps[k]).max()) for k in maps)
+        card_boxes, cpu_boxes = backend(clip), cpu_backend(clip)
+        box_err = same_boxes(np, card_boxes, cpu_boxes, "card vs CPU")
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        tf32_err = max(float(np.abs(v - cpu_maps[k]).max())
+                       for k, v in backend.heatmaps(clip).items())
+        torch.backends.cudnn.allow_tf32 = False
+        found = sum(len(b) > 0 for b in card_boxes)
+        log(f"    backend on a {PERSON_FRAMES}-frame {PERSON_HW} clip: boxes "
+            f"in {found} frames; card vs CPU max |map diff| {map_err:.3g} "
+            f"(bar {MAP_TOL}), boxes {box_err:.3g} px (bar {BOX_TOL}); with "
+            f"cuDNN's TF32 allowed (PyTorch's default) the maps lie "
+            f"{tf32_err:.3g} from the CPU's")
+        if map_err > MAP_TOL or found < PERSON_FRAMES // 2:
+            raise AssertionError("the learned backend's card maps disagree "
+                                 "with the CPU's, or it found no person")
+        loaded = Detector(backend="learned", checkpoint=det_file)
+        for a, b in zip(loaded.detect(clip), card_boxes, strict=True):
+            if not np.array_equal(a, b):
+                raise AssertionError("Detector(learned) on the saved file "
+                                     "gives other boxes than the backend")
+        crop = PersonCrop(loaded)(clip)
+        cpu_crop = PersonCrop(Detector("learned", det_file, device="cpu"))(clip)
+        if not np.array_equal(crop, cpu_crop) or crop.shape == clip.shape:
+            raise AssertionError(f"PersonCrop: card {crop.shape} against CPU "
+                                 f"{cpu_crop.shape} of {clip.shape}")
+        log(f"    save -> Detector(backend='learned'): the backend's boxes; "
+            f"PersonCrop {clip.shape[1:3]} -> {crop.shape[1:3]}, card = CPU")
+        # build_dataset: a test split's person crop over written JPEG clips
+        frames_root = tmp / "frames"
+        lines = []
+        for k in range(3):
+            folder = frames_root / f"clip{k}"
+            folder.mkdir(parents=True)
+            for i, f in enumerate(person_clip(np, person_scene, 24, seed=k)):
+                cv2.imwrite(str(folder / f"img_{i + 1:05}.jpg"), f[..., ::-1])
+            lines.append(f"clip{k} 1 24 {k}")
+        (frames_root / "test.txt").write_text("\n".join(lines) + "\n")
+        opts = [f"data.data_root={frames_root}",
+                f"data.test.anno={frames_root / 'test.txt'}",
+                "data.test.data_prefix=", "data.test.person_crop=true",
+                "data.person_backend=learned",
+                f"data.person_checkpoint={det_file}"]
+        cfg = load_config(str(repo / TSM_YAML), opts)
+        ds = build_dataset(cfg.data, "test")
+        cpu_ds = build_dataset(cfg.data, "test", device="cpu")
+        plain = load_config(str(repo / TSM_YAML),
+                            opts + ["data.test.person_crop=false"])
+        plain_ds = build_dataset(plain.data, "test")
+        shape = (cfg.data.num_segments, cfg.data.image_size,
+                 cfg.data.image_size, 3)
+        for k in range(3):
+            item, label = ds[k]
+            if item.shape != shape or label != k or \
+                    not np.array_equal(item, cpu_ds[k][0]) or \
+                    np.array_equal(item, plain_ds[k][0]):
+                raise AssertionError(f"build_dataset's cropped item {k}: "
+                                     f"{item.shape}, label {label}")
+        log(f"    build_dataset (test, person_crop, learned backend on the "
+            f"card): 3 items of {shape}, equal to the CPU backend's, unlike "
+            "the uncropped ones")
+        mp4 = str(tmp / "person.mp4")
+        write_video(mp4, clip, 30.0)
+        bbox_json = str(tmp / "person.json")
+        bbox_cli.main(["json", "-i", mp4, "-o", bbox_json, "--backend",
+                       "learned", "--checkpoint", det_file])
+        with open(bbox_json) as f:
+            got = json.load(f)
+        want = bbox_cli.bboxes_to_json(mp4, None, Detector(
+            "learned", det_file, device="cpu"))
+        if got["total_frames"] != want["total_frames"] or \
+                got["video"] != want["video"]:
+            raise AssertionError("scripts/bbox.py json: another header")
+        json_err = same_boxes(np, [np.asarray(b) for b in got["boxes"]],
+                              [np.asarray(b) for b in want["boxes"]],
+                              "scripts/bbox.py json")
+        log(f"    scripts/bbox.py json: {got['total_frames']} frames, "
+            f"{sum(1 for b in got['boxes'] if b)} with a box, within "
+            f"{json_err:.3g} px of the CPU's")
+        out.update(detector_steps_per_s=steps_s, detector_train_idle=idle,
+                   detector_train_busy_ms=busy, detector_iou=mean_iou,
+                   detector_map_err=map_err, detector_box_err=box_err,
+                   detector_tf32_map_err=tf32_err)
+
+        # [16b] ResNet-50 backbones at 128², bf16, against fp32 plain
+        fused = 0
+        forwards = math.ceil(PERSON_FRAMES / WINDOW_BATCH)
+        for name, cls, runner in (("detector", CenterNetDetector,
+                                   LearnedDetectorBackend),
+                                  ("pose", TopDownPose, PoseEstimator)):
+            model = cls("resnet50", dtype=torch.bfloat16)
+            variables = random_flax_variables(model, seed=0)
+            load_flax_variables(model, variables)
+            ref = cls("resnet50", use_kernels=False)
+            load_flax_variables(ref, variables)
+            run = runner(model, input_size=PERSON_SIZE)
+            ref_run = runner(ref, input_size=PERSON_SIZE)
+            run.heatmaps(clip[:WINDOW_BATCH])  # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            maps = run.heatmaps(clip)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            want = dict({k: 0 for k in launches},
+                        fused_bottleneck=6 * forwards)
+            if launches != want:
+                raise AssertionError(f"{name} launches {launches} != {want}")
+            fused += launches["fused_bottleneck"]
+            ref_maps = ref_run.heatmaps(clip)
+            full, ref_full = maps, ref_maps
+            if name == "detector":
+                maps, ref_maps = maps["heatmap"], ref_maps["heatmap"]
+            err = float(np.abs(maps - ref_maps).max())
+            scale = float(np.abs(ref_maps).max())
+            # the peak cell per frame (detector) or per keypoint (pose)
+            flat = maps.reshape(len(clip), -1, maps.shape[-1])
+            ref_flat = ref_maps.reshape(len(clip), -1, maps.shape[-1])
+            top2 = np.sort(ref_flat, axis=1)[:, -2:]
+            decided = (top2[:, 1] - top2[:, 0]) > 2 * err
+            agree = flat.argmax(1) == ref_flat.argmax(1)
+            log(f"    [16b] {name} ResNet-50 {PERSON_SIZE}² bf16: "
+                f"{len(clip)} frames in {forwards} forwards, {seconds:.4f} s "
+                f"= {len(clip) / seconds:.2f} frames/s on {card}; launches "
+                f"{({k: v for k, v in launches.items() if v})}; vs fp32 "
+                f"plain max |map diff| {err:.5f} (max |map| {scale:.4f}); "
+                f"peaks agree on {int(agree.sum())}/{agree.size}, required "
+                f"on the {int(decided.sum())} whose fp32 margin exceeds 2x "
+                "that diff")
+            if not np.isfinite(maps).all() or err > 0.05 * (1 + scale) or \
+                    not agree[decided].all():
+                raise AssertionError(f"the bf16 ResNet-50 {name} disagrees "
+                                     "with the fp32 plain model")
+            if name == "detector":
+                box_err, box_bound = decided_boxes(
+                    np, decode_boxes, full, ref_full, decided[:, 0],
+                    run.model.stride)
+                log(f"    decoded top boxes of the {int(decided.sum())} "
+                    f"decided frames: {box_err:.4f} px apart at {PERSON_SIZE}"
+                    f"² (bound {box_bound:.4f} from the wh and offset maps)")
+                out["r50_detector_box_err"] = box_err
+            profile_call(torch, lambda: run.heatmaps(clip[:WINDOW_BATCH]),
+                         top=4)
+            out[f"r50_{name}_frames_per_s"] = len(clip) / seconds
+            out[f"r50_{name}_map_err"] = err
+            del model, ref, run, ref_run
+        out["fused_launches"] = fused
+
+        # [16c] tiny pose
+        pimgs, kps = pose_dataset(PERSON_IMAGES, size=PERSON_SIZE, seed=0)
+        train_pose(pimgs, kps, steps=3, batch=POSE_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = train_pose(pimgs, kps, steps=POSE_STEPS, lr=2e-3,
+                         batch=POSE_BATCH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rng = np.random.default_rng(42)
+        errs = []
+        for _ in range(8):
+            scene, gt = pose_scene(rng, size=PERSON_SIZE, t=1)
+            errs.append(np.abs(est.estimate_clip(scene)[0, :, :2] - gt[0]).mean())
+        mean_err = float(np.mean(errs))
+        log(f"    [16c] train_pose: {POSE_STEPS} steps at batch {POSE_BATCH}, "
+            f"{PERSON_SIZE}², in {seconds:.3f} s = {POSE_STEPS / seconds:.2f} "
+            f"steps/s on {card}; held-out mean keypoint error "
+            f"{mean_err:.3f} px (bar {0.1 * PERSON_SIZE})")
+        if mean_err >= 0.1 * PERSON_SIZE:
+            raise AssertionError(f"the trained pose model's error {mean_err}")
+        pose_file = str(tmp / "pose.pt")
+        est.save(pose_file)
+        cpu_est = PoseEstimator.load(pose_file, device="cpu")
+        pclip, _ = pose_scene(np.random.default_rng(6), size=160, t=21)
+        got, want = est.estimate_clip(pclip), cpu_est.estimate_clip(pclip)
+        kp_err = float(np.abs(got[..., 2] - want[..., 2]).max())
+        if not np.array_equal(got[..., :2], want[..., :2]) or kp_err > MAP_TOL:
+            raise AssertionError("estimate_clip: card against CPU")
+        pose_mp4 = str(tmp / "pose.mp4")
+        write_video(pose_mp4, pclip, 30.0)
+        item = pose_script.inference_one_video(
+            pose_mp4, pose_estimator=est,
+            detector=Detector("learned", det_file))
+        cpu_item = pose_script.inference_one_video(
+            pose_mp4, pose_estimator=cpu_est,
+            detector=Detector("learned", det_file, device="cpu"))
+        if list(item) != list(cpu_item) or \
+                item["keypoint"].shape != (1, 21, 17, 2) or \
+                not np.array_equal(item["keypoint"], cpu_item["keypoint"]):
+            raise AssertionError("inference_one_video: card against CPU")
+        render = str(tmp / "render.mp4")
+        pose_script.render_pose_video(item, render, video_path=pose_mp4,
+                                      thre=0.0)
+        log(f"    estimate_clip on 21 frames, card = CPU (scores within "
+            f"{kp_err:.3g}); inference_one_video with the learned crop: "
+            f"keypoints {item['keypoint'].shape}, card = CPU; "
+            f"render_pose_video wrote {Path(render).stat().st_size} bytes")
+        out.update(pose_steps_per_s=POSE_STEPS / seconds,
+                   pose_error_px=mean_err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - phase_t0
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -4217,6 +4606,13 @@ def main() -> int:
     log(f"    phase [15]: {phase15_s:.1f} s (RepNet {repnet['seconds']:.1f} "
         f"s, MoE {moe['seconds']:.1f} s)")
 
+    torch.cuda.empty_cache()
+    log(f"[16] the person detector, the person crop and pose: the tiny "
+        f"detector and pose model ({PERSON_SIZE}², fp32), ResNet-50 "
+        f"backbones ({PERSON_SIZE}², bf16)")
+    person = person_phase(np, torch, kernels, repo, card)
+    log(f"    phase [16]: {person['seconds']:.1f} s")
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -4254,6 +4650,10 @@ def main() -> int:
                              "workoutdetector_tpu/ops/pallas/conv1x1.py:52"),
         "conv1x1_dw_image": ("workoutdetector_tpu_torch/csrc/conv1x1_bwd.cu",
                              "workoutdetector_tpu/ops/pallas/conv1x1.py:92"),
+        # the fused blocks in the ResNet-50 detector's and pose model's
+        # backbone at 128² (phase 16), 16 images a forward
+        "fused_bottleneck_person": ("workoutdetector_tpu_torch/csrc/fused_block.cu",
+                                    "workoutdetector_tpu/ops/pallas/fused_block.py:192"),
     }
     # each kernel's launches on its main path: inference (phase 4) for the
     # forward kernels, the block path (5) for the shift, training (6) for
@@ -4271,7 +4671,8 @@ def main() -> int:
                          attention_dq=tiled_launches["attention_dq"],
                          fused_bottleneck_image=image["fused_launches"],
                          conv1x1_dx_image=image["dx_launches"],
-                         conv1x1_dw_image=image["dw_launches"])
+                         conv1x1_dw_image=image["dw_launches"],
+                         fused_bottleneck_person=person["fused_launches"])
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
@@ -4290,6 +4691,7 @@ def main() -> int:
                     "sweep": sweep, "files": files, "serve": serve,
                     "tpn": tpn, "tdn": tdn, "image": image,
                     "repnet": repnet, "moe": moe, "phase15_s": phase15_s,
+                    "person": person,
                     "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")

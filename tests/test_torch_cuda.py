@@ -1118,3 +1118,70 @@ def test_cuda_repnet_frame_logits_vs_cpu(cuda_device):
     assert kernels.launch_counts() == counts
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert (h - want).abs().max() <= 0.05 * (1 + want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_detector_and_pose_launch_the_fused_kernel(cuda_device):
+    """A bf16 ResNet-50 detector and pose model at 128² launch 6 fused
+    bottlenecks a forward (layer1 at 32², layer2 at 16²) and nothing else;
+    their maps within chip_smoke.py's rule of the fp32 plain models'."""
+    from workoutdetector_tpu_torch.models import load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.models.detector import CenterNetDetector
+    from workoutdetector_tpu_torch.models.pose import TopDownPose
+
+    x = torch.randn(4, 128, 128, 3, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda_device)
+    for cls in (CenterNetDetector, TopDownPose):
+        model = cls("resnet50", dtype=torch.bfloat16)
+        variables = random_flax_variables(model, seed=0)
+        load_flax_variables(model, variables)
+        ref = cls("resnet50", use_kernels=False)
+        load_flax_variables(ref, variables)
+        model, ref = model.to(cuda_device), ref.to(cuda_device)
+        kernels.reset_launches()
+        with torch.no_grad():
+            got, want = model(x), ref(x)
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        assert counts == {"fused_bottleneck": 6}, cls.__name__
+        got = got["heatmap"] if isinstance(got, dict) else got
+        want = want["heatmap"] if isinstance(want, dict) else want
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 0.05 * (1 + want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_detector_and_pose_match_the_cpu(cuda_device):
+    """The fp32 tiny detector and pose model on the card against the CPU
+    on the same weights (TF32 off, as the fixture sets): maps within 1e-4,
+    the same number of boxes within 1e-3 px, the same keypoints."""
+    from workoutdetector_tpu_torch.data.synthetic import person_scene
+    from workoutdetector_tpu_torch.models import load_flax_variables
+    from workoutdetector_tpu_torch.models.convert import random_flax_variables
+    from workoutdetector_tpu_torch.models.detector import (
+        CenterNetDetector, LearnedDetectorBackend)
+    from workoutdetector_tpu_torch.models.pose import (PoseEstimator,
+                                                       TopDownPose)
+
+    clip = person_scene(np.random.default_rng(0), size=96, t=21)[0]
+    for cls in (CenterNetDetector, TopDownPose):
+        variables = random_flax_variables(cls(), seed=0)
+        pair = []
+        for dev in ("cpu", "cuda"):
+            m = cls()
+            load_flax_variables(m, variables)
+            run = LearnedDetectorBackend if cls is CenterNetDetector \
+                else PoseEstimator
+            pair.append(run(m, input_size=64, device=dev))
+        maps = [p.heatmaps(clip) for p in pair]
+        if cls is CenterNetDetector:
+            for k in maps[0]:
+                np.testing.assert_allclose(maps[1][k], maps[0][k], atol=1e-4)
+            for a, b in zip(pair[1](clip, threshold=0.05),
+                            pair[0](clip, threshold=0.05)):
+                assert a.shape == b.shape
+                np.testing.assert_allclose(a, b, atol=1e-3)
+        else:
+            np.testing.assert_allclose(maps[1], maps[0], atol=1e-4)
+            a, b = pair[1].estimate_clip(clip), pair[0].estimate_clip(clip)
+            np.testing.assert_array_equal(a[..., :2], b[..., :2])

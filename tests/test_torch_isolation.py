@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -135,8 +136,8 @@ def test_port_trains_without_jax_nor_yaml_in_a_fresh_process():
     + ["chip_smoke.py"]))
 def test_source_imports_no_jax_nor_the_jax_package(path):
     text = (REPO / path).read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
-                         text, re.M)
+    assert not re.search(
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack)\b", text, re.M)
     assert not re.search(r"\bworkoutdetector_tpu\b(?!_torch)(\.\w+)*\s+import"
                          r"|import\s+workoutdetector_tpu\b(?!_torch)", text)
     # PyYAML only inside the functions that read or write YAML
@@ -382,3 +383,95 @@ def test_repnet_and_moe_run_without_jax_in_a_fresh_process():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
+
+
+_PERSON_CHILD = r"""
+import os, sys, tempfile
+import numpy as np
+from workoutdetector_tpu_torch.data.synthetic import (person_dataset,
+                                                      pose_dataset,
+                                                      person_scene)
+from workoutdetector_tpu_torch.data.person import Detector, PersonCrop
+from workoutdetector_tpu_torch.data.countix import Countix
+from workoutdetector_tpu_torch.models.detector import (LearnedDetectorBackend,
+                                                       train_detector)
+from workoutdetector_tpu_torch.models.pose import PoseEstimator, train_pose
+from workoutdetector_tpu_torch.scripts import bbox, pose
+from workoutdetector_tpu_torch.utils import flax_file, view, visualize
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("matplotlib", "gradio", "pandas"))
+assert not lazy, lazy  # imported only by the functions that use them
+imgs, boxes = person_dataset(8, size=32, seed=0)
+det = train_detector(imgs, boxes, steps=2, batch=4, device="cpu")
+clip = person_scene(np.random.default_rng(1), size=32, t=3)[0]
+with tempfile.TemporaryDirectory() as d:
+    det.save(os.path.join(d, "det.pt"))
+    crop = PersonCrop(Detector("learned", os.path.join(d, "det.pt"),
+                               device="cpu"))
+    assert crop(clip).ndim == 4
+    imgs, kps = pose_dataset(4, size=32, seed=0)
+    est = train_pose(imgs, kps, steps=2, batch=2, device="cpu")
+    est.save(os.path.join(d, "pose.pt"))
+    kp = PoseEstimator.load(os.path.join(d, "pose.pt"),
+                            device="cpu").estimate_clip(clip)
+    assert kp.shape == (3, 17, 3)
+    assert visualize.vis_2d_pose(kp[None], thre=0.0).shape[0] == 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "msgpack", "workoutdetector_tpu",
+                                    "matplotlib", "pandas"))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_detector_and_pose_run_without_jax_in_a_fresh_process():
+    """The detector, person crop, pose, their scripts, the flax file reader,
+    Countix and the visualizers import no jax, flax, msgpack or JAX package
+    (nor matplotlib, gradio or pandas until a function needs them), and
+    train, save, load and run on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _PERSON_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")
+
+
+@pytest.mark.parametrize("entry", ["LearnedDetectorBackend.load",
+                                   "PoseEstimator.load", "Detector",
+                                   "train_detector", "train_pose",
+                                   "distill_from_videos", "build_dataset",
+                                   "inference_one_video"])
+def test_detector_and_pose_entry_points_raise_without_cuda(entry, tmp_path):
+    """Each entry point of the detector and pose asks for the card by
+    default, and raises without one unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.data.datasets import build_dataset
+    from workoutdetector_tpu_torch.data.person import Detector
+    from workoutdetector_tpu_torch.models import detector, pose
+    from workoutdetector_tpu_torch.scripts import pose as pose_script
+    model = detector.CenterNetDetector()
+    det_file = str(tmp_path / "det.pt")
+    detector.LearnedDetectorBackend(model, device="cpu").save(det_file)
+    pose_file = str(tmp_path / "pose.pt")
+    pose.PoseEstimator(pose.TopDownPose(), device="cpu").save(pose_file)
+    imgs = np.zeros((2, 32, 32, 3), np.uint8)
+    cfg = Config().data
+    cfg.test.person_crop, cfg.person_backend = True, "learned"
+    cfg.person_checkpoint = det_file
+    run = {"LearnedDetectorBackend.load":
+           lambda: detector.LearnedDetectorBackend.load(det_file),
+           "PoseEstimator.load": lambda: pose.PoseEstimator.load(pose_file),
+           "Detector": lambda: Detector("learned", det_file),
+           "train_detector": lambda: detector.train_detector(
+               imgs, [np.zeros((0, 4))] * 2, steps=1),
+           "train_pose": lambda: pose.train_pose(
+               imgs, [np.zeros((17, 2))] * 2, steps=1),
+           "distill_from_videos": lambda: detector.distill_from_videos([]),
+           "build_dataset": lambda: build_dataset(cfg, "test"),
+           "inference_one_video": lambda: pose_script.inference_one_video(
+               str(tmp_path / "v.mp4"), pose_checkpoint=pose_file)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run[entry]()

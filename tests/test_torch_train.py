@@ -272,13 +272,13 @@ def test_eval_counts_only_real_rows_of_a_padded_tail(tmp_path):
     assert abs(float(m["loss"]) - float(real["loss"])) < 1e-6
 
 
-def test_repo_yamls_load_and_file_datasets_build():
+def test_repo_yamls_load_and_file_datasets_build(tmp_path):
     """Every YAML of the repo loads into the same config as the JAX
     package's load_config gives. The flagship's FrameDataset is built as
     the JAX build_dataset builds it: a missing list raises the same
     AssertionError, for TDNDataset too; SyntheticPeriodic builds the
-    JAX dataset's items; a test split's person crop is refused, naming
-    ROADMAP item 6."""
+    JAX dataset's items; a test split's person crop builds the JAX
+    dataset's crop (the motion backend, the yaml's default) and items."""
     configs = os.path.join(REPO, "workoutdetector_tpu", "configs")
     for name in sorted(os.listdir(configs)):
         if name.endswith(".yaml"):
@@ -313,10 +313,29 @@ def test_repo_yamls_load_and_file_datasets_build():
     got, want = build_dataset(synth.data, "val")[3], \
         j_build_dataset(jsynth.data, "val")[3]
     assert got[1] == want[1] and np.array_equal(got[0], want[0])
+    import cv2
+    folder = tmp_path / "clip"
+    folder.mkdir()
+    frames = np.full((6, 48, 64, 3), 30, np.uint8)
+    for i in range(6):
+        frames[i, 10:40, 8 + 6 * i:20 + 6 * i] = 220
+        cv2.imwrite(str(folder / f"img_{i + 1:05}.jpg"), frames[i])
+    (tmp_path / "test.txt").write_text("clip 1 6 3\n")
+    crop_opts = ["data.test.person_crop=true", f"data.data_root={tmp_path}",
+                 f"data.test.anno={tmp_path / 'test.txt'}",
+                 "data.test.data_prefix=", "data.image_size=32"]
     crop = load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
-                       ["data.test.person_crop=true"])
-    with pytest.raises(NotImplementedError, match="detector.*item 6"):
-        build_dataset(crop.data, "test")
+                       crop_opts)
+    jcrop = j_load_config(os.path.join(configs, "repcount_12_tsm.yaml"),
+                          crop_opts)
+    got_ds, want_ds = build_dataset(crop.data, "test"), \
+        j_build_dataset(jcrop.data, "test")
+    assert crop.data.person_backend == "motion"
+    assert type(got_ds.transform.person_crop).__name__ == \
+        type(want_ds.transform.person_crop).__name__ == "PersonCrop"
+    got, want = got_ds[0], want_ds[0]
+    assert got[1] == want[1] == 3 and got[0].shape == (8, 32, 32, 3)
+    assert np.array_equal(got[0], want[0])
 
 
 def test_loader_skips_batches_without_changing_them():

@@ -5,8 +5,9 @@ its inference and training paths on an NVIDIA H100 with kernels written
 by hand for Hopper (``ops/kernels`` over ``csrc/*.cu``). It imports torch,
 numpy and the standard library only — never jax, and nothing of the JAX
 package; PyYAML only inside the functions that read YAML configs, cv2 and
-pandas only inside the functions that decode, resize or write images,
-videos and CSVs.
+pandas only inside the functions that decode, resize, draw or write
+images, videos and CSVs, matplotlib and gradio only inside the plotting
+and gallery functions.
 
 Layer map:
   ops.preprocess     — on-device window gather + fused normalize, the
@@ -24,7 +25,9 @@ Layer map:
                        eval modes), TimeSformer (train and eval modes:
                        stochastic depth, dropout; the t_fc fold for
                        inference), the flax-variable loader and
-                       initializers, build_model
+                       initializers, build_model; the person detector
+                       (CenterNet, LearnedDetectorBackend) and top-down
+                       pose (TopDownPose, PoseEstimator)
   infer              — InferenceEngine (inference rewrites with
                        optimize=True; stage_video / score_staged: pinned
                        copies on a copy stream), score_video_chunked,
@@ -38,10 +41,17 @@ Layer map:
                        rawframe JPEG reader (native/libwdjpeg.so or cv2),
                        sampling, host transforms, FrameDataset /
                        ImageDataset / SuperImageDataset / DebugDataset,
-                       the RepCount, ImageFolder and Kinetics layers and
-                       label lists (CSVs through the csv module), the
-                       deterministic DataLoader
-  scripts            — compare_scores, eval_count
+                       the RepCount, ImageFolder, Kinetics and Countix
+                       layers and label lists (CSVs through the csv
+                       module), the deterministic DataLoader, the person
+                       crop (data/person.py) and the synthetic fixtures
+                       (data/synthetic.py)
+  scripts            — compare_scores, eval_count, export_model, bbox
+                       (person boxes → JSON, drawn or cropped videos),
+                       pose (keypoint pickles, rendering)
+  utils              — export, similarity, visualize (plots, skeletons),
+                       view (rep galleries), flax_file (the JAX package's
+                       msgpack weight files)
   train              — optimizer policies, checkpoints, loggers, Trainer
   trainer            — the train/test CLI
 

@@ -1,7 +1,8 @@
-"""Data: sampling, transforms, the file datasets, the label lists and the
-loader, as the JAX package's ``data`` exports them where the port has
-them (Countix comes later: ROADMAP §1 item 7)."""
+"""Data: sampling, transforms, the file datasets, the label lists, Countix
+and the loader, as the JAX package's ``data`` exports them where the port
+has them."""
 
+from workoutdetector_tpu_torch.data.countix import Countix
 from workoutdetector_tpu_torch.data.datasets import (DebugDataset,
                                                      FrameDataset,
                                                      ImageDataset,
@@ -26,5 +27,5 @@ __all__ = [
     "FrameDataset", "TDNDataset", "ImageDataset", "DebugDataset",
     "SuperImageDataset", "SyntheticPeriodicDataset", "synth_periodic_clip",
     "ImageFolderDataset", "RepcountImageDataset", "RepcountVideoDataset",
-    "RepcountRecognitionDataset", "build_dataset"
+    "RepcountRecognitionDataset", "Countix", "build_dataset"
 ]

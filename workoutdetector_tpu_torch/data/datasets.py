@@ -15,9 +15,10 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from workoutdetector_tpu_torch.data import jpeg as njpeg
 from workoutdetector_tpu_torch.data.sampling import (sample_frames,
@@ -441,9 +442,13 @@ class SyntheticPeriodicDataset:
         return clip, label
 
 
-def build_dataset(cfg, split: str):
+def build_dataset(cfg, split: str, device: Union[str, torch.device] = "cuda"):
     """The dataset ``cfg.dataset_type`` names for ``split`` (cfg:
-    ``DataConfig``)."""
+    ``DataConfig``). A test split's ``person_crop`` builds
+    ``PersonCrop(Detector(cfg.person_backend, cfg.person_checkpoint))``
+    into its transform; the learned backend runs on ``device`` (it raises
+    without a card unless the caller names the CPU), and one backend
+    serves every loader thread (its forwards are serialized)."""
     if cfg.dataset_type == "DebugDataset":
         return DebugDataset(num_class=cfg.debug_num_class,
                             num_segments=cfg.num_segments,
@@ -459,13 +464,16 @@ def build_dataset(cfg, split: str):
         raise KeyError(f"Dataset '{cfg.dataset_type}' is not supported.")
     is_test = split != "train"
     split_cfg = getattr(cfg, split)
-    # the person crop is a test-pipeline transform, as in the JAX package
+    person_crop = None
+    # the person crop is a test-pipeline transform (reference
+    # build.py:26-28): a train split builds no detector
     if split_cfg.person_crop and is_test:
-        raise NotImplementedError(
-            f"person_crop on the {split} split is not in the PyTorch port "
-            "yet: it needs the person detector (data/person.py, "
-            "models/detector.py), ROADMAP §1 item 6")
-    transform = build_transform(split, size=cfg.image_size,
+        from workoutdetector_tpu_torch.data.person import Detector, PersonCrop
+        person_crop = PersonCrop(Detector(backend=cfg.person_backend,
+                                          checkpoint=cfg.person_checkpoint,
+                                          device=device))
+    transform = build_transform(split, person_crop=person_crop,
+                                size=cfg.image_size,
                                 scale=cfg.scale_size,
                                 device_augment=cfg.device_augment,
                                 native_prep=cfg.native_prep)

@@ -6,7 +6,10 @@ at this package's module names, which follow the flax tree:
 
   * conv ``kernel`` HWIO → ``weight`` OIHW (the 1×1 kernels are turned into
     the kernels' (C, O) layout at the call, ``Conv.matrix``), and a 3-D
-    conv's DHWIO → OIDHW (TPN's neck);
+    conv's DHWIO → OIDHW (TPN's neck); a ``ConvTranspose`` kernel (pose's
+    ``deconv{i}``, (kh, kw, in, out)) takes the same 4-D rule, so its
+    ``weight`` is (out, in, kh, kw) unflipped, and ``models/pose.Deconv``
+    flips and swaps it at the call;
   * Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
   * BN and LayerNorm ``scale`` → ``weight``, ``mean`` → ``running_mean``,
     ``var`` → ``running_var``; ``bias`` stays ``bias``;
@@ -207,9 +210,12 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
     normal(0.02) unless ``FLAX_KERNEL_INIT`` names the leaf (RepNet's
     ``pos_embed``: ``("normal", 0.02)``, untruncated); the MoE experts'
     3-D ``w1``/``w2`` ``lecun_normal`` with flax's fan-in of a 3-D leaf,
-    E · in (every axis but the last); ConvNeXt's γ 1e-6. The distributions
-    are flax's; the draws are not jax.random's."""
+    E · in (every axis but the last); ConvNeXt's γ 1e-6; a bias the
+    model's ``FLAX_BIAS_INIT`` names by module starts at that constant (the
+    detector's heatmap prior, −2.19). The distributions are flax's; the
+    draws are not jax.random's."""
     kernel_init = getattr(model, "FLAX_KERNEL_INIT", {})
+    bias_init = getattr(model, "FLAX_BIAS_INIT", {})
     rng = np.random.default_rng(seed)
     state: Dict[str, np.ndarray] = {}
 
@@ -241,6 +247,8 @@ def init_flax_variables(model: torch.nn.Module, seed: int = 0
                 a = lecun(shape, int(np.prod(shape[1:])))
         elif leaf in ("weight", "running_var") and len(shape) == 1:
             a = np.ones(shape)
+        elif leaf == "bias" and mods and mods[-1] in bias_init:
+            a = np.full(shape, bias_init[mods[-1]])
         else:  # biases, running means
             a = np.zeros(shape)
         state[key] = a.astype(np.float32)

@@ -147,7 +147,8 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis with flax's semantics
-    (``FrozenAwareBatchNorm``, ``momentum=0.9``).
+    (``FrozenAwareBatchNorm``, ``momentum=0.9``; the detector's and pose's
+    own BNs are flax's default ``nn.BatchNorm``, ``momentum=0.99``).
 
     * train mode, not ``frozen``: normalize with the batch mean and biased
       variance (fp32 statistics, the output rounded once to x's dtype),
@@ -161,7 +162,7 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
-                 frozen: bool = False):
+                 frozen: bool = False, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -169,6 +170,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
         self.frozen = frozen
+        self.momentum = momentum
         self._derived: Dict[str, tuple] = {}
 
     def sources(self) -> List[torch.Tensor]:
@@ -208,7 +210,7 @@ class BatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(0)
         var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
-        m = BN_MOMENTUM
+        m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
@@ -360,7 +362,9 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet-18/34/50/101 trunk: (N, H, W, 3) → pooled (N, C) features,
-    or with ``out_indices`` the NHWC maps of those stages (TPN's taps).
+    or with ``out_indices`` the NHWC maps of those stages (TPN's taps), or
+    with ``forward(x, spatial=True)`` the pre-pool (N, H/32, W/32, C) map
+    (the detector's and pose's backbone, JAX ``resnet.py:344-346, 418``).
 
     Args:
         shift_spec: fn(stage, block) → (n_segment, fold_div) or None: shift
@@ -426,7 +430,7 @@ class ResNet(nn.Module):
             self.fc = Dense(cin, num_classes)
         self.num_classes = num_classes
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, spatial: bool = False):
         x = torch.relu(self.conv1(x, self.bn1))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         stage = -1
@@ -443,6 +447,8 @@ class ResNet(nn.Module):
                 taps.append(x)
         if self.out_indices is not None:
             return tuple(taps)
+        if spatial:
+            return x
         x = x.mean(dim=(1, 2))
         return self.fc(x) if self.num_classes > 0 else x
 

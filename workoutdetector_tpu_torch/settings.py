@@ -1,9 +1,10 @@
 """Settings of the port, env-overridable.
 
-The port's own copy of the native library paths from
-``workoutdetector_tpu/settings.py``: the same ``WD_TPU_DECODER_LIB`` and
-``WD_TPU_JPEG_LIB`` variables and the same defaults, the repo's tracked
-``native/libwdvideo.so`` and ``native/libwdjpeg.so``; and of the 11
+The port's own copy of the roots and native library paths from
+``workoutdetector_tpu/settings.py``: the same ``PROJ_ROOT``, ``DATA_ROOT``,
+``WD_TPU_DECODER_LIB`` and ``WD_TPU_JPEG_LIB`` variables and the same
+defaults (the native libraries are the repo's tracked
+``native/libwdvideo.so`` and ``native/libwdjpeg.so``); and of the 11
 Workouts labels the server and the demo answer with.
 """
 
@@ -11,6 +12,7 @@ import os
 
 PROJ_ROOT = os.environ.get(
     "PROJ_ROOT", os.path.abspath(os.path.dirname(os.path.dirname(__file__))))
+DATA_ROOT = os.environ.get("DATA_ROOT", os.path.join(PROJ_ROOT, "data"))
 
 # Path of the built native video decoder (see native/).
 NATIVE_DECODER_LIB = os.environ.get(

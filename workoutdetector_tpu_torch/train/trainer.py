@@ -217,7 +217,7 @@ class Trainer:
 
     # ------------------------------------------------------------ loops
     def _loader(self, split: str, shuffle: bool) -> DataLoader:
-        return DataLoader(build_dataset(self.cfg.data, split),
+        return DataLoader(build_dataset(self.cfg.data, split, self.device),
                           batch_size=self.cfg.data.batch_size, shuffle=shuffle,
                           num_workers=self.cfg.data.num_workers,
                           seed=self.cfg.seed, drop_last=(split == "train"))
