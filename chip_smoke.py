@@ -4428,6 +4428,373 @@ def person_phase(np, torch, kernels, repo: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+PARALLEL_RANKS = 2   # ranks of the spawned world, all on the one card
+PARALLEL_BATCH = 8   # the global batch of its train steps: 4 a rank
+PARALLEL_STEPS = 3
+PP_CUTS = (0, 3, 6)  # stem + layer1-2 | layer3-4 + head
+
+
+def nccl_all_reduce(rank: int) -> float:
+    """One all-reduce over NCCL (phase 17's probe of two ranks on one
+    card)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def update_errors(np, got: dict, want: dict, init: dict) -> dict:
+    """Per leaf ‖got − want‖ / ‖want − init‖: a run's gap from another's
+    as a share of the other's update (leaves the steps left alone: None,
+    where the two must be equal)."""
+    out = {}
+    for k, w in want.items():
+        w = np.asarray(w, np.float64)
+        g = np.asarray(got[k], np.float64)
+        moved = float(np.linalg.norm(w - init[k]))
+        if moved == 0.0:
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{k}: moved in one run, not the other")
+            out[k] = None
+        else:
+            out[k] = float(np.linalg.norm(g - w)) / moved
+    return out
+
+
+def parallel_phase(np, torch, kernels, variables, video, repo: Path,
+                   card: str) -> dict:
+    """Phase 17: data, FSDP and pipeline parallelism, a world of 2 ranks
+    sharing the one card (gloo: NCCL refuses two ranks on one device),
+    TSM-R50 at 224², 8 segments, 12 classes, through
+    ``parallel/dryrun.run`` on every rank; the engines on phase 4's random
+    weights, the trainers from the JAX models' initializers at seed 0
+    (``init_flax_variables``: a small head, so that 3 steps at the yaml's
+    learning rate stay well-conditioned and two runs that round apart stay
+    near):
+    [17a] dp: 3 train steps (dropout 0.5) on a global batch of 8, 4 a
+    rank, against the one-process steps on the same batch: fp32 (the plain
+    model, TF32 off) within 1e-4; bf16 (the kernels) by the update rule
+    (each leaf's gap from the one-process bf16 run, as a share of that
+    run's update, within GRAD_RATIO times the one-process bf16 run's own
+    gap from fp32 plus GRAD_FLOOR: the two bf16 runs differ only in
+    summation order and rounding places, which bf16 rounding bounds);
+    shift-matmul, dx and dW launches a rank (16, 33, 33 a step).
+    [17b] fsdp: data 2, the bf16 steps again, every eligible leaf held by
+    half on each rank, equal to [17a]'s within 1e-5 (1 + |p|).
+    [17c] serve: an engine over data 2, the window batch split over the
+    ranks: fp32 logits within 1e-4 of the one-process engine's, the
+    phase-4 video's counts identical in fp32 and bf16 (0 on these random
+    weights, as phase 4's), and the argmax sequences of a state walk over
+    its windows (``dryrun.state_runs``: phase 4's count check, head
+    biases a block of windows) identical, with 2 reps or more;
+    fused-bottleneck and shift-matmul launches a rank.
+    [17d] pp-serve: model 2, cuts [0, 3, 6], 2 microbatches: bf16 argmax,
+    counts and state walk identical to the one-shot engine's (the bf16
+    gap printed);
+    the stem and layer1-2 rank launches the fused
+    bottleneck (6 a microbatch) and layer2_0's shift-matmul, the layer3-4
+    rank 9 shift-matmuls a microbatch.
+    [17e] one DP step at world size 1 over NCCL, against the one-process
+    step; NCCL with two ranks on the card, reported. Also the dry run's
+    DividedBlock pipeline (fp32, forward and gradients) and a step over a
+    (2, 1, 1) hybrid mesh.
+    Steps/s, the share of step time in collectives (device synchronised
+    around each) and each collective's transport, per rank. The ranks'
+    phases start once this process's references, [17e] and the NCCL probe
+    are done (``DryrunSpec.start_file``): the two ranks share the card
+    with each other only."""
+    import math
+    import shutil
+    import tempfile
+    import threading
+
+    from workoutdetector_tpu_torch.counting import pred_to_count
+    from workoutdetector_tpu_torch.models import TSM
+    from workoutdetector_tpu_torch.models.convert import (flax_to_port_state,
+                                                          init_flax_variables)
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.parallel.distributed import (free_port,
+                                                                initialize,
+                                                                spawn)
+    from workoutdetector_tpu_torch.parallel.mesh import create_mesh
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-parallel-", dir=repo))
+    try:
+        torch.save(variables, tmp / "variables.pt")
+        train_vars = init_flax_variables(TSM(NUM_CLASS, FRAMES, "resnet50"),
+                                         seed=0)
+        torch.save(train_vars, tmp / "train_variables.pt")
+        np.save(tmp / "video.npy", video)
+        spec = dryrun.DryrunSpec(
+            base_model="resnet50", num_class=NUM_CLASS, num_segments=FRAMES,
+            image_size=SIZE, train_dtypes=("float32", "bfloat16"),
+            serve_dtypes=("float32", "bfloat16"), dropout=0.5,
+            batch=PARALLEL_BATCH, steps=PARALLEL_STEPS,
+            window_batch=WINDOW_BATCH, pp_cuts=PP_CUTS, pp_microbatches=2,
+            device="cuda", phases=("dp", "fsdp", "serve", "pp-serve", "pp",
+                                   "slice"),
+            weights=str(tmp / "variables.pt"),
+            train_weights=str(tmp / "train_variables.pt"), out_dir=str(tmp),
+            video=str(tmp / "video.npy"), timed=True, tf32=False,
+            threads=2)
+        x, y = dryrun.train_batch(spec)
+        init = flax_to_port_state(train_vars)
+        # the world and NCCL's two ranks on the card start (imports, CUDA
+        # start-up) while this process runs the one-process references
+        # and [17e]; the ranks' phases wait for ``go``, written once this
+        # process and the probe are done with the card
+        go = tmp / "go"
+        spec.start_file = str(go)
+        world, probe = {}, {}
+
+        def run_world():
+            t0 = time.perf_counter()
+            try:
+                world["ranks"] = spawn(dryrun.run, PARALLEL_RANKS, (spec,),
+                                       device="cuda", timeout_s=300)
+            except RuntimeError as exc:
+                world["error"] = exc
+            world["seconds"] = time.perf_counter() - t0
+
+        def run_probe():
+            try:
+                spawn(nccl_all_reduce, 2, device="cuda", backend="nccl",
+                      timeout_s=60)
+                probe["result"] = "NCCL took two ranks on one card"
+            except RuntimeError as exc:
+                lines = [ln for ln in str(exc).splitlines() if ln.strip()]
+                probe["result"] = next((ln.strip() for ln in lines
+                                        if "Duplicate GPU" in ln),
+                                       lines[-1].strip())
+
+        world_thread = threading.Thread(target=run_world)
+        probe_thread = threading.Thread(target=run_probe)
+        world_thread.start()
+        probe_thread.start()
+        try:
+            refs = {}
+            for dtype in spec.train_dtypes:
+                tr = Trainer(dryrun.train_config(spec, dtype), device="cuda")
+                st = tr.init_state(steps_per_epoch=10, variables=train_vars)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                losses = [float(tr.train_step(st, x, y)["loss"])
+                          for _ in range(spec.steps)]
+                torch.cuda.synchronize()
+                refs[dtype] = {
+                    "losses": losses, "launches": kernels.launch_counts(),
+                    "steps_per_s": spec.steps / (time.perf_counter() - t0),
+                    "state": {k: v.float().cpu().numpy() for k, v in
+                              st.model.state_dict().items()}}
+                del tr, st
+            torch.cuda.empty_cache()
+            log(f"    one process, global batch {PARALLEL_BATCH}: fp32 "
+                f"losses {refs['float32']['losses']}, bf16 "
+                f"{refs['bfloat16']['losses']} "
+                f"({refs['bfloat16']['steps_per_s']:.2f} steps/s, beside "
+                f"the world's start-up) on {card}")
+            # [17e] one DP step over NCCL at world size 1
+            backend = initialize(f"tcp://localhost:{free_port()}", 1, 0,
+                                 device="cuda")
+            try:
+                mesh = create_mesh(device="cuda")
+                tr = Trainer(dryrun.train_config(spec, "bfloat16"), mesh,
+                             device="cuda")
+                st = tr.init_state(steps_per_epoch=10, variables=train_vars)
+                loss = float(tr.train_step(st, x, y)["loss"])
+                transports = mesh.comm.transports()
+                del tr, st, mesh
+            finally:
+                torch.distributed.destroy_process_group()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        finally:
+            probe_thread.join()
+            go.touch()  # the ranks' phases have the card to themselves
+            world_thread.join()
+        if "error" in world:
+            raise world["error"]
+        ranks, world_s = world["ranks"], world["seconds"]
+        log(f"    world of {PARALLEL_RANKS} ranks on cuda:0: {world_s:.1f} s "
+            f"(phases {ranks[0]['phase_seconds']}; rank 0's train set-up "
+            f"and steps: " + ", ".join(
+                f"{k} {ranks[0][k]['init_seconds']:.1f} + "
+                f"{ranks[0][k]['seconds']:.1f} s" for k in
+                ("dp-float32", "dp-bfloat16", "fsdp-bfloat16")) + ")")
+
+        out = {"ranks": []}
+        bf = refs["bfloat16"]
+        bf_gap = update_errors(np, bf["state"], refs["float32"]["state"],
+                               init)
+        loss_gap = max(abs(a - b) for a, b in zip(
+            bf["losses"], refs["float32"]["losses"]))
+        dp = {d: torch.load(tmp / f"dp-{d}.pt", map_location="cpu",
+                            weights_only=False)["model"]
+              for d in spec.train_dtypes}
+        fs = torch.load(tmp / "fsdp-bfloat16.pt", map_location="cpu",
+                        weights_only=False)["model"]
+        # [17a] fp32 within 1e-4, bf16 by the update rule
+        f32 = refs["float32"]
+        dp32 = {k: v.float().numpy() for k, v in dp["float32"].items()}
+        err32 = max(float(np.max(np.abs(dp32[k] - f32["state"][k])
+                                 / (1 + np.abs(f32["state"][k]))))
+                    for k in dp32)
+        for r in ranks:
+            lerr = max(abs(a - b) for a, b in zip(
+                r["dp-float32"]["losses"], f32["losses"]))
+            if lerr > 1e-4 * (1 + max(abs(v) for v in f32["losses"])):
+                raise AssertionError(f"rank {r['rank']} fp32 DP losses "
+                                     f"{r['dp-float32']['losses']} vs "
+                                     f"{f32['losses']}")
+        if err32 > 1e-4:
+            raise AssertionError(f"fp32 DP parameters off the one-process "
+                                 f"run by {err32} (1 + |p|)")
+        dpb = {k: v.float().numpy() for k, v in dp["bfloat16"].items()}
+        gaps = update_errors(np, dpb, bf["state"], init)
+        worst = max((gaps[k] - GRAD_RATIO * bf_gap[k], k) for k in gaps
+                    if gaps[k] is not None)
+        if worst[0] > GRAD_FLOOR:
+            raise AssertionError(f"bf16 DP update of {worst[1]} off the one-"
+                                 f"process bf16 run: {gaps[worst[1]]} > "
+                                 f"{GRAD_RATIO} x {bf_gap[worst[1]]} + "
+                                 f"{GRAD_FLOOR}")
+        for r in ranks:
+            lerr = max(abs(a - b) for a, b in zip(
+                r["dp-bfloat16"]["losses"], bf["losses"]))
+            if lerr > GRAD_RATIO * loss_gap + 1e-3:
+                raise AssertionError(f"rank {r['rank']} bf16 DP losses "
+                                     f"{r['dp-bfloat16']['losses']} vs "
+                                     f"{bf['losses']}")
+        log(f"    [17a] dp: fp32 parameters within {err32:.3g} (1 + |p|) of "
+            f"one process; bf16 update gap max "
+            f"{max(v for v in gaps.values() if v is not None):.4g} (one-"
+            f"process bf16 vs fp32: "
+            f"{max(v for v in bf_gap.values() if v is not None):.4g}); "
+            f"losses rank 0 {ranks[0]['dp-bfloat16']['losses']}")
+        # [17b] fsdp equals dp
+        ref = dp["bfloat16"]
+        e = max(float((fs[k].float() - ref[k].float()).abs().max()
+                      / (1 + ref[k].float().abs().max())) for k in ref)
+        if e > 1e-5:
+            raise AssertionError(f"bf16 FSDP off DP by {e} (1 + |p|)")
+        log(f"    [17b] fsdp bf16: within {e:.3g} (1 + |p|) of dp")
+        for r in ranks:
+            held = r["fsdp-bfloat16"]["held"]
+            if not held or any(f != 0.5 for f in held.values()):
+                raise AssertionError(f"rank {r['rank']} FSDP holds {held}")
+
+        steps = spec.steps
+        want_train = {"shift_matmul": 16 * steps, "conv1x1_dx": 33 * steps,
+                      "conv1x1_dw": 33 * steps}
+        chunks = math.ceil((WINDOW_BATCH + 3) / WINDOW_BATCH)
+        vid_fwd = math.ceil((len(video) // 8) / WINDOW_BATCH)
+        for r in ranks:
+            rk = r["rank"]
+            row = {"rank": rk}
+            for ph in ("dp", "fsdp"):
+                res = r[f"{ph}-bfloat16"]
+                got = {k: res["launches"][k] for k in want_train}
+                if got != want_train:
+                    raise AssertionError(f"rank {rk} {ph} launches {got} != "
+                                         f"{want_train}")
+                share = res["collective_seconds"] / res["seconds"]
+                row[ph] = {"launches": got, "steps_per_s": res["steps_per_s"],
+                           "collective_share": share,
+                           "transports": res["transports"]}
+                log(f"    [17{'a' if ph == 'dp' else 'b'}] rank {rk} {ph} "
+                    f"bf16: {res['steps_per_s']:.2f} steps/s, collectives "
+                    f"{res['collective_seconds']:.3f} of {res['seconds']:.3f} "
+                    f"s ({share:.3f}) in {res['collective_calls']}, launches "
+                    f"{got}, transports {res['transports']} on {card}")
+            # [17c] serve and [17d] pp-serve
+            for ph in ("serve", "pp-serve"):
+                s32, s16 = r.get(f"{ph}-float32"), r[f"{ph}-bfloat16"]
+                if s32 is not None and s32["max_abs_err"] > 1e-4:
+                    raise AssertionError(f"rank {rk} {ph} fp32 logits off "
+                                         f"by {s32['max_abs_err']}")
+                for res in (s32 or s16, s16):
+                    if res["count"] != res["ref_count"]:
+                        raise AssertionError(f"rank {rk} {ph} count "
+                                             f"{res['count']} != "
+                                             f"{res['ref_count']}")
+                    runs = [pred_to_count(seq, step=8)[0] for seq in
+                            (res["states"], res["ref_states"])]
+                    if not np.array_equal(res["states"], res["ref_states"]) \
+                            or runs[0] < 2:
+                        raise AssertionError(f"rank {rk} {ph} state runs "
+                                             f"{res['states']} vs one-shot "
+                                             f"{res['ref_states']}")
+                if ph == "serve":
+                    want = {"fused_bottleneck": 6 * chunks,
+                            "shift_matmul": 10 * chunks}
+                    want_vid = {"fused_bottleneck": 6 * vid_fwd,
+                                "shift_matmul": 10 * vid_fwd}
+                else:
+                    if not (s16["logits"].argmax(-1) ==
+                            s16["ref"].argmax(-1)).all():
+                        raise AssertionError(f"rank {rk} pp-serve argmax "
+                                             "differs from one-shot")
+                    stage0 = rk == 0  # model coordinate 0: the stem side
+                    per = {"fused_bottleneck": 6 if stage0 else 0,
+                           "shift_matmul": 1 if stage0 else 9}
+                    want = {k: v * 2 * chunks for k, v in per.items()}
+                    want_vid = {k: v * 2 * vid_fwd for k, v in per.items()}
+                got = {k: s16["launches"][k] for k in want}
+                got_vid = {k: s16["video_launches"][k] for k in want}
+                if got != want or got_vid != want_vid:
+                    raise AssertionError(f"rank {rk} {ph} launches {got} / "
+                                         f"{got_vid} != {want} / {want_vid}")
+                share = s16["collective_seconds"] / s16["seconds"]
+                row[ph] = {"launches": got, "video_launches": got_vid,
+                           "fp32_max_abs_err": s32 and s32["max_abs_err"],
+                           "bf16_max_abs_err": s16["max_abs_err"],
+                           "count": s16["count"],
+                           "windows_per_s": (WINDOW_BATCH + 3) / s16["seconds"],
+                           "collective_share": share,
+                           "transports": s16["transports"]}
+                fp32 = f"fp32 logits within {s32['max_abs_err']:.3g}, " \
+                    if s32 is not None else ""
+                reps = pred_to_count(s16["states"], step=8)[0]
+                log(f"    [17{'c' if ph == 'serve' else 'd'}] rank {rk} {ph}: "
+                    f"{fp32}bf16 gap {s16['max_abs_err']:.4g}, count "
+                    f"{s16['count']} (one-shot {s16['ref_count']}), the "
+                    f"state walk's {len(s16['states'])} argmax and {reps} "
+                    f"reps = one-shot's, launches "
+                    f"{got} + video {got_vid}, "
+                    f"{(WINDOW_BATCH + 3) / s16['seconds']:.2f} windows/s, "
+                    f"collectives {share:.3f} of the call, transports "
+                    f"{s16['transports']} on {card}")
+            row["pp"] = r["pp"]
+            row["slice_loss"] = r["slice"]["loss"]
+            out["ranks"].append(row)
+        log(f"    pp (DividedBlocks, fp32: {r['pp']}), slice mesh "
+            f"{r['slice']['mesh']} loss {r['slice']['loss']:.4f}")
+
+        bf_loss = refs["bfloat16"]["losses"][0]
+        if backend != "nccl" or abs(loss - bf_loss) > 1e-6:
+            raise AssertionError(f"world of 1 over {backend}: loss {loss} vs "
+                                 f"one process {bf_loss}")
+        log(f"    [17e] world of 1 over {backend}: loss {loss:.6f} = one "
+            f"process {bf_loss:.6f}, transports {transports}")
+        nccl_pair = probe["result"]
+        log(f"    [17e] two ranks on one card over NCCL: {nccl_pair}")
+        out.update(nccl_world1={"backend": backend, "loss": loss,
+                                "transports": transports},
+                   nccl_pair=nccl_pair, world_seconds=world_s,
+                   one_process_bf16_steps_per_s=bf["steps_per_s"],
+                   seconds=time.perf_counter() - phase_t0)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -4613,6 +4980,13 @@ def main() -> int:
     person = person_phase(np, torch, kernels, repo, card)
     log(f"    phase [16]: {person['seconds']:.1f} s")
 
+    torch.cuda.empty_cache()
+    log(f"[17] data, FSDP and pipeline parallelism: {PARALLEL_RANKS} ranks on "
+        f"the card, TSM-R50 {SIZE} ({TSM_YAML}), global batch "
+        f"{PARALLEL_BATCH}, window_batch {WINDOW_BATCH}, cuts {PP_CUTS}")
+    parallel = parallel_phase(np, torch, kernels, variables, video, repo, card)
+    log(f"    phase [17]: {parallel['seconds']:.1f} s")
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -4691,7 +5065,7 @@ def main() -> int:
                     "sweep": sweep, "files": files, "serve": serve,
                     "tpn": tpn, "tdn": tdn, "image": image,
                     "repnet": repnet, "moe": moe, "phase15_s": phase15_s,
-                    "person": person,
+                    "person": person, "parallel": parallel,
                     "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")

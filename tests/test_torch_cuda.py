@@ -1185,3 +1185,58 @@ def test_cuda_tiny_detector_and_pose_match_the_cpu(cuda_device):
             np.testing.assert_allclose(maps[1], maps[0], atol=1e-4)
             a, b = pair[1].estimate_clip(clip), pair[0].estimate_clip(clip)
             np.testing.assert_array_equal(a[..., :2], b[..., :2])
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_two_ranks_share_the_card(cuda_device, tmp_path):
+    """The parallel dry run (``parallel/dryrun.py``) over 2 gloo ranks on
+    the one card, TSM-R50 at 128², 4 segments: fp32 DP (the plain model)
+    equals the one-process steps within 1e-4, bf16 FSDP equals bf16 DP
+    (the clip's norm summed in float64 over shards), every rank
+    launches the shift-matmul, dx and dW kernels in a bf16 step (16, 33,
+    33) and the fused bottleneck on the pp-staged engine's stem-side
+    stage, the sharded fp32 engine gives the one-shot logits within 1e-4
+    and the staged bf16 one its argmax, and the all-gather and
+    point-to-point transfers go through pinned host buffers."""
+    from workoutdetector_tpu_torch.models import TSM
+    from workoutdetector_tpu_torch.models.convert import (
+        init_flax_variables, random_flax_variables)
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.parallel.distributed import spawn
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    model = TSM(5, 4, "resnet50")
+    torch.save(random_flax_variables(model, seed=0), tmp_path / "v.pt")
+    train_vars = init_flax_variables(model, seed=0)
+    torch.save(train_vars, tmp_path / "t.pt")
+    spec = dryrun.DryrunSpec(
+        base_model="resnet50", num_class=5, num_segments=4, image_size=128,
+        train_dtypes=("float32", "bfloat16"),
+        serve_dtypes=("float32", "bfloat16"), dropout=0.5, batch=4, steps=2,
+        window_batch=8, device="cuda", weights=str(tmp_path / "v.pt"),
+        train_weights=str(tmp_path / "t.pt"), tf32=False,
+        phases=("dp", "fsdp", "serve", "pp-serve"))
+    tr = Trainer(dryrun.train_config(spec, "float32"), device=cuda_device)
+    assert not tr.model.backbone.use_kernels  # fp32 on the card: plain
+    st = tr.init_state(steps_per_epoch=10, variables=train_vars)
+    x, y = dryrun.train_batch(spec)
+    one = [float(tr.train_step(st, x, y)["loss"]) for _ in range(spec.steps)]
+    ranks = spawn(dryrun.run, 2, (spec,), device="cuda", timeout_s=600)
+    for r in ranks:
+        np.testing.assert_allclose(r["dp-float32"]["losses"], one, rtol=1e-4)
+        np.testing.assert_allclose(r["fsdp-bfloat16"]["losses"],
+                                   r["dp-bfloat16"]["losses"], rtol=1e-6)
+        got = {k: r["dp-bfloat16"]["launches"][k]
+               for k in ("shift_matmul", "conv1x1_dx", "conv1x1_dw")}
+        assert got == {"shift_matmul": 32, "conv1x1_dx": 66,
+                       "conv1x1_dw": 66}
+        assert r["serve-float32"]["max_abs_err"] <= 1e-4
+        pp = r["pp-serve-bfloat16"]
+        assert (pp["logits"].argmax(-1) == pp["ref"].argmax(-1)).all()
+        fused = r["pp-serve-bfloat16"]["launches"]["fused_bottleneck"]
+        assert fused == (2 * 2 * 6 if r["rank"] == 0 else 0)
+        assert r["serve-bfloat16"]["launches"]["fused_bottleneck"] == 12
+        transports = r["fsdp-bfloat16"]["transports"]
+        assert "pinned host" in transports["all_gather"]
+        assert "pinned host" in r["pp-serve-bfloat16"]["transports"][
+            "send" if r["rank"] == 0 else "recv"]

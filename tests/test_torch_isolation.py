@@ -475,3 +475,76 @@ def test_detector_and_pose_entry_points_raise_without_cuda(entry, tmp_path):
                str(tmp_path / "v.mp4"), pose_checkpoint=pose_file)}
     with pytest.raises(RuntimeError, match="CUDA"):
         run[entry]()
+
+
+LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT")
+
+
+def test_trainer_without_a_launcher_makes_no_process_group(monkeypatch):
+    """One process with no torchrun environment: ``initialize`` does
+    nothing, and a ``Trainer`` builds no process group and no mesh and
+    trains as before."""
+    import torch.distributed as dist
+
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.parallel.distributed import (
+        initialize, is_main_process)
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    for name in LAUNCHER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    assert initialize(device="cpu") is None and is_main_process()
+    cfg = Config()
+    cfg.model.base_model, cfg.model.num_segments, cfg.model.num_class = \
+        "resnet18", 2, 2
+    cfg.model.dtype = "float32"
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state(steps_per_epoch=2)
+    x = np.random.default_rng(0).integers(0, 256, (2, 2, 16, 16, 3), np.uint8)
+    m = trainer.train_step(state, x, np.array([0, 1], np.int32))
+    assert np.isfinite(float(m["loss"]))
+    assert trainer.mesh is None and state.layout is None
+    assert not dist.is_initialized()
+
+
+def test_parallel_entry_points_refuse_without_cuda(monkeypatch):
+    """The parallel entry points ask for the card by default and raise
+    without one, before a process starts; a mesh needs a process group.
+    A model that is not bf16 runs the plain path on the card only."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.models.factory import kernels_for
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.parallel.distributed import (initialize,
+                                                                spawn)
+    from workoutdetector_tpu_torch.parallel.mesh import (create_mesh,
+                                                         prefetch_to_device)
+    for name in LAUNCHER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize("tcp://localhost:1", world_size=2, rank=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(prefetch_to_device(iter([(np.zeros(2),)]), None))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spawn(dryrun.run, 2, (None,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.DryrunSpec()
+    spec = dryrun.DryrunSpec(device="cpu")
+    spec.device = "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run(0, spec)
+    assert [kernels_for(d, t) for d in ("cpu", "cuda")
+            for t in ("float32", "bfloat16")] == [True, True, False, True]
+    with pytest.raises(RuntimeError, match="process group"):
+        create_mesh(device="cpu")
+    host = next(prefetch_to_device(iter([(np.ones(3),)]), None, device="cpu"))
+    assert host[0].device.type == "cpu" and host[0].sum() == 3
+
+
+def test_spawned_rank_functions_import_no_jax():
+    """The rank functions of the parallel tests start in fresh processes
+    with torch alone."""
+    text = (REPO / "tests" / "torch_parallel_ranks.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax)\b", text,
+                         re.M)
+    assert "workoutdetector_tpu." not in text

@@ -327,8 +327,13 @@ class CallbacksConfig(ConfigNode):
 
 @dataclass
 class ParallelConfig(ConfigNode):
-    """Multi-device layout of the JAX package (data/model axes, FSDP,
-    slices). The port's trainer runs on one device and reads none of it."""
+    """The mesh a trainer builds when its process is one rank of several
+    (``train/trainer.Trainer``, ``parallel/mesh.create_mesh``): ranks on
+    the data axis (-1: all the rest), on the model axis, and in slices
+    (> 1 adds a leading ``slice`` axis of pure data parallelism);
+    ``fsdp`` shards parameters, statistics and optimizer state over the
+    data axis too (ZeRO-3, ``parallel/mesh.param_spec``). One process
+    without a launcher builds no mesh and reads none of it."""
     data_axis: int = -1
     model_axis: int = 1
     axis_names: List[str] = field(default_factory=lambda: ["data", "model"])

@@ -1,8 +1,10 @@
 """Host data loader: threaded item fetch → fixed-shape uint8 batches.
 
-Port of ``workoutdetector_tpu/data/loader.py`` (``DataLoader``) for one
-process: worker threads fetch items, batches are stacked into contiguous
-arrays, and a queue keeps ``PREFETCH`` batches ready. The order and every
+Port of ``workoutdetector_tpu/data/loader.py`` (``DataLoader``): worker
+threads fetch items, batches are stacked into contiguous arrays, and a
+queue keeps ``PREFETCH`` batches ready. In a data-parallel run each
+process reads only its block of every global batch (``shard_id`` of
+``num_shards``, ``parallel/mesh.host_batch_shard``). The order and every
 item's generator depend only on (seed, epoch, index), so a pass started at
 ``set_epoch(epoch, start_batch)`` yields exactly the batches an
 uninterrupted pass yields from that position (exact mid-epoch resume).
@@ -16,7 +18,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Iterator, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -34,18 +36,36 @@ class DataLoader:
         seed: base seed of the order and of every item's generator.
         drop_last: True drops the tail partial batch; False pads it to
             batch_size with zero clips labelled -1.
+        shard_id / num_shards: ``batch_size`` stays the GLOBAL batch; this
+            loader yields only its contiguous batch_size / num_shards
+            sub-block of every global batch, in shard order, so the shards
+            put together are the one-process batch. The order and every
+            item's generator depend only on (seed, epoch, global index),
+            and every shard has the same ``len``. On a padded tail batch
+            each shard pads its own block (a later shard's block may be
+            all pad rows).
     """
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = False,
-                 num_workers: int = 4, seed: int = 0, drop_last: bool = True):
+                 num_workers: int = 4, seed: int = 0, drop_last: bool = True,
+                 shard_id: int = 0, num_shards: int = 1):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
+        if batch_size % num_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.local_batch = batch_size // num_shards
         self.epoch = 0
         self.start_batch = 0
+        self._item_shape: Optional[Tuple[Tuple[int, ...], Any]] = None
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -73,17 +93,37 @@ class DataLoader:
             for b in range(min(self.start_batch, len(self)), len(self)):
                 if stop.is_set():
                     return
-                idxs = order[b * self.batch_size:min((b + 1) * self.batch_size, n)]
-                items = list(pool.map(self._fetch, idxs))
-                xs = np.stack([it[0] for it in items])
-                ys = np.asarray([it[1] for it in items], dtype=np.int32)
-                pad = self.batch_size - len(items)
+                # this shard's contiguous block of global batch b
+                lo = b * self.batch_size + self.shard_id * self.local_batch
+                hi = min(lo + self.local_batch, (b + 1) * self.batch_size, n)
+                items = list(pool.map(self._fetch, order[lo:hi]))
+                if items:
+                    xs = np.stack([it[0] for it in items])
+                    ys = np.asarray([it[1] for it in items], dtype=np.int32)
+                    self._item_shape = (xs.shape[1:], xs.dtype)
+                else:  # a tail batch can leave a later shard no item
+                    shape, dtype = self._probe()
+                    xs = np.zeros((0,) + shape, dtype)
+                    ys = np.zeros((0,), np.int32)
+                pad = self.local_batch - len(items)
                 if pad:  # eval tail: same shape, pad rows labelled -1
                     xs = np.concatenate(
                         [xs, np.zeros((pad,) + xs.shape[1:], xs.dtype)])
                     ys = np.concatenate([ys, np.full((pad,), -1, np.int32)])
                 if not _put(out_q, (xs, ys), stop):
                     return
+
+    def _probe(self) -> Tuple[Tuple[int, ...], Any]:
+        """An item's (shape, dtype), for a block of pad rows only: the
+        dataset's ``item_shape`` where it declares one, else item 0's."""
+        if self._item_shape is None:
+            declared = getattr(self.dataset, "item_shape", None)
+            if declared is not None:
+                self._item_shape = (tuple(declared[0]), np.dtype(declared[1]))
+            else:
+                x0 = np.asarray(self._fetch(0)[0])
+                self._item_shape = (x0.shape, x0.dtype)
+        return self._item_shape
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         order = np.arange(len(self.dataset))

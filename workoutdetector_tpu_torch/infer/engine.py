@@ -25,6 +25,18 @@ engine returns its features (N, D).
 the host and scored in the artifact's fixed batch, as the JAX engine does
 for a ``.jaxm`` artifact.
 
+Over a mesh (``parallel/mesh.py``; every rank builds the engine and calls
+it with the same windows and gets the same logits) each window batch is
+split over the data-parallel ways and the logits are all-gathered; the
+weights stay whole on every rank (the JAX engine partitions them over
+``model``). With ``pp_cuts`` the model's segment-ranged forward (TSM,
+ResNet and TDN carry ``seg_lo``/``seg_hi``) is cut into one pipeline
+stage per rank of the ``model`` axis and runs through
+``parallel.pipeline.pipeline_apply_het`` in ``pp_microbatches``
+microbatches: stage boundaries travel in the model's dtype, the last
+stage's logits as the model computes them (fp32). A mesh engine gathers
+video windows on the host.
+
 Device calls of one engine go one at a time (a lock): the server scores
 from the batcher's executor threads and from its HTTP threads at once,
 and the model's derived-weight caches and the launch order on the
@@ -35,7 +47,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +57,8 @@ from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.timesformer import fold_for_inference
 from workoutdetector_tpu_torch.ops.preprocess import (normalize_clip,
                                                       preprocess_windows)
+from workoutdetector_tpu_torch.parallel.mesh import batch_rows, dp_size
+from workoutdetector_tpu_torch.parallel.pipeline import pipeline_apply_het
 
 
 class StagedVideo(NamedTuple):
@@ -85,13 +99,43 @@ class InferenceEngine:
         input_rank: 5 for video models, 6 for TDN's (B, T, 5, H, W, C)
             bursts (windows only: ``score_windows``, ``score_clip``), 4 for
             the image models' (B, H, W, C) frames (``score_images``).
+        mesh: score each window batch over these ranks (module docstring);
+            ``device`` is then the mesh's.
+        pp_cuts: segment boundaries of mesh.shape['model'] pipeline stages
+            (len == stages + 1, e.g. [0, 3, 6]); needs ``mesh``.
+        pp_microbatches: microbatches of a window batch in the pipeline.
     """
 
     def __init__(self, model: torch.nn.Module, num_segments: int = 8,
                  window_batch: int = 16, image_size: int = 224,
                  device: Union[str, torch.device, None] = "cuda",
-                 optimize: bool = True, input_rank: int = 5):
+                 optimize: bool = True, input_rank: int = 5,
+                 mesh=None, pp_cuts: Optional[Sequence[int]] = None,
+                 pp_microbatches: int = 2):
         check_rank(input_rank)
+        self.mesh = mesh
+        self.pp_cuts = list(pp_cuts) if pp_cuts is not None else None
+        self.pp_microbatches = int(pp_microbatches)
+        if mesh is not None:
+            device = mesh.device
+            n = dp_size(mesh)
+            if window_batch % n:
+                raise ValueError(f"window_batch {window_batch} must divide "
+                                 f"data-parallel ways {n}")
+        if self.pp_cuts is not None:
+            if mesh is None:
+                raise ValueError("pp-staged serving needs a mesh")
+            s = mesh.size("model")
+            if len(self.pp_cuts) != s + 1:
+                raise ValueError(f"pp_cuts {self.pp_cuts} must define "
+                                 f"model={s} stages (len == stages + 1)")
+            m = self.pp_microbatches
+            if window_batch % m:
+                raise ValueError(f"window_batch {window_batch} % "
+                                 f"pp_microbatches {m} != 0")
+            if (window_batch // m) % n:
+                raise ValueError(f"pipeline microbatch {window_batch // m} "
+                                 f"must divide the data axis {n}")
         self.device = resolve_device(device)
         self.input_rank = input_rank
         if optimize:
@@ -138,6 +182,7 @@ class InferenceEngine:
         self.window_batch = int(shape[0])
         self.num_segments = int(shape[1]) if len(shape) > 4 else 1
         self.image_size = int(shape[-3])
+        self.mesh, self.pp_cuts = None, None
         self._setup()
         return self
 
@@ -156,7 +201,8 @@ class InferenceEngine:
         engine (``from_exported``) scores fixed-shape windows only, so its
         videos take the host gather, as the JAX engine's ``.jaxm`` engines
         do."""
-        return self.model is not None and self.input_rank == 5
+        return self.model is not None and self.input_rank == 5 and \
+            self.mesh is None
 
     def require_video_windows(self) -> None:
         """ValueError for an engine whose windows are not (N, T, H, W, C)
@@ -173,10 +219,42 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _run(self, windows_u8: torch.Tensor) -> torch.Tensor:
+        if self.pp_cuts is not None:
+            return self._run_pipelined(windows_u8)
+        if self.mesh is not None:
+            return self._run_sharded(windows_u8)
         x = windows_u8.to(self.device)
         if self.model is None:
             return self._exported(x)
         return self.model(normalize_clip(x))
+
+    def _run_sharded(self, windows_u8: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the window batch, the logits all-gathered
+        over the data-parallel ways."""
+        lo, hi = batch_rows(windows_u8.shape[0], self.mesh)
+        logits = self.model(normalize_clip(windows_u8[lo:hi].to(self.device)))
+        if dp_size(self.mesh) == 1:
+            return logits
+        parts = self.mesh.comm.all_gather(logits.contiguous(),
+                                          self.mesh.dp_group)
+        return torch.cat(parts)
+
+    def _run_pipelined(self, windows_u8: torch.Tensor) -> torch.Tensor:
+        """The segment-ranged forward as pipeline stages over ``model``."""
+        model, cuts = self.model, self.pp_cuts
+        ring = getattr(model, "dtype", torch.float32)
+        last = len(cuts) - 2
+
+        def stage(s):
+            def fn(_, act):
+                y = model(act, seg_lo=cuts[s], seg_hi=cuts[s + 1])
+                return y if s == last else y.to(ring)
+            return fn
+
+        x = normalize_clip(windows_u8.to(self.device)).to(ring)
+        out = pipeline_apply_het([stage(s) for s in range(last + 1)], None,
+                                 x, self.mesh, self.pp_microbatches)
+        return out.float()
 
     # ---------------- core batched call ---------------- #
     def chunked_call(self, fn, arr: np.ndarray) -> np.ndarray:

@@ -27,6 +27,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
+def kernels_for(device, dtype: str) -> bool:
+    """Whether a model of ``dtype`` (a ``ModelConfig.dtype``) on ``device``
+    runs the hand kernels. Their GEMMs take bf16 only, so on the card a
+    model of another dtype is the plain reference (as
+    ``detector.resnet_backbone`` decides); on the CPU every wrapper runs
+    its plain version in any dtype."""
+    return torch.device(device).type != "cuda" or dtype == "bfloat16"
+
+
 def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
     """The model ``cfg.model_type`` names (cfg: ``ModelConfig``).
 

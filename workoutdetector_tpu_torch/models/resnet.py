@@ -159,6 +159,14 @@ class BatchNorm(nn.Module):
     * eval mode, or ``frozen`` (partial BN): the running statistics, never
       updated; under autograd as (x − mean)·rsqrt(var + eps)·scale + bias,
       without autograd as x · s + b with s, b folded and cached.
+
+    With ``sync`` set (``set_batch_sync``: data-parallel training, each
+    rank holding some rows of the global batch) train mode takes the
+    GLOBAL batch's statistics, as the JAX program does on its global
+    array: fp32 sums summed over the ranks by ``sync`` (a differentiable
+    all-reduce), the mean from Σx and the row count, then the biased
+    variance from Σ(x − mean)² (two passes, as ``F.batch_norm``'s), and the
+    running statistics move by the same global mean and variance.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -171,6 +179,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.frozen = frozen
         self.momentum = momentum
+        self.sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         self._derived: Dict[str, tuple] = {}
 
     def sources(self) -> List[torch.Tensor]:
@@ -193,6 +202,8 @@ class BatchNorm(nn.Module):
         # gradients on (a 4-D channels-last view got NCHW ones back, which
         # every consumer then had to copy)
         xr = x.reshape(-1, x.shape[-1])
+        if self.batch_stats() and self.sync is not None:
+            return self._global_batch_norm(xr).reshape(x.shape)
         if self.batch_stats():
             self._update_running(xr)
             y = F.batch_norm(xr, None, None, self.weight, self.bias,
@@ -202,6 +213,25 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, training=False,
                              eps=self.eps)
         return y.reshape(x.shape)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """(rows, C) x normalized with the statistics of every rank's rows
+        (``sync`` sums over the ranks), in fp32, rounded once to x's
+        dtype; the running statistics move by the same mean and biased
+        variance."""
+        xf = x.float()
+        count = torch.full((1,), float(x.shape[0]), device=x.device)
+        s1 = self.sync(torch.cat([xf.sum(0), count]))
+        n = s1[-1]
+        mean = s1[:-1] / n
+        centred = xf - mean
+        var = self.sync(centred.square().sum(0)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
 
     @torch.no_grad()
     def _update_running(self, x: torch.Tensor) -> None:
@@ -218,6 +248,17 @@ class BatchNorm(nn.Module):
         """(2, F) fp32 [scale; bias] for the kernels."""
         return kernels.fold_bn(self.weight, self.bias, self.running_mean,
                                self.running_var, self.eps)
+
+
+def set_batch_sync(model: nn.Module,
+                   sync: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                   ) -> None:
+    """Give every ``BatchNorm`` of ``model`` the cross-rank sum that makes
+    its train-mode statistics those of the global batch (a mesh's
+    ``batch_sum``), or None for the rank's own rows."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.sync = sync
 
 
 def shift_input(x: torch.Tensor, spec: Tuple[int, int],
@@ -430,12 +471,28 @@ class ResNet(nn.Module):
             self.fc = Dense(cin, num_classes)
         self.num_classes = num_classes
 
-    def forward(self, x: torch.Tensor, spatial: bool = False):
-        x = torch.relu(self.conv1(x, self.bn1))
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, spatial: bool = False,
+                seg_lo: int = 0, seg_hi: int = 6):
+        """``seg_lo``/``seg_hi`` run the segment range [seg_lo, seg_hi) for
+        a pipeline stage (``parallel/pipeline.pipeline_apply_het``, JAX
+        ``resnet.py:344-420``): segment 0 is the stem (conv1, bn1, pool),
+        1-4 the residual stages, 5 the head (pool, ``fc``). With seg_lo >
+        0, ``x`` is the activation at that boundary; with seg_hi < 6 the
+        raw boundary activation is returned. Parameter names do not depend
+        on the range, so a stage reads the same weights as the whole."""
+        if not 0 <= seg_lo < seg_hi <= 6:
+            raise ValueError(f"segment range [{seg_lo}, {seg_hi})")
+        if (seg_lo, seg_hi) != (0, 6) and self.out_indices is not None:
+            raise ValueError("a segment range has no out_indices taps")
+        if seg_lo == 0:
+            x = torch.relu(self.conv1(x, self.bn1))
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(
+                0, 2, 3, 1)
         stage = -1
         taps = []
         for i, name, pre in self.blocks:
+            if not seg_lo <= i + 1 < seg_hi:
+                continue
             if i != stage:
                 stage = i
                 if self.stage_hook is not None:
@@ -447,7 +504,7 @@ class ResNet(nn.Module):
                 taps.append(x)
         if self.out_indices is not None:
             return tuple(taps)
-        if spatial:
+        if spatial or seg_hi < 6:
             return x
         x = x.mean(dim=(1, 2))
         return self.fc(x) if self.num_classes > 0 else x

@@ -12,10 +12,9 @@ average consensus. Module and parameter names follow the flax tree, so
 (3, C) ``weight`` (the flax (C, 3) ``kernel`` transposed, as a Dense's).
 
 Every op is a plain torch op, which cuDNN or cuBLAS runs: the JAX TDN
-calls no Pallas kernel, so the port has no hand kernel here. The JAX
-module's ``seg_lo``/``seg_hi`` segment ranges serve its pipeline-parallel
-stage functions (``parallel/pipeline.py``); they come with that module
-(ROADMAP §1 item 7) and are left out here.
+calls no Pallas kernel, so the port has no hand kernel here. ``seg_lo``/
+``seg_hi`` run a segment range for a pipeline stage
+(``parallel/pipeline.pipeline_apply_het``), as the JAX module's do.
 
 The module is built in eval mode; ``model.train()`` selects training (BN
 batch statistics except under ``partial_bn``, where only the RGB stem's
@@ -232,32 +231,51 @@ class TDN(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                seg_lo: int = 0, seg_hi: int = 5) -> torch.Tensor:
         """Logits of the bursts. In train mode dropout draws its mask from
-        ``dropout_generator`` (the trainer seeds one per step)."""
-        if x.dim() == 5:  # the dataset's (B, T·5, H, W, C)
-            b, td, h, w, c = x.shape
-            x = x.reshape(b, td // self.num_frames, self.num_frames, h, w, c)
-        b, t, d, h, w, c = x.shape
-        if t != self.num_segments or d != self.num_frames:
-            raise ValueError(f"expected (B, {self.num_segments}, "
-                             f"{self.num_frames}, H, W, C) bursts, got "
-                             f"{tuple(x.shape)}")
-        frames = x.reshape(b * t, d, h, w, c).to(self.dtype).unbind(1)
-        diffs = torch.cat([frames[i + 1] - frames[i] for i in range(4)], -1)
+        ``dropout_generator`` (the trainer seeds one per step).
 
-        xd = torch.relu(self.conv1_5(_pool(diffs, "avg"), self.bn1_5))
-        temp_out_diff1 = _pool(xd, "max")
-        xd = self._stage(temp_out_diff1, 0)
+        ``seg_lo``/``seg_hi`` run the segment range [seg_lo, seg_hi) for a
+        pipeline stage (JAX ``tdn.py:250``): segment 0 is both stems,
+        layer1 and the two fusions (the part with cross-path structure),
+        1-3 are layer2-4, 4 is the head (pool, dropout, ``new_fc``,
+        consensus). Boundary activations are clip-major, (B, T, h, w, c)."""
+        if not 0 <= seg_lo < seg_hi <= 5:
+            raise ValueError(f"segment range [{seg_lo}, {seg_hi})")
+        t = self.num_segments
+        if seg_lo == 0:
+            if x.dim() == 5:  # the dataset's (B, T·5, H, W, C)
+                b, td, h, w, c = x.shape
+                x = x.reshape(b, td // self.num_frames, self.num_frames, h,
+                              w, c)
+            b, tt, d, h, w, c = x.shape
+            if tt != t or d != self.num_frames:
+                raise ValueError(f"expected (B, {t}, {self.num_frames}, H, "
+                                 f"W, C) bursts, got {tuple(x.shape)}")
+            frames = x.reshape(b * t, d, h, w, c).to(self.dtype).unbind(1)
+            diffs = torch.cat([frames[i + 1] - frames[i] for i in range(4)],
+                              -1)
 
-        y = _pool(torch.relu(self.conv1(frames[2], self.bn1)), "max")
-        y = self.alpha * y + self.beta * nearest_resize(temp_out_diff1,
-                                                        *y.shape[1:3])
-        y = self._stage(y, 1)
-        y = self.alpha * y + self.beta * nearest_resize(xd, *y.shape[1:3])
-        for k in (2, 3, 4):
-            y = self._stage(y, k)
+            xd = torch.relu(self.conv1_5(_pool(diffs, "avg"), self.bn1_5))
+            temp_out_diff1 = _pool(xd, "max")
+            xd = self._stage(temp_out_diff1, 0)
+
+            y = _pool(torch.relu(self.conv1(frames[2], self.bn1)), "max")
+            y = self.alpha * y + self.beta * nearest_resize(temp_out_diff1,
+                                                            *y.shape[1:3])
+            y = self._stage(y, 1)
+            y = self.alpha * y + self.beta * nearest_resize(xd, *y.shape[1:3])
+        else:
+            b, tt = x.shape[:2]
+            if tt != t:
+                raise ValueError(f"boundary expects T={t}, got {tt}")
+            y = x.reshape(b * t, *x.shape[2:]).to(self.dtype)
+        for seg in (1, 2, 3):
+            if seg_lo <= seg < seg_hi:
+                y = self._stage(y, seg + 1)
+        if seg_hi < 5:
+            return y.reshape(b, t, *y.shape[1:])
 
         feat = y.mean(dim=(1, 2))
         if self.training and self.dropout > 0:

@@ -21,7 +21,7 @@ Training runs every block unfused, with the 1×1 backward kernels.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -30,14 +30,37 @@ from workoutdetector_tpu_torch.models.resnet import (BOTTLENECK, STAGE_SIZES,
                                                      Dense, ResNet)
 
 
+class RowDraw(NamedTuple):
+    """A dropout stream for rows [lo, hi) of a global batch of ``total``
+    clips (data-parallel training): each mask is drawn from ``generator``
+    at the global batch's shape and cut to these rows, so the ranks
+    together drop what one process on the whole batch drops."""
+
+    generator: torch.Generator
+    lo: int
+    hi: int
+    total: int
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Union[torch.Generator, RowDraw, None] = None
+            ) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 − rate, scale the kept
-    values by 1 / (1 − rate) in x's dtype, zero the rest."""
+    values by 1 / (1 − rate) in x's dtype, zero the rest. x's leading dim
+    holds a whole number of rows per clip (a ``RowDraw`` cuts its mask by
+    clip)."""
     keep = 1.0 - rate
     if keep <= 0.0:
         return torch.zeros_like(x)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, RowDraw):
+        per_clip = x.shape[0] // (generator.hi - generator.lo)
+        shape = (generator.total * per_clip,) + tuple(x.shape[1:])
+        mask = torch.rand(shape, generator=generator.generator,
+                          device=x.device)[generator.lo * per_clip:
+                                           generator.hi * per_clip] < keep
+    else:
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -120,19 +143,43 @@ class TSM(nn.Module):
                                xp[:, 2::2])
         return pooled.reshape(b * (t // 2), h, w, c)
 
+    def boundary_frames(self, boundary: int) -> int:
+        """Frames a clip carries at segment boundary ``boundary``: the
+        temporal pool halves T in front of stage 2, so boundaries 3 and up
+        carry T/2."""
+        if self.temporal_pool and boundary >= 3:
+            return self.num_segments // 2
+        return self.num_segments
+
     def forward(self, x: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_generator: Union[torch.Generator, RowDraw, None] = None,
+                seg_lo: int = 0, seg_hi: int = 6) -> torch.Tensor:
         """Logits of (B, T, H, W, C) clips. In train mode dropout draws its
-        mask from ``dropout_generator`` (the trainer seeds one per step)."""
-        b, t, h, w, c = x.shape
-        if t != self.num_segments:
-            raise ValueError(f"expected T={self.num_segments}, got {t}")
-        feat = self.backbone(x.reshape(b * t, h, w, c).to(self.dtype))
+        mask from ``dropout_generator`` (the trainer seeds one per step).
+
+        ``seg_lo``/``seg_hi`` run the trunk's segment range (``ResNet``'s
+        segments 0-4; segment 5 is pool, dropout, fc and consensus) for a
+        pipeline stage (JAX ``tsm.py:115-194``). Boundary activations are
+        clip-major, (B, T', h, w, c) with T' = ``boundary_frames``, so the
+        pipeline's batch dim stays the clip batch."""
+        if seg_lo == 0:
+            b, t, h, w, c = x.shape
+            if t != self.num_segments:
+                raise ValueError(f"expected T={self.num_segments}, got {t}")
+        else:
+            b, t = x.shape[:2]
+            if t != self.boundary_frames(seg_lo):
+                raise ValueError(f"boundary {seg_lo} expects "
+                                 f"T'={self.boundary_frames(seg_lo)}, got {t}")
+        feat = self.backbone(x.reshape(b * t, *x.shape[2:]).to(self.dtype),
+                             seg_lo=seg_lo, seg_hi=seg_hi)
+        if seg_hi < 6:
+            return feat.reshape(b, self.boundary_frames(seg_hi),
+                                *feat.shape[1:])
         if self.training and self.dropout > 0:
             feat = dropout(feat, self.dropout, dropout_generator)
         logits = self.fc(feat)
-        t_out = t // 2 if self.temporal_pool else t
+        t_out = self.boundary_frames(6)
         logits = logits.reshape(b, t_out, self.num_class).float()
         if self.consensus_type == "avg":
             return logits.mean(dim=1)

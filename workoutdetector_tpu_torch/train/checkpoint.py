@@ -9,6 +9,12 @@ the checkpoint it describes. Saves are synchronous, so
 ``wait_until_finished`` has nothing to wait for. The format is not the JAX
 package's orbax layout; loading one from the other is queued
 (ROADMAP §1).
+
+In a run over a mesh every rank calls ``save`` (the state's
+``state_dict`` gathers sharded leaves whole, a collective), the mesh's
+first rank writes, and the others wait at a barrier until the file is
+there; every rank restores from the file into its own layout, whatever
+the saving run's mesh was (an elastic resume).
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ import torch
 class CheckpointManager:
     """Named checkpoints in one directory."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, name: str) -> str:
@@ -38,16 +45,20 @@ class CheckpointManager:
     def save(self, state: Any, name: str = "last",
              meta: Optional[Dict[str, Any]] = None) -> str:
         """Write ``state.state_dict()`` (or ``state`` itself, a dict) as
-        checkpoint ``name``, then its meta."""
+        checkpoint ``name``, then its meta: on the mesh's first rank, the
+        others waiting at a barrier."""
         path = self._path(name)
         payload = state.state_dict() if hasattr(state, "state_dict") else state
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if meta is not None:
-            with open(path + ".meta.json.tmp", "w") as f:
-                json.dump(meta, f, default=str)
-            os.replace(path + ".meta.json.tmp", path + ".meta.json")
+        if self.mesh is None or self.mesh.is_main:
+            tmp = path + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if meta is not None:
+                with open(path + ".meta.json.tmp", "w") as f:
+                    json.dump(meta, f, default=str)
+                os.replace(path + ".meta.json.tmp", path + ".meta.json")
+        if self.mesh is not None:
+            self.mesh.barrier()
         return path
 
     def wait_until_finished(self) -> None:

@@ -18,12 +18,19 @@ increment, times the group's ``lr_mult``. The frozen group is left out of
 the torch optimizer, so it never moves; its parameters keep
 ``requires_grad`` because the global-norm clip, which wraps the whole
 ``multi_transform`` in the JAX package, counts every gradient.
+
+With a ``StateLayout`` (``parallel/mesh.py``: sharded trainer state) the
+optimizer updates each sharded parameter's block, so the momenta are
+blocks too; its gradient is that block of the full (data-parallel
+averaged) gradient; the clip's global norm sums each block's squares once
+over the mesh (an all-reduce), and ``state_dict`` gathers the momenta
+whole, so a checkpoint loads into any layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,11 +143,31 @@ def build_schedule(cfg, base_lr: float, steps_per_epoch: int,
     return schedule
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ ‖g‖²) over every gradient, in fp32."""
+def global_norm(grads: List[torch.Tensor], names: Sequence[str] = (),
+                layout=None) -> torch.Tensor:
+    """sqrt(Σ ‖g‖²) over every gradient: fp32 squares summed in float64,
+    returned in fp32. With a ``layout`` a sharded leaf's gradient
+    (``names`` name them) is this rank's block: the blocks' squares are
+    summed once over the mesh (an all-reduce). Summed in float64, the
+    blocks' total rounds to the same fp32 norm as the whole leaves' (not
+    so in fp32), so a sharded run clips as the unsharded one does."""
     if not grads:
         return torch.zeros(())
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    zero = grads[0].new_zeros((), dtype=torch.float64)
+
+    def squares(gs):
+        return sum((g.float().square().sum(dtype=torch.float64) for g in gs),
+                   zero)
+
+    if layout is None or not layout.specs:
+        return torch.sqrt(squares(grads)).float()
+    whole = [g for n, g in zip(names, grads) if not layout.sharded(n)]
+    blocks = [g for n, g in zip(names, grads)
+              if layout.sharded(n) and layout.owns(n)]
+    mesh = layout.mesh
+    shared = mesh.comm.all_reduce(squares(blocks).reshape(1),
+                                  mesh.all_group)[0]
+    return torch.sqrt(squares(whole) + shared).float()
 
 
 class TrainOptimizer:
@@ -158,8 +185,14 @@ class TrainOptimizer:
     def __init__(self, model: torch.nn.Module, opt_cfg, sched_cfg,
                  steps_per_epoch: int, max_epochs: int,
                  partial_bn: bool = True, fc_lr5: bool = True,
-                 grad_accum_steps: int = 1):
-        self.params = [p for p in model.parameters() if p.requires_grad]
+                 grad_accum_steps: int = 1, layout=None):
+        self.layout = layout
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.sources = [p for _, p in named]  # their .grad is read
+        if layout is not None:  # sharded leaves update their blocks
+            named = [(n, layout.shards.get(n, p)) for n, p in named]
+        self.params = [p for _, p in named]
         self.schedule = build_schedule(sched_cfg, opt_cfg.lr, steps_per_epoch,
                                        max_epochs)
         self.max_norm = opt_cfg.grad_clip
@@ -170,7 +203,6 @@ class TrainOptimizer:
         self.prev_norm: Optional[torch.Tensor] = None  # the delayed clip's state
         self._acc: Optional[List[torch.Tensor]] = None
         method = opt_cfg.method.lower()
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         if opt_cfg.use_tsn_policies and method == "sgd":
             labels = label_params(named, partial_bn, fc_lr5)
             groups = []
@@ -201,12 +233,16 @@ class TrainOptimizer:
         else:
             raise NotImplementedError(
                 f"optimizer '{opt_cfg.method}' not supported")
+        # torch's state index of each parameter → its name
+        ids = {id(p): n for n, p in named}
+        self._index_names = [ids[id(p)] for g in self.opt.param_groups
+                             for p in g["params"]]
 
     @torch.no_grad()
     def _clip(self, grads: List[torch.Tensor]) -> None:
         if self.max_norm <= 0:
             return
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.names, self.layout)
         if self.delayed:  # scale by the previous call's raw norm
             prev, self.prev_norm = self.prev_norm, norm
             if prev is not None:
@@ -228,7 +264,9 @@ class TrainOptimizer:
     def step(self) -> bool:
         """Apply one call's gradients; True when the parameters moved."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+                 for p in self.sources]
+        if self.layout is not None:
+            grads = [self.layout.local(n, g) for n, g in zip(self.names, grads)]
         if self.accum > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(g) for g in grads]
@@ -250,24 +288,55 @@ class TrainOptimizer:
         return True
 
     def zero_grad(self) -> None:
-        for p in self.params:
+        for p in self.sources + self.params:
             p.grad = None
 
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "count": self.count,
+        """The optimizer's state, sharded momenta gathered whole (a
+        collective under a layout)."""
+        opt = self.opt.state_dict()
+        acc = self._acc
+        if self.layout is not None and self.layout.specs:
+            blocks, names = {}, {}
+            for i, st in opt["state"].items():
+                n = self._index_names[i]
+                for k, v in st.items():
+                    if self.layout.sharded(n) and torch.is_tensor(v) and v.dim():
+                        blocks[(i, k)], names[(i, k)] = v, n
+            if acc is not None:
+                for j, (n, a) in enumerate(zip(self.names, acc)):
+                    if self.layout.sharded(n):
+                        blocks[("acc", j)], names[("acc", j)] = a, n
+            full = self.layout.gather(blocks, names)
+            opt["state"] = {i: {k: full.get((i, k), v) for k, v in st.items()}
+                            for i, st in opt["state"].items()}
+            if acc is not None:
+                acc = [full.get(("acc", j), a) for j, a in enumerate(acc)]
+        return {"opt": opt, "count": self.count,
                 "mini_step": self.mini_step, "prev_norm": self.prev_norm,
-                "acc": self._acc}
+                "acc": acc}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore a ``state_dict()``, its tensors moved to the parameters'
-        device (a checkpoint loads on the CPU)."""
-        self.opt.load_state_dict(state["opt"])
+        """Restore a ``state_dict()`` of any layout, its tensors moved to
+        the parameters' device (a checkpoint loads on the CPU) and cut to
+        this rank's blocks under a layout."""
+        opt = state["opt"]
+        if self.layout is not None:
+            cut = self.layout.local
+            opt = dict(opt, state={
+                i: {k: cut(self._index_names[i], v)
+                    if torch.is_tensor(v) and v.dim() else v
+                    for k, v in st.items()}
+                for i, st in opt["state"].items()})
+        self.opt.load_state_dict(opt)
         self.count = state["count"]
         self.mini_step = state["mini_step"]
         dev = self.params[0].device if self.params else None
         prev = state["prev_norm"]
         self.prev_norm = prev.to(dev) if prev is not None else None
         acc = state["acc"]
+        if acc is not None and self.layout is not None:
+            acc = [self.layout.local(n, a) for n, a in zip(self.names, acc)]
         self._acc = [a.to(p.device) for a, p in zip(acc, self.params)] \
             if acc is not None else None
 
@@ -275,24 +344,44 @@ class TrainOptimizer:
 class EMA:
     """Exponential moving average of the parameters, a distinct copy:
     ``e ← e·decay + p·(1 − decay)`` after every train step (no debias),
-    seeded at the parameters it is built from."""
+    seeded at the parameters it is built from. Under a ``StateLayout`` a
+    sharded parameter's average is its block, like the parameter."""
 
-    def __init__(self, model: torch.nn.Module, decay: float):
+    def __init__(self, model: torch.nn.Module, decay: float, layout=None):
         self.decay = decay
-        self.params = {n: p.detach().clone()
+        self.layout = layout
+        self.params = {n: self._source(n, p).detach().clone()
                        for n, p in model.named_parameters()}
+
+    def _source(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        if self.layout is not None and self.layout.sharded(name):
+            return self.layout.shards[name]
+        return p
 
     @torch.no_grad()
     def update(self, model: torch.nn.Module) -> None:
         d = self.decay
         for n, p in model.named_parameters():
             e = self.params[n]
-            e.copy_(e * d + p * (1.0 - d))
+            e.copy_(e * d + self._source(n, p) * (1.0 - d))
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The averages whole (a collective under a layout)."""
+        if self.layout is None or not self.layout.specs:
+            return self.params
+        sharded = {n: e for n, e in self.params.items()
+                   if self.layout.sharded(n)}
+        return dict(self.params, **self.layout.gather(
+            sharded, {n: n for n in sharded}))
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return self.params
+        return self.full_params()
 
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Averages of any layout, cut to this rank's blocks."""
         with torch.no_grad():
             for n, e in self.params.items():
-                e.copy_(state[n])
+                full = state[n]
+                if self.layout is not None:
+                    full = self.layout.local(n, full)
+                e.copy_(full)

@@ -1,7 +1,8 @@
-"""Training loop on one device: config → loader → train step → trainer.
+"""Training loop: config → loader → train step → trainer, on one device or
+over a mesh of ranks.
 
 Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
-``test``) for one device and no mesh:
+``test``):
 
 * the train step crops, resizes and flips the uint8 canvases on the
   device when ``data.device_augment`` is set (``ops/augment.py``; the
@@ -30,6 +31,24 @@ Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
 Every source of randomness is a function of (seed, step) or (seed, epoch,
 index), and cuDNN is held to deterministic algorithms, so a resumed run
 repeats an uninterrupted one bit for bit.
+
+Over a mesh (``parallel/mesh.py``; built from ``cfg.parallel`` when the
+process belongs to a process group, as the JAX trainer builds its mesh)
+one process per rank runs the JAX trainer's SPMD step by hand: every rank
+takes the same global batch (``train_step``, ``eval_step``) or its
+loader's block of it (``fit``) and works on its rows. The dropout masks
+and the augment draw are drawn for the global batch and cut to the rows
+(``models/tsm.RowDraw``: the models whose dropout is ``tsm.dropout``;
+TimeSformer's own masks refuse one), train-mode BatchNorm takes the
+global batch's statistics (``models/resnet.set_batch_sync``), the
+gradients are averaged over the data-parallel ways (one all-reduce of a
+flat buffer), and the state lies as ``state_sharding`` lays it
+(``StateLayout``: ``parallel.model_axis`` and ``parallel.fsdp`` shard
+weights, statistics, momenta and the EMA; the weights are gathered before
+compute). A step then equals the one-process step on the whole batch.
+Eval sums its losses and counts over the ranks; only the mesh's first
+rank writes logs and checkpoints. A single process with no launcher
+environment makes no process group and no mesh.
 """
 
 from __future__ import annotations
@@ -38,9 +57,10 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from workoutdetector_tpu_torch.data.datasets import build_dataset
@@ -48,12 +68,21 @@ from workoutdetector_tpu_torch.data.loader import DataLoader
 from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.convert import (init_flax_variables,
                                                       load_flax_variables)
-from workoutdetector_tpu_torch.models.factory import build_model
+from workoutdetector_tpu_torch.models.factory import build_model, kernels_for
+from workoutdetector_tpu_torch.models.resnet import set_batch_sync
+from workoutdetector_tpu_torch.models.tsm import RowDraw
 from workoutdetector_tpu_torch.ops.augment import (canvas_size, crop_flip,
                                                    sample_batch_params)
 from workoutdetector_tpu_torch.ops.preprocess import normalize_clip
+from workoutdetector_tpu_torch.parallel.distributed import initialize
+from workoutdetector_tpu_torch.parallel.mesh import (Mesh, StateLayout,
+                                                     batch_rows, create_mesh,
+                                                     dp_size,
+                                                     host_batch_shard,
+                                                     prefetch_to_device)
 from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
-from workoutdetector_tpu_torch.train.loggers import build_loggers
+from workoutdetector_tpu_torch.train.loggers import (LoggerCollection,
+                                                     build_loggers)
 from workoutdetector_tpu_torch.train.optim import EMA, TrainOptimizer
 from workoutdetector_tpu_torch.utils.profiling import StepTimer
 
@@ -94,22 +123,45 @@ def train_loss(out, labels: torch.Tensor, aux_weight: float,
 
 class TrainState:
     """What a step changes and a checkpoint holds: the step count, the
-    model's parameters and running statistics, the optimizer, the EMA."""
+    model's parameters and running statistics, the optimizer, the EMA;
+    under a ``layout`` the sharded leaves as this rank's blocks."""
 
     def __init__(self, model: torch.nn.Module, optimizer: TrainOptimizer,
-                 ema: Optional[EMA]):
+                 ema: Optional[EMA], layout: Optional[StateLayout] = None):
         self.step = 0
         self.model = model
         self.optimizer = optimizer
         self.ema = ema
+        self.layout = layout
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters and statistics whole (a collective under
+        a layout)."""
+        state = self.model.state_dict()
+        if self.layout is not None:
+            state.update(self.layout.full_state())
+        return state
+
+    def load_model_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Whole parameters and statistics of any layout, into this one."""
+        if self.layout is None:
+            self.model.load_state_dict(state)
+            return
+        if set(state) != set(self.model.state_dict()):
+            raise KeyError("checkpoint keys do not match the model's")
+        self.model.load_state_dict(
+            {k: v for k, v in state.items() if not self.layout.sharded(k)},
+            strict=False)
+        self.layout.load_full(state)
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
+        """The whole state, whatever the layout (a collective under one)."""
+        return {"step": self.step, "model": self.model_state(),
                 "optimizer": self.optimizer.state_dict(),
                 "ema": self.ema.state_dict() if self.ema is not None else None}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
+        self.load_model_state(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.ema is not None:
             self.ema.load_state_dict(state["ema"])
@@ -117,15 +169,33 @@ class TrainState:
 
 
 class Trainer:
-    """Training and evaluation of one run on one device."""
+    """Training and evaluation of one run, on one device or over ``mesh``
+    (default: a mesh from ``cfg.parallel`` where the process belongs to a
+    process group, which a launcher's environment makes; none otherwise).
+    On the card a model of another dtype than bf16 trains on the plain
+    path (``kernels_for``: the hand kernels take bf16 only).
+    """
 
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, mesh: Optional[Mesh] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is None and initialize(device=self.device) is not None:
+            par = cfg.parallel
+            mesh = create_mesh(data=par.data_axis, model=par.model_axis,
+                               slices=par.slices,
+                               axis_names=tuple(par.axis_names),
+                               device=self.device)
+        if mesh is not None and not mesh.member:
+            raise ValueError(f"rank {dist.get_rank()} is not in {mesh}")
+        self.mesh = mesh
         # as the PyTorch reference's train(): deterministic cuDNN algorithms
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-        self.model = build_model(cfg.model).to(self.device)
+        self.model = build_model(
+            cfg.model, kernels_for(self.device, cfg.model.dtype)
+        ).to(self.device)
+        if mesh is not None and dp_size(mesh) > 1:
+            set_batch_sync(self.model, mesh.batch_sum)
         self.best_val_acc = 0.0
         self._es_best = float("inf") if cfg.callbacks.early_stopping.mode == \
             "min" else float("-inf")
@@ -142,15 +212,20 @@ class Trainer:
         if variables is None:
             variables = init_flax_variables(self.model, cfg.seed)
         load_flax_variables(self.model, variables)
+        layout = StateLayout(self.model, self.mesh, cfg.parallel.fsdp) \
+            if self.mesh is not None else None
         self._accum = max(cfg.trainer.grad_accum_steps, 1)
         update_steps = max(-(-max(steps_per_epoch, 1) // self._accum), 1)
         optimizer = TrainOptimizer(
             self.model, cfg.optimizer, cfg.lr_scheduler, update_steps,
             cfg.trainer.max_epochs, partial_bn=cfg.model.partial_bn,
-            fc_lr5=cfg.model.fc_lr5, grad_accum_steps=self._accum)
-        ema = EMA(self.model, cfg.optimizer.ema_decay) \
+            fc_lr5=cfg.model.fc_lr5, grad_accum_steps=self._accum,
+            layout=layout)
+        ema = EMA(self.model, cfg.optimizer.ema_decay, layout) \
             if cfg.optimizer.ema_decay > 0 else None
-        return TrainState(self.model, optimizer, ema)
+        if layout is not None:
+            layout.release()
+        return TrainState(self.model, optimizer, ema, layout)
 
     # ------------------------------------------------------------ steps
     def dropout_generator(self, step: int) -> torch.Generator:
@@ -168,72 +243,158 @@ class Trainer:
         g.manual_seed(((self.cfg.seed + 2) * 1_000_003 + step) & (2 ** 63 - 1))
         return sample_batch_params(g, batch_size, base)
 
-    def _batch(self, x_u8, y, step: Optional[int] = None
+    def _batch(self, x_u8, y, step: Optional[int] = None,
+               rows: Optional[Tuple[int, int]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The batch on the device, normalized; a train step's (``step``
-        given) through the on-device augment when the config asks."""
+        given) through the on-device augment when the config asks, its
+        draw made for the global batch and cut to ``rows`` = (first row,
+        global batch)."""
         x = torch.as_tensor(x_u8).to(self.device, non_blocking=True)
         if step is not None and self.cfg.data.device_augment:
-            params = self.augment_params(step, x.shape[0], canvas_size(x))
-            x = crop_flip(x, params, self.cfg.data.image_size)
+            lo, total = rows if rows is not None else (0, x.shape[0])
+            params = self.augment_params(step, total, canvas_size(x))
+            x = crop_flip(x, params[lo:lo + x.shape[0]],
+                          self.cfg.data.image_size)
         return normalize_clip(x), torch.as_tensor(y).to(self.device).long()
 
+    def _rows(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's rows of an n-row global batch."""
+        return batch_rows(n, self.mesh) if self.mesh is not None else (0, n)
+
+    def _mesh_mean(self, values) -> List[float]:
+        """The mean of per-rank values over the mesh: over the data ways,
+        since ranks that differ only on ``model`` hold the same values."""
+        t = torch.tensor(values, dtype=torch.float64, device=self.mesh.device)
+        self.mesh.comm.all_reduce(t, self.mesh.all_group)
+        return (t / dist.get_world_size(self.mesh.all_group)).tolist()
+
     def train_step(self, state: TrainState, x_u8, y) -> Dict[str, torch.Tensor]:
-        """One micro-step: the on-device augment where configured, forward,
-        loss, backward, optimizer, EMA. Returns device scalars {'loss',
-        'acc'} (no host sync)."""
+        """One micro-step on the global batch ``x_u8``, ``y`` (each rank of
+        a mesh takes its rows): the on-device augment where configured,
+        forward, loss, backward, optimizer, EMA. Returns device scalars
+        {'loss', 'acc'} of the global batch (no host sync without a mesh).
+        """
+        lo, hi = self._rows(len(y))
+        metrics = self._train_step(state, x_u8[lo:hi], y[lo:hi], lo, len(y))
+        if self.mesh is not None:
+            loss, acc = self._mesh_mean([float(metrics["loss"]),
+                                         float(metrics["acc"])])
+            metrics = {"loss": torch.tensor(loss), "acc": torch.tensor(acc)}
+        return metrics
+
+    def _train_step(self, state: TrainState, x_u8, y, lo: int, total: int
+                    ) -> Dict[str, torch.Tensor]:
+        """The step on rows [lo, lo + len(y)) of a ``total``-row global
+        batch; this rank's loss and accuracy."""
         model = state.model
         model.train()
-        x, y = self._batch(x_u8, y, state.step)
+        if state.layout is not None:
+            state.layout.materialize()
+        x, y = self._batch(x_u8, y, state.step, (lo, total))
+        gen = self.dropout_generator(state.step)
+        if self.mesh is not None:
+            gen = RowDraw(gen, lo, lo + len(y), total)
         loss, logits = train_loss(
-            model(x, dropout_generator=self.dropout_generator(state.step)), y,
+            model(x, dropout_generator=gen), y,
             self.cfg.model.aux_loss_weight, self.cfg.model.moe_aux_weight)
         state.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            self._average_grads(model)
         state.optimizer.step()
         if state.ema is not None:
             state.ema.update(model)
+        if state.layout is not None:  # nothing whole stays between steps
+            state.optimizer.zero_grad()
+            state.layout.release()
         state.step += 1
         acc = (logits.detach().argmax(-1) == y).float().mean()
         return {"loss": loss.detach(), "acc": acc}
 
     @torch.no_grad()
+    def _average_grads(self, model: torch.nn.Module) -> None:
+        """Every gradient averaged over the data-parallel ways: one
+        all-reduce of a flat buffer per dtype."""
+        n = dp_size(self.mesh)
+        if n == 1:
+            return
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for dtype in {p.grad.dtype for p in params}:
+            ps = [p for p in params if p.grad.dtype == dtype]
+            flat = torch.cat([p.grad.reshape(-1) for p in ps])
+            self.mesh.comm.all_reduce(flat, self.mesh.dp_group)
+            flat /= n
+            for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+                p.grad = g.view_as(p)
+
     def eval_step(self, state: TrainState, x_u8, y) -> Dict[str, torch.Tensor]:
-        """Inference-path logits (EMA weights when EMA is on); loss and
-        counts over the real rows only (label ≥ 0)."""
+        """Inference-path logits (EMA weights when EMA is on) of the global
+        batch (each rank of a mesh scores its rows); loss and counts over
+        its real rows only (label ≥ 0)."""
+        if state.layout is not None:
+            state.layout.materialize()
+        lo, hi = self._rows(len(y))
+        sums = self._eval_sums(state, x_u8[lo:hi], y[lo:hi], self._ema(state))
+        if state.layout is not None:
+            state.layout.release()
+        if self.mesh is not None:
+            self.mesh.comm.all_reduce(sums, self.mesh.dp_group)
+        n = sums[2]
+        return {"loss": (sums[0] / torch.clamp(n, min=1.0)).float(),
+                "correct": sums[1].long(), "total": n.long()}
+
+    def _ema(self, state: TrainState):
+        return state.ema.full_params() if state.ema is not None else None
+
+    @torch.no_grad()
+    def _eval_sums(self, state: TrainState, x_u8, y, ema_params
+                   ) -> torch.Tensor:
+        """[Σ loss, correct, real rows] of these rows, float64."""
         model = state.model
         model.eval()
         x, y = self._batch(x_u8, y)
-        if state.ema is not None:
-            logits = torch.func.functional_call(model, state.ema.params, (x,))
+        if ema_params is not None:
+            logits = torch.func.functional_call(model, ema_params, (x,))
         else:
             logits = model(x)
         mask = (y >= 0).float()
-        n = mask.sum()
-        loss = (cross_entropy(logits, y.clamp(min=0)) * mask).sum() / \
-            torch.clamp(n, min=1.0)
+        loss = (cross_entropy(logits, y.clamp(min=0)) * mask).sum()
         correct = ((logits.argmax(-1) == y) & (y >= 0)).sum()
-        return {"loss": loss, "correct": correct, "total": n.long()}
+        return torch.stack([loss.double(), correct.double(),
+                            mask.sum().double()])
 
     # ------------------------------------------------------------ loops
     def _loader(self, split: str, shuffle: bool) -> DataLoader:
+        shard_id, num_shards = host_batch_shard(self.mesh) \
+            if self.mesh is not None else (0, 1)
         return DataLoader(build_dataset(self.cfg.data, split, self.device),
                           batch_size=self.cfg.data.batch_size, shuffle=shuffle,
                           num_workers=self.cfg.data.num_workers,
-                          seed=self.cfg.seed, drop_last=(split == "train"))
+                          seed=self.cfg.seed, drop_last=(split == "train"),
+                          shard_id=shard_id, num_shards=num_shards)
 
     def evaluate(self, state: TrainState, loader: DataLoader) -> Dict[str, float]:
-        tot_correct, tot, tot_loss = 0, 0, 0.0
-        for bx, by in loader:
-            m = self.eval_step(state, bx, by)
-            n = int(m["total"])
-            tot_correct += int(m["correct"])
-            tot += n
-            # weight by the real rows: a padded tail batch is not a full one
-            tot_loss += float(m["loss"]) * n
+        """Loss and accuracy over a loader's real rows; over a mesh each
+        rank's loader reads its block and the sums are summed."""
+        if state.layout is not None:
+            state.layout.materialize()
+        ema = self._ema(state)
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
+        for bx, by in prefetch_to_device(loader, self.mesh,
+                                         device=self.device):
+            sums += self._eval_sums(state, bx, by, ema)
+        if state.layout is not None:
+            state.layout.release()
+        if self.mesh is not None:
+            self.mesh.comm.all_reduce(sums, self.mesh.dp_group)
+        tot_loss, tot_correct, tot = sums.tolist()
         if tot == 0:
             return {"acc": 0.0, "loss": 0.0, "n": 0}
-        return {"acc": tot_correct / tot, "loss": tot_loss / tot, "n": tot}
+        return {"acc": tot_correct / tot, "loss": tot_loss / tot, "n": int(tot)}
 
     def _resume(self, ckpt: CheckpointManager, name: str,
                 state: TrainState) -> TrainState:
@@ -243,9 +404,10 @@ class Trainer:
             # the optimizer's layout changed since the save (e.g.
             # grad_accum toggled): weights only, a fresh optimizer
             raw = ckpt.restore_variables(name, prefer_ema=False)
-            self.model.load_state_dict({**raw["params"], **raw["batch_stats"]})
+            state.load_model_state({**raw["params"], **raw["batch_stats"]})
             if state.ema is not None:
-                state.ema = EMA(self.model, self.cfg.optimizer.ema_decay)
+                state.ema = EMA(self.model, self.cfg.optimizer.ema_decay,
+                                state.layout)
             meta = {}
             print("[resume] optimizer state structure changed; restored "
                   "weights only, optimizer starts fresh")
@@ -270,12 +432,22 @@ class Trainer:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
 
+    @property
+    def _main(self) -> bool:
+        return self.mesh.is_main if self.mesh is not None else True
+
     def _fit(self, ckpt_dir, variables, preempted: threading.Event):
         cfg = self.cfg
-        timestamp = time.strftime("%Y%m%d-%H%M%S")
+        timestamp = [time.strftime("%Y%m%d-%H%M%S")]
+        if self.mesh is not None:  # one run directory: the first rank's
+            dist.broadcast_object_list(timestamp, int(self.mesh.ranks.flat[0]),
+                                       group=self.mesh.all_group)
+        timestamp = timestamp[0]
         log_dir = os.path.join(cfg.trainer.default_root_dir, timestamp)
-        os.makedirs(log_dir, exist_ok=True)
-        loggers = build_loggers(cfg, log_dir)
+        loggers = LoggerCollection([])
+        if self._main:
+            os.makedirs(log_dir, exist_ok=True)
+            loggers = build_loggers(cfg, log_dir)
         loggers.log_hyperparams(cfg.to_dict())
 
         train_loader = self._loader("train", shuffle=True)
@@ -285,7 +457,7 @@ class Trainer:
 
         if ckpt_dir is None:
             ckpt_dir = cfg.callbacks.modelcheckpoint.dirpath or log_dir
-        ckpt = CheckpointManager(ckpt_dir) \
+        ckpt = CheckpointManager(ckpt_dir, self.mesh) \
             if cfg.trainer.enable_checkpointing else None
         self._ckpt = ckpt
         # train() tests only a 'best' this run saved or resumed onto
@@ -314,8 +486,19 @@ class Trainer:
                 epoch, start_batch=resume_skip if epoch == start_epoch else 0)
             epoch_loss_sum = epoch_acc_sum = 0.0
             epoch_steps = 0
-            for bx, by in train_loader:
-                metrics = self.train_step(state, bx, by)
+            block = train_loader.local_batch * train_loader.shard_id
+            for bx, by in prefetch_to_device(train_loader, self.mesh,
+                                             device=self.device):
+                metrics = self._train_step(state, bx, by, block,
+                                           cfg.data.batch_size)
+                if self.mesh is not None:  # global metrics, one stop signal
+                    loss, acc, stop = self._mesh_mean(
+                        [float(metrics["loss"]), float(metrics["acc"]),
+                         float(preempted.is_set())])
+                    metrics = {"loss": torch.tensor(loss),
+                               "acc": torch.tensor(acc)}
+                    if stop > 0:
+                        preempted.set()
                 global_step += 1
                 if es_on_train:  # device sums, fetched at the epoch's end
                     epoch_loss_sum = epoch_loss_sum + metrics["loss"]
@@ -401,7 +584,7 @@ class Trainer:
 def train(cfg, device="cuda") -> Dict[str, float]:
     """fit, then test the 'best' checkpoint this run saved (the final
     state when there is none)."""
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device=device)
     state, history = trainer.fit()
     if not cfg.trainer.fast_dev_run:
         ckpt = trainer._ckpt
@@ -414,9 +597,10 @@ def train(cfg, device="cuda") -> Dict[str, float]:
 def test(cfg, device="cuda") -> Dict[str, float]:
     """Evaluate ``cfg.checkpoint`` (or the initial weights) on the test
     split."""
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device=device)
     state = trainer.init_state(steps_per_epoch=1)
     if cfg.checkpoint:
-        state, _ = CheckpointManager(os.path.dirname(cfg.checkpoint)).restore(
-            cfg.checkpoint, state)
+        state, _ = CheckpointManager(os.path.dirname(cfg.checkpoint),
+                                     trainer.mesh).restore(cfg.checkpoint,
+                                                           state)
     return trainer.test(state)

@@ -4,7 +4,10 @@
 
 the counterpart of ``python -m workoutdetector_tpu.trainer``: the same
 flags and dotted config overrides (``model.num_class=12``). It trains on
-the card; ``--cpu`` runs on the CPU (the kernels' plain versions).
+the card; ``--cpu`` runs on the CPU (the kernels' plain versions). Under
+a launcher (``torchrun --nproc-per-node N -m
+workoutdetector_tpu_torch.trainer ...``) the ranks join one process group
+and train data-parallel over a mesh from ``parallel.*``; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ def main(argv=None) -> None:
     from workoutdetector_tpu_torch.train.trainer import test, train
     device = "cpu" if args.cpu else "cuda"
     history = train(cfg, device) if cfg.train else test(cfg, device)
-    print({k: round(float(v), 4) for k, v in history.items()})
+    from workoutdetector_tpu_torch.parallel.distributed import is_main_process
+    if is_main_process():
+        print({k: round(float(v), 4) for k, v in history.items()})
 
 
 if __name__ == "__main__":
