@@ -238,9 +238,16 @@ not printed; no CUDA device → exit 2):
      under 0.1·128, ``estimate_clip`` card = CPU, and ``scripts/pose.py``'s
      ``inference_one_video`` with the learned crop (card = CPU) and
      ``render_pose_video``;
- 17. one JSON line of per-kernel numbers (and the sweep's, the file
+ 17. data, FSDP and pipeline parallelism: 2 ranks sharing the card over
+     gloo through ``parallel/dryrun.run`` (``parallel_phase``);
+ 18. sequence and expert parallelism, ``composed`` and ``remat``
+     (``seq_expert_phase``): TimeSformer-B/16 sp over (data 1, model 2),
+     ep with 8 experts, fsdp + sp + ep over (2, 2) on 4 ranks at 4 blocks,
+     each held to its one-process run; TSM-R50 with ``model.remat``
+     against without; the TSM-R50 engine with its weights over ``model``;
+ 19. one JSON line of per-kernel numbers (and the sweep's, the file
      training's, the serving phase's, TPN's, TDN's, the image phase's,
-     RepNet's, the MoE model's and phase 16's numbers), the card line
+     RepNet's, the MoE model's and phases 16-18's numbers), the card line
      again, the script's wall time, and the contract line ``{"ok": true,
      "device": {...}}`` last.
 
@@ -3888,8 +3895,8 @@ class RouteTape:
         real = self.real = self.cls.route
         tape = self
 
-        def route(mod, tokens):
-            gates, expert, slot, cap = real(mod, tokens)
+        def route(mod, tokens, *args):
+            gates, expert, slot, cap = real(mod, tokens, *args)
             if tape.replay is None:
                 tape.calls.append((expert.detach(), slot.detach(), cap))
                 return gates, expert, slot, cap
@@ -4795,6 +4802,501 @@ def parallel_phase(np, torch, kernels, variables, video, repo: Path,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SP_RANKS = 2          # [18a], [18b], [18e]: a (data 1, model 2) mesh
+SP_BATCH = 8          # [18a], [18c]: the global batch of the train steps
+SP_STEPS = 3
+EP_EXPERTS = 8        # [18b], [18c]: 4 experts a model rank
+EP_BATCH = 16         # [18b]: timesformer.yaml's batch
+MOE_LAYERS = 4        # [18b], [18c]: the MoE model's depth cut (12 in
+                      # timesformer.yaml): 151M parameters, not 453M
+COMPOSED_RANKS = 4    # [18c]: a (data 2, model 2) mesh
+COMPOSED_STEPS = 2
+REMAT_STEPS = 3
+
+
+def ts_reference(np, torch, kernels, cfg, variables, x, y, steps: int
+                 ) -> dict:
+    """The one-process TimeSformer run a phase-18 world is held to:
+    ``steps`` train steps of the global batch from ``variables`` and an
+    eval step, with the steps' launches, steps/s and peak memory, the MoE
+    tokens each step dropped and the final state (fp32 numpy)."""
+    from workoutdetector_tpu_torch.models.moe import pop_drops
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device="cuda")
+    st = tr.init_state(steps_per_epoch=10, variables=variables)
+    pop_drops(tr.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses, dropped = [], []
+    for _ in range(steps):
+        losses.append(float(tr.train_step(st, x, y)["loss"]))
+        dropped.append(pop_drops(tr.model))
+    torch.cuda.synchronize()
+    out = {"losses": losses, "dropped": dropped,
+           "launches": kernels.launch_counts(),
+           "steps_per_s": steps / (time.perf_counter() - t0),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["eval"] = {k: float(v) for k, v in tr.eval_step(st, x, y).items()}
+    out["state"] = {k: v.float().cpu().numpy()
+                    for k, v in st.model.state_dict().items()}
+    del tr, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def gib(nbytes: int) -> float:
+    return nbytes / 2 ** 30
+
+
+def card_variables(torch, model, seed: int) -> dict:
+    """A flax-layout tree of random weights for ``model`` drawn on the card
+    from ``seed`` (numpy's initializers take about a minute for the MoE
+    model's 453M parameters): kernels N(0, 1/fan_in) (the expert stacks'
+    fan-in their ``in`` dim), the head and the embeddings N(0, 0.02²),
+    LayerNorm scales 1, biases 0."""
+    from workoutdetector_tpu_torch.models.convert import port_state_to_flax
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state = {}
+    for k, t in model.state_dict().items():
+        leaf = k.rsplit(".", 1)[-1]
+        shape = tuple(t.shape)
+        if leaf in ("w1", "w2"):
+            std = shape[1] ** -0.5
+        elif k.startswith("fc.") and leaf == "weight" or \
+                leaf in ("cls_token", "pos_embed", "time_embed"):
+            std = 0.02
+        elif leaf == "weight" and len(shape) >= 2:
+            std = float(np_prod(shape[1:])) ** -0.5
+        else:
+            std = None
+        if std is None:
+            a = torch.ones(shape) if leaf == "weight" else torch.zeros(shape)
+        else:
+            a = torch.randn(shape, generator=g, device="cuda").mul_(std).cpu()
+        state[k] = a.numpy()
+    return port_state_to_flax(state)
+
+
+def np_prod(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def load_state(np, torch, path) -> dict:
+    return {k: v.float().numpy() for k, v in
+            torch.load(path, map_location="cpu", weights_only=False).items()}
+
+
+def fp32_gap(np, got: dict, want: dict) -> float:
+    """max |got − want| / (1 + |want|) over every leaf."""
+    return max(float(np.max(np.abs(got[k] - want[k]) / (1 + np.abs(want[k]))))
+               for k in want)
+
+
+def seq_expert_phase(np, torch, kernels, variables, video, repo: Path,
+                     card: str) -> dict:
+    """Phase 18: sequence and expert parallelism, ``composed`` and
+    ``remat``, through ``parallel/dryrun.run`` on ranks that share the one
+    card over gloo (as phase 17's), TimeSformer-B/16 at full width from
+    ``timesformer.yaml`` (224², 8 frames, D 768, 12 heads, 12 layers,
+    drop_path 0.1; random weights drawn on the card from seed 0,
+    ``card_variables``):
+    [18a] sp: 2 ranks, (data 1, model 2), ``model.seq_parallel``: 3 train
+    steps at a global batch of 8 and an eval step, fp32 (the plain model,
+    TF32 off) within 1e-4 (1 + |p|) of the one-process run, bf16 (the
+    kernels) by [17a]'s update rule; per rank and step 12 attention-forward
+    and 12 attention-backward launches on its 4 of the 8 frames (32
+    rows); the all-to-alls' calls, bytes and share of the step, peak
+    memory per rank beside one process.
+    [18b] ep: 2 ranks, ``model.moe_experts=8``, 4 a rank at rest and in the
+    forward (asserted in the dry run), the model cut to 4 blocks; 3 bf16
+    steps at 16 by the update rule against the one-process run, the first
+    step's dropped tokens equal (each step's printed).
+    [18c] composed: 4 ranks, (data 2, model 2), FSDP + sp + ep, [18b]'s
+    MoE model and weights; 2 fp32 steps at 8 within 1e-4 (1 + |p|) of one
+    process.
+    [18d] remat: TSM-R50 (repcount_12_tsm.yaml), bf16, batch 32, 3 steps
+    with ``model.remat`` and without, in this process: equal losses and
+    states; 32 shift-matmul forwards a step against 16, 33 dx and 33 dW
+    both; peak memory and step ms of both.
+    [18e] the engine over (data 1, model 2), TSM-R50 fp32 on phase 4's
+    random weights, 1/2 of each model-sharded leaf held at rest: logits
+    within 1e-5 of one process, the video's count and state walk equal.
+    The worlds start while this process runs their references; their
+    phases wait for it (``DryrunSpec.start_file``)."""
+    import shutil
+    import tempfile
+    import threading
+    from dataclasses import replace
+
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.counting import pred_to_count
+    from workoutdetector_tpu_torch.models import TSM
+    from workoutdetector_tpu_torch.models.convert import (flax_to_port_state,
+                                                          init_flax_variables)
+    from workoutdetector_tpu_torch.models.factory import build_model
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.parallel.distributed import spawn
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-seq-", dir=repo))
+    try:
+        torch.save(variables, tmp / "variables.pt")
+        np.save(tmp / "video.npy", video)
+        common = dict(device="cuda", out_dir=str(tmp), timed=True,
+                      tf32=False, threads=2,
+                      ts_config_file=str(repo / TS_YAML))
+        # ViT-B/16's width at MOE_LAYERS blocks (a name outside the ViT
+        # table, so the config's dims hold)
+        moe_model = {"base_model": f"vit_base_{MOE_LAYERS}_blocks",
+                     "embed_dims": TS_HEADS * TS_DH, "num_heads": TS_HEADS,
+                     "num_layers": MOE_LAYERS, "moe_experts": EP_EXPERTS}
+        ep_over = {"ts_batch": EP_BATCH, "ts_dtypes": ("bfloat16",),
+                   "ts_model": moe_model,
+                   "moe_weights": str(tmp / "moe.pt")}
+        spec_a = dryrun.DryrunSpec(
+            base_model="resnet50", num_class=NUM_CLASS, num_segments=FRAMES,
+            image_size=SIZE, serve_dtypes=("float32",),
+            window_batch=WINDOW_BATCH, weights=str(tmp / "variables.pt"),
+            video=str(tmp / "video.npy"), phases=("sp", "ep", "model-serve"),
+            ts_model={}, ts_batch=SP_BATCH, ts_steps=SP_STEPS,
+            ts_dtypes=("float32", "bfloat16"),
+            ts_weights=str(tmp / "dense.pt"), ts_overrides={"ep": ep_over},
+            start_file=str(tmp / "go-a"), **common)
+        spec_ep = replace(spec_a, **ep_over)
+        spec_c = dryrun.DryrunSpec(
+            phases=("composed",), ts_batch=SP_BATCH,
+            ts_steps=COMPOSED_STEPS, ts_dtypes=("float32",),
+            ts_model=moe_model, moe_weights=str(tmp / "moe.pt"),
+            start_file=str(tmp / "go-c"), **common)
+        worlds = {}
+
+        def run_world(name, spec, n):
+            t0 = time.perf_counter()
+            try:
+                worlds[name] = spawn(dryrun.run, n, (spec,), device="cuda",
+                                     timeout_s=600)
+            except RuntimeError as exc:
+                worlds[name] = exc
+            worlds[name + "_s"] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=run_world, args=a) for a in
+                   (("a", spec_a, SP_RANKS), ("c", spec_c, COMPOSED_RANKS))]
+        for th in threads:
+            th.start()
+        refs, inits = {}, {}
+        try:
+            # the one-process references, and the weights the ranks load
+            # ([18b] and [18c] share the MoE model and its weights)
+            t_ref = time.perf_counter()
+            trees = {}
+            for name, spec, phase in (("sp", spec_a, "dp"),
+                                      ("ep", spec_ep, "ep"),
+                                      ("composed", spec_c, "ep")):
+                cfg = dryrun.ts_config(spec, phase, "float32", 1)
+                path = spec.moe_weights if cfg.model.moe_experts \
+                    else spec.ts_weights
+                if path not in trees:
+                    t0 = time.perf_counter()
+                    trees[path] = card_variables(torch,
+                                                 build_model(cfg.model), 0)
+                    torch.save(trees[path], path)
+                    log(f"    {Path(path).name}: initialised and saved in "
+                        f"{time.perf_counter() - t0:.1f} s")
+                tree = trees[path]
+                inits[name] = flax_to_port_state(tree)
+                x, y = dryrun.ts_batch(spec)
+                dtypes = ("float32",) + (("bfloat16",) if name != "composed"
+                                         else ())
+                for dtype in dtypes:
+                    c = dryrun.ts_config(spec, phase, dtype, 1)
+                    t0 = time.perf_counter()
+                    refs[f"{name}-{dtype}"] = ts_reference(
+                        np, torch, kernels, c, tree, x, y, spec.ts_steps)
+                    log(f"    one process {name} {dtype}: "
+                        f"{time.perf_counter() - t0:.1f} s")
+            ref_s = time.perf_counter() - t_ref
+        finally:
+            (tmp / "go-a").touch()
+        threads[0].join()
+        (tmp / "go-c").touch()
+        threads[1].join()
+        for name in ("a", "c"):
+            if isinstance(worlds[name], Exception):
+                raise worlds[name]
+        ranks, ranks_c = worlds["a"], worlds["c"]
+        log(f"    one-process references {ref_s:.1f} s; world of "
+            f"{SP_RANKS} {worlds['a_s']:.1f} s (phases "
+            f"{ranks[0]['phase_seconds']}, set-up of its trainers " +
+            ", ".join(f"{k} {ranks[0][k]['init_seconds']:.1f} s" for k in
+                      ("sp-float32", "sp-bfloat16", "ep-bfloat16")) +
+            f"), world of {COMPOSED_RANKS} {worlds['c_s']:.1f} s (phases "
+            f"{ranks_c[0]['phase_seconds']}, set-up "
+            f"{ranks_c[0]['composed-float32']['init_seconds']:.1f} s)")
+        out = {}
+
+        # [18a] sp, fp32 and bf16
+        f32, bf = refs["sp-float32"], refs["sp-bfloat16"]
+        got32 = load_state(np, torch, tmp / "sp-float32.pt")
+        err32 = fp32_gap(np, got32, f32["state"])
+        if err32 > 1e-4:
+            raise AssertionError(f"sp fp32 parameters off one process by "
+                                 f"{err32} (1 + |p|)")
+        bf_gap = update_errors(np, bf["state"], f32["state"], inits["sp"])
+        gaps = update_errors(np, load_state(np, torch, tmp /
+                                            "sp-bfloat16.pt"),
+                             bf["state"], inits["sp"])
+        worst = max((gaps[k] - GRAD_RATIO * bf_gap[k], k) for k in gaps
+                    if gaps[k] is not None)
+        if worst[0] > GRAD_FLOOR:
+            raise AssertionError(f"sp bf16 update of {worst[1]} off one "
+                                 f"process: {gaps[worst[1]]} > {GRAD_RATIO} "
+                                 f"x {bf_gap[worst[1]]} + {GRAD_FLOOR}")
+        loss_gap = max(abs(a - b) for a, b in zip(bf["losses"],
+                                                  f32["losses"]))
+        want = {"attention": TS_LAYERS * SP_STEPS,
+                "attention_bwd": TS_LAYERS * SP_STEPS}
+        rows = []
+        for r in ranks:
+            rk = r["rank"]
+            r32, r16 = r["sp-float32"], r["sp-bfloat16"]
+            lerr = max(abs(a - b) for a, b in zip(r32["losses"],
+                                                  f32["losses"]))
+            if lerr > 1e-4 * (1 + max(abs(v) for v in f32["losses"])) or \
+                    abs(r32["eval"]["loss"] - f32["eval"]["loss"]) > \
+                    1e-4 * (1 + abs(f32["eval"]["loss"])):
+                raise AssertionError(f"rank {rk} sp fp32 losses "
+                                     f"{r32['losses']} / {r32['eval']} vs "
+                                     f"{f32['losses']} / {f32['eval']}")
+            lerr16 = max(abs(a - b) for a, b in zip(r16["losses"],
+                                                    bf["losses"]))
+            if lerr16 > GRAD_RATIO * loss_gap + 1e-3:
+                raise AssertionError(f"rank {rk} sp bf16 losses "
+                                     f"{r16['losses']} vs {bf['losses']}")
+            got = {k: r16["launches"][k] for k in want}
+            if got != want or r16["attention_rows"] != \
+                    SP_BATCH * FRAMES // 2 or not r16["sp_applied"]:
+                raise AssertionError(f"rank {rk} sp launches {got} on "
+                                     f"{r16['attention_rows']} rows, want "
+                                     f"{want} on {SP_BATCH * FRAMES // 2}")
+            a2a_s = r16["collective_op_seconds"].get("all_to_all", 0.0)
+            row = {"rank": rk, "launches": got,
+                   "steps_per_s": r16["steps_per_s"],
+                   "all_to_all_calls": r16["collective_calls"]["all_to_all"],
+                   "all_to_all_bytes": r16["collective_bytes"]["all_to_all"],
+                   "all_to_all_share": a2a_s / r16["seconds"],
+                   "collective_share": r16["collective_seconds"]
+                   / r16["seconds"],
+                   "peak_bytes": r16["peak_bytes"],
+                   "fp32_peak_bytes": r32["peak_bytes"],
+                   "fp32_steps_per_s": r32["steps_per_s"],
+                   "transports": r16["transports"]}
+            rows.append(row)
+            log(f"    [18a] rank {rk} sp bf16: {row['steps_per_s']:.3f} "
+                f"steps/s (one process {bf['steps_per_s']:.3f}), "
+                f"all-to-all {row['all_to_all_calls']} calls "
+                f"{row['all_to_all_bytes'] / 2 ** 20:.1f} MiB "
+                f"{a2a_s:.3f} s = {row['all_to_all_share']:.3f} of "
+                f"{r16['seconds']:.3f} s (all collectives "
+                f"{row['collective_share']:.3f}), launches {got} on "
+                f"{r16['attention_rows']} rows, peak "
+                f"{gib(row['peak_bytes']):.2f} GiB (one process "
+                f"{gib(bf['peak_bytes']):.2f}); fp32 "
+                f"{row['fp32_steps_per_s']:.3f} steps/s, peak "
+                f"{gib(row['fp32_peak_bytes']):.2f} GiB (one process "
+                f"{gib(f32['peak_bytes']):.2f}) on {card}")
+        log(f"    [18a] sp: fp32 parameters within {err32:.3g} (1 + |p|), "
+            f"eval loss {ranks[0]['sp-float32']['eval']['loss']:.6f} (one "
+            f"process {f32['eval']['loss']:.6f}); bf16 update gap max "
+            f"{max(v for v in gaps.values() if v is not None):.4g} (one-"
+            f"process bf16 vs fp32 "
+            f"{max(v for v in bf_gap.values() if v is not None):.4g})")
+        out["sp"] = {"ranks": rows, "fp32_gap": err32,
+                     "one_process_steps_per_s": bf["steps_per_s"],
+                     "one_process_peak_bytes": bf["peak_bytes"],
+                     "one_process_fp32_peak_bytes": f32["peak_bytes"]}
+
+        # [18b] ep, bf16 by the update rule
+        e32, e16 = refs["ep-float32"], refs["ep-bfloat16"]
+        ebf_gap = update_errors(np, e16["state"], e32["state"], inits["ep"])
+        egaps = update_errors(np, load_state(np, torch,
+                                             tmp / "ep-bfloat16.pt"),
+                              e16["state"], inits["ep"])
+        worst = max((egaps[k] - GRAD_RATIO * ebf_gap[k], k) for k in egaps
+                    if egaps[k] is not None)
+        if worst[0] > GRAD_FLOOR:
+            raise AssertionError(f"ep bf16 update of {worst[1]} off one "
+                                 f"process: {egaps[worst[1]]} > {GRAD_RATIO}"
+                                 f" x {ebf_gap[worst[1]]} + {GRAD_FLOOR}")
+        eloss_gap = max(abs(a - b) for a, b in zip(e16["losses"],
+                                                   e32["losses"]))
+        erows = []
+        for r in ranks:
+            res = r["ep-bfloat16"]
+            if res["experts_held"] != {"rest": EP_EXPERTS // 2,
+                                       "compute": EP_EXPERTS // 2}:
+                raise AssertionError(f"rank {r['rank']} holds experts "
+                                     f"{res['experts_held']}")
+            if res["dropped"][0] != e16["dropped"][0]:
+                raise AssertionError(f"rank {r['rank']} ep dropped "
+                                     f"{res['dropped']} vs one process "
+                                     f"{e16['dropped']}")
+            lerr = max(abs(a - b) for a, b in zip(res["losses"],
+                                                  e16["losses"]))
+            if lerr > GRAD_RATIO * eloss_gap + 1e-3:
+                raise AssertionError(f"rank {r['rank']} ep losses "
+                                     f"{res['losses']} vs {e16['losses']}")
+            row = {"rank": r["rank"], "steps_per_s": res["steps_per_s"],
+                   "dropped": res["dropped"],
+                   "collective_share": res["collective_seconds"]
+                   / res["seconds"], "peak_bytes": res["peak_bytes"],
+                   "launches": {k: v for k, v in res["launches"].items()
+                                if v}}
+            erows.append(row)
+            log(f"    [18b] rank {r['rank']} ep bf16: "
+                f"{res['steps_per_s']:.3f} steps/s (one process "
+                f"{e16['steps_per_s']:.3f}), {res['experts_held']} experts,"
+                f" dropped {res['dropped']} (one process "
+                f"{e16['dropped']}), collectives {row['collective_share']:.3f}"
+                f" of the step, peak {gib(res['peak_bytes']):.2f} GiB "
+                f"(one process {gib(e16['peak_bytes']):.2f}), launches "
+                f"{row['launches']} on {card}")
+        log(f"    [18b] ep: bf16 update gap max "
+            f"{max(v for v in egaps.values() if v is not None):.4g} (one-"
+            f"process bf16 vs fp32 "
+            f"{max(v for v in ebf_gap.values() if v is not None):.4g})")
+        out["ep"] = {"ranks": erows,
+                     "one_process_steps_per_s": e16["steps_per_s"]}
+
+        # [18c] composed, fp32
+        c32 = refs["composed-float32"]
+        cerr = fp32_gap(np, load_state(np, torch,
+                                       tmp / "composed-float32.pt"),
+                        c32["state"])
+        if cerr > 1e-4:
+            raise AssertionError(f"composed fp32 parameters off one process "
+                                 f"by {cerr} (1 + |p|)")
+        crows = []
+        for r in ranks_c:
+            res = r["composed-float32"]
+            lerr = max(abs(a - b) for a, b in zip(res["losses"],
+                                                  c32["losses"]))
+            if lerr > 1e-4 * (1 + max(abs(v) for v in c32["losses"])) or \
+                    not res["sp_applied"] or res["experts_held"] != \
+                    {"rest": EP_EXPERTS // 2, "compute": EP_EXPERTS // 2}:
+                raise AssertionError(f"rank {r['rank']} composed: losses "
+                                     f"{res['losses']} vs {c32['losses']}, "
+                                     f"sp {res['sp_applied']}, experts "
+                                     f"{res['experts_held']}")
+            a2a_s = res["collective_op_seconds"].get("all_to_all", 0.0)
+            crows.append({"rank": r["rank"],
+                          "steps_per_s": res["steps_per_s"],
+                          "all_to_all_share": a2a_s / res["seconds"],
+                          "collective_share": res["collective_seconds"]
+                          / res["seconds"],
+                          "peak_bytes": res["peak_bytes"]})
+        log(f"    [18c] composed fp32 (fsdp + sp + ep, {MOE_LAYERS} "
+            f"blocks): parameters within {cerr:.3g} (1 + |p|) of one "
+            f"process, losses rank 0 {ranks_c[0]['composed-float32']['losses']}"
+            f" (one process {c32['losses']}); per rank " + ", ".join(
+                f"{c['steps_per_s']:.3f} steps/s, all-to-all "
+                f"{c['all_to_all_share']:.3f}, collectives "
+                f"{c['collective_share']:.3f}, peak "
+                f"{gib(c['peak_bytes']):.2f} GiB" for c in crows)
+            + f" (one process {c32['steps_per_s']:.3f} steps/s, peak "
+            f"{gib(c32['peak_bytes']):.2f} GiB) on {card}")
+        out["composed"] = {"ranks": crows, "fp32_gap": cerr,
+                           "one_process_steps_per_s": c32["steps_per_s"]}
+
+        # [18e] the model-sharded engine
+        for r in ranks:
+            res = r["model-serve-float32"]
+            half = [k for k, v in res["held"].items() if v == 0.5]
+            if res["max_abs_err"] > 1e-5 or res["count"] != res["ref_count"] \
+                    or not np.array_equal(res["states"], res["ref_states"]) \
+                    or not half:
+                raise AssertionError(f"rank {r['rank']} model-sharded engine:"
+                                     f" logits off by {res['max_abs_err']}, "
+                                     f"count {res['count']} vs "
+                                     f"{res['ref_count']}, {len(half)} "
+                                     "leaves held by half")
+            reps = pred_to_count(res["states"], step=8)[0]
+            log(f"    [18e] rank {r['rank']} engine over (data 1, model 2), "
+                f"fp32: logits within {res['max_abs_err']:.3g} of one "
+                f"process, count {res['count']} = {res['ref_count']}, state "
+                f"walk {reps} reps = one-shot's, {len(half)} of "
+                f"{len(res['held'])} sharded leaves held by half, "
+                f"{(WINDOW_BATCH + 3) / res['seconds']:.2f} windows/s, "
+                f"collectives {res['collective_seconds'] / res['seconds']:.3f}"
+                f" of the call")
+        out["engine"] = {"max_abs_err": max(
+            r["model-serve-float32"]["max_abs_err"] for r in ranks)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # [18d] remat, in this process
+    train_vars = init_flax_variables(TSM(NUM_CLASS, FRAMES, "resnet50"),
+                                     seed=0)
+    rng = np.random.default_rng(18)
+    x = rng.integers(0, 256, (TRAIN_BATCH, FRAMES, SIZE, SIZE, 3),
+                     dtype=np.uint8)
+    y = rng.integers(0, NUM_CLASS, (TRAIN_BATCH,)).astype(np.int32)
+    runs = {}
+    for remat in (False, True):
+        cfg = train_config(Config, REMAT_STEPS, 0, str(repo / "_unused"))
+        cfg.model.remat = remat
+        tr = Trainer(cfg, device="cuda")
+        st = tr.init_state(steps_per_epoch=10, variables=train_vars)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, ms = [], []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(st, x, y)["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs[remat] = {"losses": losses, "ms": ms,
+                       "launches": kernels.launch_counts(),
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "state": {k: v.float().cpu() for k, v in
+                                 st.model.state_dict().items()}}
+        del tr, st
+        torch.cuda.empty_cache()
+    base, rem = runs[False], runs[True]
+    diff = max(float((rem["state"][k] - base["state"][k]).abs().max())
+               for k in base["state"])
+    if rem["losses"] != base["losses"] or diff != 0.0:
+        raise AssertionError(f"remat losses {rem['losses']} vs "
+                             f"{base['losses']}, states off by {diff}")
+    for remat, shift in ((False, 16), (True, 32)):
+        got = {k: runs[remat]["launches"][k] for k in
+               ("shift_matmul", "conv1x1_dx", "conv1x1_dw")}
+        want = {"shift_matmul": shift * REMAT_STEPS,
+                "conv1x1_dx": 33 * REMAT_STEPS,
+                "conv1x1_dw": 33 * REMAT_STEPS}
+        if got != want:
+            raise AssertionError(f"remat={remat} launches {got} != {want}")
+        log(f"    [18d] TSM-R50 bf16 batch {TRAIN_BATCH}, remat={remat}: "
+            f"step ms {[round(v, 2) for v in runs[remat]['ms']]}, peak "
+            f"{gib(runs[remat]['peak_bytes']):.2f} GiB, launches {got}"
+            f" on {card}")
+    log(f"    [18d] remat: losses {rem['losses']} = without, every leaf "
+        f"equal")
+    out["remat"] = {str(k).lower(): {kk: v for kk, v in r.items()
+                                     if kk != "state"}
+                    for k, r in runs.items()}
+    out["seconds"] = time.perf_counter() - phase_t0
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -4987,6 +5489,15 @@ def main() -> int:
     parallel = parallel_phase(np, torch, kernels, variables, video, repo, card)
     log(f"    phase [17]: {parallel['seconds']:.1f} s")
 
+    torch.cuda.empty_cache()
+    log(f"[18] sequence and expert parallelism, composed, remat: "
+        f"TimeSformer-B/16 ({TS_YAML}) sp over (1, {SP_RANKS}) at batch "
+        f"{SP_BATCH}, ep with {EP_EXPERTS} experts at {EP_BATCH} and composed "
+        f"over (2, 2), both at {MOE_LAYERS} blocks; TSM-R50 remat at batch "
+        f"{TRAIN_BATCH}; the TSM-R50 engine over (1, {SP_RANKS})")
+    seq = seq_expert_phase(np, torch, kernels, variables, video, repo, card)
+    log(f"    phase [18]: {seq['seconds']:.1f} s")
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -5066,7 +5577,7 @@ def main() -> int:
                     "tpn": tpn, "tdn": tdn, "image": image,
                     "repnet": repnet, "moe": moe, "phase15_s": phase15_s,
                     "person": person, "parallel": parallel,
-                    "card": card}))
+                    "seq_expert": seq, "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

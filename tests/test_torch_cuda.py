@@ -1240,3 +1240,44 @@ def test_cuda_dryrun_two_ranks_share_the_card(cuda_device, tmp_path):
         assert "pinned host" in transports["all_gather"]
         assert "pinned host" in r["pp-serve-bfloat16"]["transports"][
             "send" if r["rank"] == 0 else "recv"]
+
+
+@pytest.mark.cuda
+def test_cuda_sequence_and_expert_parallel_share_the_card(cuda_device):
+    """The dry run's sp, ep and composed phases over 4 gloo ranks on the
+    one card, a small TimeSformer (D 128, 2 heads of 64, 2 layers, 32²,
+    patch 8, T 4, l = 17): bf16 sp launches the attention kernels on each rank's 2 of 4
+    frames (8 rows a layer), the all-to-alls go through pinned host
+    buffers, ep holds 2 of 4 experts a rank at rest and in compute, and
+    each fp32 phase (the plain model) is the one-process step within
+    1e-4."""
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.parallel.distributed import spawn
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    ts = dict(dryrun.TS_TINY, embed_dims=128, num_layers=2, num_heads=2)
+    spec = dryrun.DryrunSpec(device="cuda", ts_model=ts, ts_steps=2,
+                             ts_dtypes=("float32", "bfloat16"), tf32=False,
+                             phases=("sp", "ep", "composed"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = dryrun.ts_batch(spec)
+    want = {}
+    for phase, kind in (("sp", "dp"), ("ep", "ep")):
+        tr = Trainer(dryrun.ts_config(spec, kind, "float32", 1, 4),
+                     device=cuda_device)
+        st = tr.init_state(steps_per_epoch=10)
+        want[phase] = [float(tr.train_step(st, x, y)["loss"])
+                       for _ in range(spec.ts_steps)]
+    ranks = spawn(dryrun.run, 4, (spec,), device="cuda", timeout_s=600)
+    for r in ranks:
+        for phase in ("sp", "ep", "composed"):
+            ref = want["sp" if phase == "sp" else "ep"]
+            np.testing.assert_allclose(r[f"{phase}-float32"]["losses"], ref,
+                                       rtol=1e-4)
+        sp = r["sp-bfloat16"]
+        assert sp["launches"]["attention"] == 2 * 2
+        assert sp["launches"]["attention_bwd"] == 2 * 2
+        assert sp["attention_rows"] == 4 * 2
+        assert "pinned host" in sp["transports"]["all_to_all"]
+        assert r["ep-float32"]["experts_held"] == {"rest": 2, "compute": 2}

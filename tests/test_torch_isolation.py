@@ -1,17 +1,22 @@
 """PyTorch port isolation: the port never imports jax or the JAX package,
 its kernel modules import without nvcc or triton, and its entry points
-refuse to drop to the CPU unless asked."""
+refuse to drop to the CPU unless asked.
+
+The "fresh process" tests run their snippets in processes forked from a
+server that imported torch alone (``torch_fresh_process.run_code``), so
+that a snippet's ``sys.modules`` holds what the port imported."""
 
 import json
 import os
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_fresh_process import run_code
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "workoutdetector_tpu_torch"
@@ -88,9 +93,7 @@ print("isolated")
 
 
 def test_port_runs_without_jax_in_a_fresh_process():
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = run_code(_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
     merged = json.loads(out.stdout.strip().splitlines()[-2])
@@ -124,9 +127,7 @@ print("isolated")
 def test_port_trains_without_jax_nor_yaml_in_a_fresh_process():
     """A CPU train step of the port imports none of jax, flax, optax,
     orbax or the JAX package, and a config built in code needs no yaml."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = run_code(_TRAIN_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -193,10 +194,7 @@ def test_kernel_modules_import_without_toolchain():
             "assert _build._loaded is None; "
             "assert 'triton' not in sys.modules; "
             "print(sorted(f.__name__ for f in k.WRAPPERS))")
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
-               PATH="/usr/bin:/bin")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = run_code(code, env={"PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "fused_bottleneck" in out.stdout
 
@@ -242,9 +240,7 @@ def test_serving_and_export_run_without_jax_in_a_fresh_process():
     """The serving and export modules import no jax and nothing of the JAX
     package (nor websockets, PIL or gradio until a function needs them),
     and export, load and serve a CPU artifact."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = run_code(_SERVE_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -317,9 +313,7 @@ def test_image_models_and_counters_run_without_jax_in_a_fresh_process():
     the rank-4 engine, the checkpoint ports, ``utils/similarity`` and the
     counters import no jax, flax or JAX package (nor matplotlib, which only
     ``plot_similarity`` takes), and score and count on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _IMAGE_CHILD], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = run_code(_IMAGE_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -378,9 +372,7 @@ def test_repnet_and_moe_run_without_jax_in_a_fresh_process():
     """RepNet (model, engine, frame logits, the streaming counter), the
     synthetic periodic data and a MoE TimeSformer train step import no
     jax, flax, optax or JAX package (nor pandas), on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _REPNET_CHILD], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = run_code(_REPNET_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -430,9 +422,7 @@ def test_detector_and_pose_run_without_jax_in_a_fresh_process():
     Countix and the visualizers import no jax, flax, msgpack or JAX package
     (nor matplotlib, gradio or pandas until a function needs them), and
     train, save, load and run on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _PERSON_CHILD], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = run_code(_PERSON_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
 
@@ -548,3 +538,74 @@ def test_spawned_rank_functions_import_no_jax():
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax)\b", text,
                          re.M)
     assert "workoutdetector_tpu." not in text
+
+
+_SEQ_CHILD = r"""
+import sys
+import numpy as np
+import torch
+from workoutdetector_tpu_torch.infer import InferenceEngine
+from workoutdetector_tpu_torch.models import TSM, load_flax_variables
+from workoutdetector_tpu_torch.models.convert import random_flax_variables
+from workoutdetector_tpu_torch.models.moe import pop_drops, set_moe_mesh
+from workoutdetector_tpu_torch.parallel import dryrun
+from workoutdetector_tpu_torch.parallel.distributed import (all_to_all,
+                                                            gather_blocks,
+                                                            share_block)
+from workoutdetector_tpu_torch.parallel.mesh import (SeqGroup, StateLayout,
+                                                     compute_sharded,
+                                                     seq_constrain)
+from workoutdetector_tpu_torch.train.trainer import Trainer
+spec = dryrun.DryrunSpec(device="cpu", ts_batch=2)
+cfg = dryrun.ts_config(spec, "ep", "float32", 1)
+trainer = Trainer(cfg, device="cpu")
+assert not trainer.model.set_seq_mesh(None) and not seq_constrain((4,), None)
+assert set_moe_mesh(trainer.model, None) == 2 and not compute_sharded(
+    trainer.model)
+state = trainer.init_state(steps_per_epoch=2)
+loss = float(trainer.train_step(state, *dryrun.ts_batch(spec))["loss"])
+assert np.isfinite(loss) and pop_drops(trainer.model) >= 0
+tsm = TSM(2, 2, "resnet18", remat=True, partial_bn=False)
+load_flax_variables(tsm, random_flax_variables(tsm, seed=0))
+tsm.train()
+tsm(torch.zeros(1, 2, 16, 16, 3)).sum().backward()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "workoutdetector_tpu"))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_sequence_and_expert_parallel_run_without_jax_in_a_fresh_process():
+    """The sequence- and expert-parallel modules (the all-to-all and the
+    block collectives, the sequence layouts, the compute-sharded state,
+    the MoE routing group and its drops, the dry run's TimeSformer
+    configuration) and ``remat`` import no jax, flax, optax or JAX
+    package; a MoE TimeSformer step and a remat backward run on the
+    CPU."""
+    out = run_code(_SEQ_CHILD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("isolated")
+
+
+def test_sequence_and_expert_entry_points_refuse_without_cuda(monkeypatch):
+    """The dry run's TimeSformer phases and a sequence- or expert-parallel
+    trainer ask for the card by default and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.parallel import dryrun
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    for name in LAUNCHER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.DryrunSpec(phases=("sp", "ep", "composed"))
+    cfg = dryrun.ts_config(dryrun.DryrunSpec(device="cpu"), "composed",
+                           "bfloat16", 2)
+    assert cfg.model.seq_parallel and cfg.model.moe_experts == 4
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg)
+    spec = dryrun.DryrunSpec(device="cpu", ts_overrides={"sp": {}})
+    spec.device = "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run(0, spec)

@@ -284,3 +284,91 @@ def test_dryrun_phases_over_four_ranks(world):
         assert d["slice"]["mesh"] == {"slice": 2, "data": 2, "model": 1}
         assert d["serve-float32"]["transports"]["all_gather"] == \
             "gloo, CPU tensors"
+
+
+def test_moe_data_parallel_routes_the_global_batch(world):
+    """A MoE TimeSformer over (data 2, model 1), tokens dropped: its
+    routing group, capacity, slots and load-balance loss are the global
+    batch's, so the step is JAX's one-device step (loss rtol 1e-5, every
+    parameter 1e-4). Routing each rank's rows alone drops other tokens."""
+    ref = world["jax_ts"]["ts_moe"]
+    for r in world["ranks"][:2]:
+        moe = r["moe_dp"]
+        assert moe["dropped"] > 0
+        np.testing.assert_allclose(moe["loss"], ref["loss"], rtol=1e-5)
+        assert moe["state"] == world["ranks"][0]["moe_dp"]["state"]
+    ratio, worst = world["checks"]["moe_dp_vs_jax"]
+    assert ratio <= 1, (worst, ratio)
+
+
+@pytest.mark.parametrize("phase,ref", [("sp", "ts_dense"), ("ep", "ts_moe"),
+                                       ("composed", "ts_moe")])
+def test_sequence_and_expert_parallel_steps_match_jax(world, phase, ref):
+    """The dry run's sp (dense TimeSformer, token dims over model), ep
+    (4 experts, 2 a rank at rest and in compute) and composed (fsdp + sp +
+    ep) phases over the (2, 2) world: each rank's loss is JAX's one-device
+    step's (rtol 1e-5) and the final state every parameter within 1e-4."""
+    want = world["jax_ts"][ref]
+    for r in world["ranks"]:
+        got = r["dryrun"][f"{phase}-float32"]
+        np.testing.assert_allclose(got["losses"], [want["loss"]], rtol=1e-5)
+        assert got["model_split"]
+        # the spatial attention's rows: 4 clips a data rank, by T/2 frames
+        # under sp, all 4 frames without
+        assert got["attention_rows"] == (8 if phase != "ep" else 16)
+        if phase != "ep":
+            assert got["sp_applied"]
+            assert got["collective_calls"]["all_to_all"] > 0
+        if phase != "sp":
+            assert got["experts_held"] == {"rest": 2, "compute": 2}
+            assert got["dropped"][0] > 0
+    ratio, worst = world["checks"][f"{phase}_vs_jax"]
+    assert ratio <= 1, (worst, ratio)
+
+
+def test_timesformer_dp_with_dropout_equals_one_process(world):
+    """TimeSformer over a data pair with dropout 0.3 and drop-path 0.2
+    (``RowDraw`` masks, no TypeError): the one-process step, every leaf
+    within 1e-6."""
+    one = world["one"]["ts_dropout"]
+    for r in world["ranks"][2:]:
+        np.testing.assert_allclose(r["ts_dropout"]["loss"], one["loss"],
+                                   rtol=1e-6)
+    assert world["ranks"][3]["ts_dropout"]["state"] == \
+        world["ranks"][2]["ts_dropout"]["state"]
+    ratio, worst = world["checks"]["ts_dropout_vs_one"]
+    assert ratio <= 1, (worst, ratio)
+
+
+def test_remat_step_equals_no_remat_over_two_ranks(world):
+    """TSM-R18, every BN live, global-batch BN over a data pair: with
+    ``remat`` the two steps' losses, parameters and running statistics
+    are those without (the statistics move once a step; BN's cross-rank
+    sums run again in the recompute)."""
+    for r in world["ranks"][2:]:
+        np.testing.assert_allclose(r["remat"]["losses"],
+                                   world["ranks"][0]["live_losses"],
+                                   rtol=1e-6)
+        assert r["remat"]["state_vs_live"][0] <= 1, r["remat"]
+
+
+def test_model_sharded_engine_equals_one_shot(world):
+    """The dry run's model-serve phase: an engine over (data 2, model 2)
+    holds 1/2 of each leaf the model axis shards at rest and gives the
+    one-shot engine's logits (1e-5), count and state walk."""
+    for r in world["ranks"]:
+        e = r["dryrun"]["model-serve-float32"]
+        assert e["max_abs_err"] <= 1e-5
+        assert e["count"] == e["ref_count"]
+        np.testing.assert_array_equal(e["states"], e["ref_states"])
+        assert e["held"] and set(e["held"].values()) == {0.5}
+
+
+def test_remat_matches_no_remat_in_logits_grads_and_statistics(world):
+    """TSM-R18 in train mode, every BN live (a rank of the world, one
+    process): with ``remat`` the logits, every gradient and the running
+    statistics are those without, and the statistics moved once (JAX
+    ``test_parallel_extra.py:73``)."""
+    gaps = world["ranks"][3]["remat_unit"]
+    assert gaps == {"logits": 0.0, "grads": 0.0, "buffers": 0.0,
+                    "moved": True}

@@ -129,6 +129,35 @@ def test_mha_matches_flax(flash):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_mha_attention_dropout_takes_the_plain_path():
+    """Attention dropout (``attn_drop``) in train mode drops attention
+    probabilities, as the JAX MHA's XLA path does (keep 1 − rate, scaled
+    by 1 / keep): a flash module takes the plain path then, and gives the
+    plain module's output from the same generator; eval mode drops
+    nothing."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(3, 11, DIM)).astype(np.float32))
+    outs = []
+    for flash in (False, True):
+        m = tts.MHA(DIM, HEADS, flash=flash, attn_drop=0.5)
+        load_flax_variables(m, random_flax_variables(m, seed=1))
+        m.train()
+        with torch.no_grad():
+            outs.append(m(x, torch.Generator().manual_seed(3)))
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+    with torch.no_grad():
+        q, k, v = kernels.split_heads(m.qkv(x), HEADS)
+        attn = torch.softmax(q @ k.transpose(-1, -2) * (DIM // HEADS) ** -0.5,
+                             dim=-1)
+        u = torch.rand(attn.shape, generator=torch.Generator().manual_seed(3))
+        out = torch.where(u < 0.5, attn / 0.5, torch.zeros(())) @ v
+        want = m.proj(out.transpose(1, 2).reshape(x.shape))
+        m.eval()
+        kept = m(x)
+    torch.testing.assert_close(outs[1], want, rtol=1e-5, atol=1e-5)
+    assert (outs[1] - kept).abs().max() > 1e-2
+
+
 @pytest.mark.parametrize("folded", [False, True])
 def test_divided_block_matches_flax(folded):
     port = tts.DividedBlock(DIM, HEADS, flash=True,

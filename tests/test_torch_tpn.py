@@ -137,10 +137,11 @@ def _cfgs(base, aux_weight):
 def jax_train_step(jmodel, jcfg, variables, x_u8, y, steps_per_epoch,
                    aux_weights=(0.0,)):
     """The body of the JAX trainer's train_step (trainer.py:167-239) from
-    the same state once for each of ``aux_weights``, in one jitted call
-    over jax arrays: the CE plus the weight times the CE of the sown
-    ``aux_logits`` where the model sows them, clip and update. Returns
-    [(updated tree, loss)] in the weights' order."""
+    the same state once for each of ``aux_weights``, through one jitted
+    program over jax arrays (the weight one of its arguments, so it
+    compiles once for them all): the CE plus the weight times the CE of
+    the sown ``aux_logits`` where the model sows them, clip and update.
+    Returns [(updated tree, loss)] in the weights' order."""
     tx, _ = j_build_optimizer(jcfg.optimizer, jcfg.lr_scheduler,
                               variables["params"], steps_per_epoch,
                               jcfg.trainer.max_epochs,
@@ -150,32 +151,33 @@ def jax_train_step(jmodel, jcfg, variables, x_u8, y, steps_per_epoch,
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
 
     @jax.jit
-    def steps(params, stats, opt_state, xb, yb):
+    def step(params, stats, opt_state, xb, yb, aux_w):
         x = j_normalize(xb)
-        out = []
-        for aux_w in aux_weights:
-            def loss_fn(p, aux_w=aux_w):
-                logits, upd = jmodel.apply(
-                    {"params": p, "batch_stats": stats}, x, train=True,
-                    mutable=["batch_stats", "intermediates"],
-                    rngs={"dropout": jax.random.PRNGKey(1)})
-                loss = cross_entropy_loss(logits, yb)
-                inter = upd.get("intermediates", {})
-                if "aux_logits" in inter:
-                    loss = loss + aux_w * cross_entropy_loss(
-                        inter["aux_logits"][0], yb)
-                return loss, upd["batch_stats"]
 
-            (loss, new_stats), grads = jax.value_and_grad(
-                loss_fn, has_aux=True)(params)
-            updates, _ = tx.update(grads, opt_state, params)
-            out.append(({"params": optax.apply_updates(params, updates),
-                         "batch_stats": new_stats}, loss))
-        return out
+        def loss_fn(p):
+            logits, upd = jmodel.apply(
+                {"params": p, "batch_stats": stats}, x, train=True,
+                mutable=["batch_stats", "intermediates"],
+                rngs={"dropout": jax.random.PRNGKey(1)})
+            loss = cross_entropy_loss(logits, yb)
+            inter = upd.get("intermediates", {})
+            if "aux_logits" in inter:
+                loss = loss + aux_w * cross_entropy_loss(
+                    inter["aux_logits"][0], yb)
+            return loss, upd["batch_stats"]
 
-    return [(tree, float(loss)) for tree, loss in
-            steps(params, stats, tx.init(params), jnp.asarray(x_u8),
-                  jnp.asarray(y))]
+        (loss, new_stats), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(params)
+        updates, _ = tx.update(grads, opt_state, params)
+        return ({"params": optax.apply_updates(params, updates),
+                 "batch_stats": new_stats}, loss)
+
+    out = []
+    for aux_w in aux_weights:
+        tree, loss = step(params, stats, tx.init(params), jnp.asarray(x_u8),
+                          jnp.asarray(y), jnp.float32(aux_w))
+        out.append((tree, float(loss)))
+    return out
 
 
 def check_train_step(trainer, variables, x_u8, y, want, want_loss):
@@ -200,7 +202,7 @@ def check_train_step(trainer, variables, x_u8, y, want, want_loss):
 @pytest.fixture(scope="module")
 def r50_step():
     """TPN-R50 variables, a uint8 batch, and the JAX step's results at aux
-    weights 0.5 and 0 (one compile)."""
+    weights 0.5 and 0 (one compile, two runs)."""
     jmodel, variables = _jax_tpn("resnet50", seed=2, partial_bn=True)
     rng = np.random.default_rng(3)
     x_u8 = rng.integers(0, 256, (2, SEG, SIZE, SIZE, 3), dtype=np.uint8)

@@ -51,13 +51,26 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+_SHAPES = {}  # (the flax module's repr, input shape, dtype) → its tree
+
+
+def init_shapes(model, x):
+    """``jax.eval_shape`` of the JAX model's init on ``x`` (it traces the
+    init without running it), once a process per module and input shape:
+    the tree's shapes do not depend on the seed."""
+    key = (repr(model), tuple(x.shape), str(x.dtype))
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(
+            lambda: model.init({"params": jax.random.PRNGKey(0)}, x,
+                               train=False))
+    return _SHAPES[key]
+
+
 def randomized_variables(model, x, seed=0):
-    """The JAX model's variable tree (from ``jax.eval_shape`` of its init,
-    which traces without running it), filled from a numpy seed: lecun-normal
-    conv kernels, random BN stats/affine, a unit-scale head."""
-    shapes = jax.eval_shape(
-        lambda: model.init({"params": jax.random.PRNGKey(seed)}, x,
-                           train=False))
+    """The JAX model's variable tree (``init_shapes``), filled from a numpy
+    seed: lecun-normal conv kernels, random BN stats/affine, a unit-scale
+    head."""
+    shapes = init_shapes(model, x)
     v = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), {
         "params": dict(shapes["params"]),
         "batch_stats": dict(shapes["batch_stats"])})

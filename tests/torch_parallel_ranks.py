@@ -21,7 +21,11 @@ import torch.distributed as dist
 
 SIZE, SEG, BATCH = 16, 2, 8
 # the dry run's phases on the CPU: DP and FSDP run above
-DRYRUN_PHASES = ("serve", "pp", "het-pp", "pp-serve", "slice")
+DRYRUN_PHASES = ("serve", "pp", "het-pp", "pp-serve", "model-serve",
+                 "slice", "sp", "ep", "composed")
+# TimeSformer DP with dropout and stochastic depth (held to one process)
+TS_DROPOUT = dict(dropout=0.3, drop_path_rate=0.2)
+MOE_EXPERTS = 4  # the MoE TimeSformer's experts, as the dry run's (2, 2) ep
 
 
 def once_per_run(tmp_path_factory, name, compute, meanwhile=()):
@@ -77,7 +81,7 @@ def load_arrays(path):
     return {k: v.numpy() for k, v in torch.load(path).items()}
 
 
-def tiny_cfg(fsdp=False, dropout=0.0, model_axis=1, cls=None):
+def tiny_cfg(fsdp=False, dropout=0.0, model_axis=1, cls=None, remat=False):
     """TSM-R18 at 16², 2 segments, 2 classes, fp32: the JAX
     ``tests/test_fsdp.py`` configuration (``cls``: the config class, the
     port's by default)."""
@@ -96,6 +100,59 @@ def tiny_cfg(fsdp=False, dropout=0.0, model_axis=1, cls=None):
     cfg.data.batch_size = BATCH
     cfg.parallel.fsdp = fsdp
     cfg.parallel.model_axis = model_axis
+    if remat:
+        cfg.model.remat = True
+    return cfg
+
+
+def remat_runs(variables):
+    """One train-mode forward and backward of TSM-R18 with every BN live,
+    without and with ``remat``, on one process: the largest gap of the
+    logits, of every gradient and of every buffer (the running
+    statistics) between the two, and whether the statistics moved."""
+    from workoutdetector_tpu_torch.models import TSM, load_flax_variables
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, SEG, SIZE, SIZE, 3)).astype(np.float32))
+    runs = []
+    for remat in (False, True):
+        model = TSM(2, SEG, "resnet18", dropout=0.0, partial_bn=False,
+                    remat=remat)
+        load_flax_variables(model, variables)
+        model.train()
+        logits = model(x)
+        logits.square().sum().backward()
+        runs.append({"logits": {"": logits.detach().numpy()},
+                     "grads": {n: p.grad.numpy()
+                               for n, p in model.named_parameters()},
+                     "buffers": {n: b.numpy().copy()
+                                 for n, b in model.named_buffers()}})
+    base, rem = runs
+    gaps = {kind: max(float(np.abs(rem[kind][n] - base[kind][n]).max())
+                      for n in base[kind]) for kind in base}
+    gaps["moved"] = any(base["buffers"][n].any() for n in base["buffers"]
+                        if n.endswith("running_mean"))
+    return gaps
+
+
+def ts_spec(tmp, **kw):
+    """The dry run's TimeSformer phases on the CPU, their weights (dense
+    and MoE flax trees) and final states in ``tmp``."""
+    from workoutdetector_tpu_torch.parallel import dryrun
+    return dryrun.DryrunSpec(device="cpu", out_dir=tmp,
+                             ts_weights=os.path.join(tmp, "ts_dense.pt"),
+                             moe_weights=os.path.join(tmp, "ts_moe.pt"), **kw)
+
+
+def ts_dp_config(spec, moe):
+    """The dry run's TimeSformer on a (2, 1) data pair: the MoE one with
+    ``MOE_EXPERTS`` experts, or the dense one with ``TS_DROPOUT``."""
+    from workoutdetector_tpu_torch.parallel import dryrun
+    if moe:
+        return dryrun.ts_config(spec, "ep", "float32", 1, MOE_EXPERTS)
+    cfg = dryrun.ts_config(spec, "dp", "float32", 1)
+    for k, v in TS_DROPOUT.items():
+        setattr(cfg.model, k, v)
     return cfg
 
 
@@ -277,11 +334,49 @@ def parallel_world(rank, weights_path, tmp):
                    "state_vs_dp": close_ratio(_state(st), dp_state, 1e-6,
                                               1e-6)}
 
+    # a MoE TimeSformer over the data pair (ranks 0-1), its routing group
+    # the global batch; TimeSformer DP with dropout and stochastic depth
+    # (ranks 2-3); the TSM with every BN live, without remat (0-1) and
+    # with it (2-3)
+    from workoutdetector_tpu_torch.models.moe import pop_drops
+    tspec = ts_spec(tmp)
+    tb = dryrun.ts_batch(tspec)
+    live = tiny_cfg(remat=rank >= 2)
+    live.model.partial_bn = False
+    if rank < 2:
+        tr = Trainer(ts_dp_config(tspec, True), pair_a, device="cpu")
+        st = tr.init_state(steps_per_epoch=10,
+                           variables=torch.load(tspec.moe_weights))
+        pop_drops(tr.model)
+        loss = float(tr.train_step(st, *tb)["loss"])
+        out["moe_dp"] = {"loss": loss, "dropped": pop_drops(tr.model),
+                         "state": _one_copy(rank, 0, _state(st))}
+    else:
+        tr = Trainer(ts_dp_config(tspec, False), pair_b, device="cpu")
+        st = tr.init_state(steps_per_epoch=10,
+                           variables=torch.load(tspec.ts_weights))
+        out["ts_dropout"] = {"loss": float(tr.train_step(st, *tb)["loss"]),
+                             "state": _one_copy(rank, 2, _state(st))}
+    tr = Trainer(live, pair_a if rank < 2 else pair_b, device="cpu")
+    st = tr.init_state(steps_per_epoch=2, variables=variables)
+    live_losses = [float(tr.train_step(st, *b)["loss"]) for b in (b1, b2)]
+    if rank == 0:
+        save_tree(_state(st), os.path.join(tmp, "live_state.pt"))
+    dist.barrier()
+    if rank >= 2:
+        out["remat"] = {"losses": live_losses, "state_vs_live": close_ratio(
+            _state(st), load_arrays(os.path.join(tmp, "live_state.pt")),
+            1e-6, 1e-6)}
+    else:
+        out["live_losses"] = live_losses
+    if rank == 3:
+        out["remat_unit"] = remat_runs(variables)
+
     # the dry run over the same world
-    spec = dryrun.DryrunSpec(image_size=SIZE, num_segments=SEG,
-                             weights=weights_path, dropout=0.5,
-                             video=os.path.join(tmp, "video.npy"),
-                             phases=DRYRUN_PHASES, device="cpu")
+    spec = ts_spec(tmp, image_size=SIZE, num_segments=SEG,
+                   weights=weights_path, dropout=0.5,
+                   video=os.path.join(tmp, "video.npy"),
+                   phases=DRYRUN_PHASES)
     out["dryrun"] = dryrun.run(rank, spec)
     return out
 

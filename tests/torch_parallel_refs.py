@@ -5,9 +5,16 @@ result): for ``test_torch_parallel.py`` a world of 4 gloo ranks on the CPU
 the JAX mesh step and the port's one-process steps; for
 ``test_torch_pipeline.py`` a world of 2 (``pipeline_world``) and the JAX
 pipelines. Weights are carried to both sides through files the ranks load
-(``load_flax_variables``).
+(``load_flax_variables``). The JAX TimeSformer steps that the sequence-
+and expert-parallel runs are held to (``jax_ts_reference``: the dense and
+the MoE model, one step each on one device) run in processes of their own,
+each compiling no other JAX step (XLA:CPU has segfaulted on a second jit
+of a step in one process).
 """
 
+import os
+import subprocess
+import sys
 import threading
 
 import jax
@@ -21,7 +28,7 @@ from torch_parallel_ranks import (DIMS, SEG, SIZE, batch, close_ratio,
                                   dense_inputs, dense_stack, digest,
                                   het_stack, once_per_run, parallel_world,
                                   pipeline_world, save_tree, tiny_cfg,
-                                  tsm_batch)
+                                  ts_dp_config, ts_spec, tsm_batch)
 from workoutdetector_tpu.config import Config as JConfig
 from workoutdetector_tpu.infer.engine import InferenceEngine as JEngine
 from workoutdetector_tpu.models.tdn import TDN as JaxTDN
@@ -35,6 +42,7 @@ from workoutdetector_tpu.train.trainer import Trainer as JTrainer
 from workoutdetector_tpu_torch.models import TDN
 from workoutdetector_tpu_torch.models.convert import (flax_to_port_state,
                                                       random_flax_variables)
+from workoutdetector_tpu_torch.models.factory import build_model
 from workoutdetector_tpu_torch.parallel import dryrun
 from workoutdetector_tpu_torch.parallel.distributed import spawn
 from workoutdetector_tpu_torch.train.trainer import Trainer
@@ -61,9 +69,69 @@ def _jax_run(variables):
             "state": flax_to_port_state(tree)}
 
 
+def jax_ts_reference(moe, weights_path, out_path):
+    """The JAX trainer's step of the dry run's TimeSformer (dense, or MoE
+    with ``MOE_EXPERTS`` experts) on one device from the carried weights,
+    on the dry run's global batch: its loss and state to ``out_path``."""
+    from workoutdetector_tpu.models.timesformer import TimeSformer as JTS
+
+    spec = ts_spec(os.path.dirname(out_path))
+    cfg = JConfig()
+    cfg.merge_dict(ts_dp_config(spec, True).to_dict() if moe else
+                   dryrun.ts_config(spec, "sp", "float32", 1).to_dict())
+    cfg.model.seq_parallel = False
+    mesh = j_create_mesh(devices=jax.devices()[:1], data=1, model=1)
+    tr = JTrainer(cfg, mesh=mesh)
+    carried = jax.tree_util.tree_map(jnp.asarray,
+                                     _numpy_tree(torch.load(weights_path)))
+    with pytest.MonkeyPatch.context() as mp:  # the flax init, carried
+        mp.setattr(JTS, "init", lambda self, *a, **k: carried)
+        st = tr.init_state(steps_per_epoch=10, image_size=cfg.data.image_size)
+    st, m = tr.train_step_fn()(st, *j_shard_batch(dryrun.ts_batch(spec),
+                                                  mesh))
+    tree = jax.tree_util.tree_map(np.asarray, {"params": st.params})
+    torch.save({"loss": float(m["loss"]), "state": flax_to_port_state(tree)},
+               out_path)
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else
+            np.asarray(v) for k, v in tree.items()}
+
+
+def _start_jax_ts(tmp):
+    """``jax_ts_reference`` of the dense and the MoE model, each in a
+    process of its own; returns the processes (``_wait_jax_ts``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]),
+        JAX_PLATFORMS="cpu")
+    procs = []
+    for moe, name in ((False, "ts_dense"), (True, "ts_moe")):
+        code = ("import jax; jax.config.update('jax_platforms', 'cpu'); "
+                "import torch_parallel_refs as r; "
+                f"r.jax_ts_reference({moe}, {str(tmp / (name + '.pt'))!r}, "
+                f"{str(tmp / ('jax_' + name + '.pt'))!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    return procs
+
+
+def _wait_jax_ts(procs, tmp):
+    for p in procs:
+        out = p.communicate(timeout=600)[0]
+        if p.returncode:
+            raise RuntimeError(f"JAX TimeSformer reference failed:\n"
+                               f"{out.decode(errors='replace')[-4000:]}")
+    return {name: torch.load(tmp / f"jax_{name}.pt", weights_only=False)
+            for name in ("ts_dense", "ts_moe")}
+
+
 def _port_one_process(variables, path):
     """The port's one-process references: a dropout-0.5 step on batch 0,
-    and the dry run's hybrid-mesh train step."""
+    the dry run's hybrid-mesh train step, and the TimeSformer step with
+    dropout and stochastic depth."""
     tr = Trainer(tiny_cfg(dropout=0.5), device="cpu")
     st = tr.init_state(steps_per_epoch=2, variables=variables)
     loss = float(tr.train_step(st, *batch(0))["loss"])
@@ -75,6 +143,13 @@ def _port_one_process(variables, path):
     st = tr.init_state(steps_per_epoch=10, variables=variables)
     x, y = dryrun.train_batch(spec)
     out["dryrun"] = float(tr.train_step(st, x, y)["loss"])
+    tspec = ts_spec(os.path.dirname(path))
+    tr = Trainer(ts_dp_config(tspec, False), device="cpu")
+    st = tr.init_state(steps_per_epoch=10,
+                       variables=torch.load(tspec.ts_weights))
+    loss = float(tr.train_step(st, *dryrun.ts_batch(tspec))["loss"])
+    out["ts_dropout"] = {"loss": loss, "state": {
+        k: v.numpy().copy() for k, v in st.model.state_dict().items()}}
     return out
 
 
@@ -227,6 +302,11 @@ def _compute_parallel(tmp_path_factory):
     save_tree(variables, path)
     np.save(tmp / "video.npy", np.random.default_rng(6).integers(
         0, 256, (48, SIZE, SIZE, 3), dtype=np.uint8))
+    tspec = ts_spec(str(tmp))
+    for moe, wpath in ((False, tspec.ts_weights), (True, tspec.moe_weights)):
+        save_tree(random_flax_variables(build_model(
+            ts_dp_config(tspec, moe).model), seed=7), wpath)
+    jax_ts = _start_jax_ts(tmp)
 
     def refs():
         # the port's one-process steps (torch, one thread) in a thread,
@@ -253,16 +333,28 @@ def _compute_parallel(tmp_path_factory):
         return out
 
     ranks, refs = _beside(parallel_world, 4, (path, str(tmp)), refs)
+    refs["jax_ts"] = _wait_jax_ts(jax_ts, tmp)
     # the whole-model arrays are held to their references here, and their
     # ratios (``close_ratio``) and hashes kept: the shared result stays small
     dp, dropout = ranks[0]["dp"], ranks[0]["dropout"]
+    moe_dp, ts_drop = ranks[0]["moe_dp"], ranks[2]["ts_dropout"]
+    dense, moe = (refs["jax_ts"][k].pop("state")
+                  for k in ("ts_dense", "ts_moe"))
     checks = {
         "dp_vs_jax": close_ratio(dp["state"], refs["jax"].pop("state"),
                                  1e-4, 1e-4),
         "dropout_vs_one": close_ratio(
             dropout["state"], refs["one"]["dropout"].pop("state"), 1e-6,
+            1e-6),
+        "moe_dp_vs_jax": close_ratio(moe_dp["state"], moe, 1e-4, 1e-4),
+        "ts_dropout_vs_one": close_ratio(
+            ts_drop["state"], refs["one"]["ts_dropout"].pop("state"), 1e-6,
             1e-6)}
-    for arrays in (dp, dropout):
+    for phase, ref in (("sp", dense), ("ep", moe), ("composed", moe)):
+        got = {k: v.numpy() for k, v in torch.load(
+            tmp / f"{phase}-float32.pt").items()}
+        checks[f"{phase}_vs_jax"] = close_ratio(got, ref, 1e-4, 1e-4)
+    for arrays in (dp, dropout, moe_dp, ts_drop):
         arrays["state"] = digest(arrays["state"])
     return dict(refs, ranks=ranks, shapes=_shapes(variables), checks=checks)
 

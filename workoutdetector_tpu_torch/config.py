@@ -222,7 +222,8 @@ class ModelConfig(ConfigNode):
     mlp_ratio: float = 4.0
     attention_type: str = "divided_space_time"
     drop_path_rate: float = 0.0
-    # TimeSformer sequence parallelism and MoE MLPs (not in the port yet)
+    # TimeSformer sequence parallelism over the mesh's model axis, and
+    # MoE MLPs (their experts sharded over it: expert parallelism)
     seq_parallel: bool = False
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
@@ -233,7 +234,7 @@ class ModelConfig(ConfigNode):
     shift_impl: str = "xla"  # xla | xla-edge | pallas | unfused
     # shift-site placement stride (reference n_round): 0 = depth rule
     shift_round: int = 0
-    remat: bool = False  # block rematerialisation (not in the port yet)
+    remat: bool = False  # TSM: recompute residual blocks in the backward
     # inference: the stride-1 bottlenecks of fused_stages as fused-block
     # kernels. The port runs them unless this is 'false' ('auto' = on)
     fused_block: str = "auto"  # auto | true | false

@@ -27,9 +27,12 @@ for a ``.jaxm`` artifact.
 
 Over a mesh (``parallel/mesh.py``; every rank builds the engine and calls
 it with the same windows and gets the same logits) each window batch is
-split over the data-parallel ways and the logits are all-gathered; the
-weights stay whole on every rank (the JAX engine partitions them over
-``model``). With ``pp_cuts`` the model's segment-ranged forward (TSM,
+split over the data-parallel ways and the logits are all-gathered. On a
+mesh with ``model`` > 1 the engine holds its own copy of the model laid
+out as ``state_sharding`` lays it (1/m of each eligible leaf over
+``model``, as the JAX engine partitions its variables) and gathers the
+weights before each call and frees them after (``StateLayout``); the
+caller's model stays whole. With ``pp_cuts`` the model's segment-ranged forward (TSM,
 ResNet and TDN carry ``seg_lo``/``seg_hi``) is cut into one pipeline
 stage per rank of the ``model`` axis and runs through
 ``parallel.pipeline.pipeline_apply_het`` in ``pp_microbatches``
@@ -45,6 +48,7 @@ current stream are not safe to share between threads.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -57,7 +61,8 @@ from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.timesformer import fold_for_inference
 from workoutdetector_tpu_torch.ops.preprocess import (normalize_clip,
                                                       preprocess_windows)
-from workoutdetector_tpu_torch.parallel.mesh import batch_rows, dp_size
+from workoutdetector_tpu_torch.parallel.mesh import (StateLayout, batch_rows,
+                                                     dp_size)
 from workoutdetector_tpu_torch.parallel.pipeline import pipeline_apply_het
 
 
@@ -141,6 +146,12 @@ class InferenceEngine:
         if optimize:
             model = fold_for_inference(model)
         self.model = model.to(self.device).eval()
+        self.layout: Optional[StateLayout] = None
+        if mesh is not None and self.pp_cuts is None and \
+                mesh.size("model") > 1:  # the weights at rest over model
+            self.model = copy.deepcopy(self.model)
+            self.layout = StateLayout(self.model, mesh)
+            self.layout.release()
         self.num_segments = num_segments
         self.window_batch = window_batch
         self.image_size = image_size
@@ -182,7 +193,7 @@ class InferenceEngine:
         self.window_batch = int(shape[0])
         self.num_segments = int(shape[1]) if len(shape) > 4 else 1
         self.image_size = int(shape[-3])
-        self.mesh, self.pp_cuts = None, None
+        self.mesh, self.pp_cuts, self.layout = None, None, None
         self._setup()
         return self
 
@@ -232,7 +243,11 @@ class InferenceEngine:
         """This rank's block of the window batch, the logits all-gathered
         over the data-parallel ways."""
         lo, hi = batch_rows(windows_u8.shape[0], self.mesh)
+        if self.layout is not None:
+            self.layout.materialize()
         logits = self.model(normalize_clip(windows_u8[lo:hi].to(self.device)))
+        if self.layout is not None:
+            self.layout.release()
         if dp_size(self.mesh) == 1:
             return logits
         parts = self.mesh.comm.all_gather(logits.contiguous(),
@@ -505,6 +520,7 @@ def engine_from_checkpoint(cfg,
             "export, which the PyTorch port cannot read; export the "
             "checkpoint with the port (scripts/export_model.py) to a .pt2 "
             "artifact")
+    device = resolve_device(device)  # before any model is built
     image = cfg.model.model_type.lower() == "image"
     rank = (4 if image else 5) if input_rank is None else input_rank
     check_rank(rank)

@@ -97,7 +97,7 @@ def build_model(cfg, use_kernels: bool = True) -> torch.nn.Module:
                temporal_pool=cfg.temporal_pool, dtype=DTYPES[cfg.dtype],
                shift_round=cfg.shift_round,
                fused_block=fused, fused_stages=tuple(cfg.fused_stages), use_kernels=use_kernels,
-               dropout=cfg.dropout, partial_bn=cfg.partial_bn)
+               dropout=cfg.dropout, partial_bn=cfg.partial_bn, remat=cfg.remat)
 
 
 def example_input_shape(cfg, batch: int = 1,

@@ -22,6 +22,15 @@ Two regimes, by ``torch.is_grad_enabled()`` and the module's mode:
   the JAX package's ``conv1x1_bwd='pallas'`` does; the 3×3 convs and the
   stride-2 downsamples stay cuDNN convs with autograd.
 
+With ``remat`` (``model.remat``, JAX ``nn.remat`` of the blocks) each
+residual block of a train-mode forward under autograd is checkpointed
+(``torch.utils.checkpoint``, non-reentrant): its activations are dropped
+and the block runs again in the backward. A BatchNorm updates its running
+statistics in the forward only, not again when recomputed (global-batch
+BN's sums run again, on every rank alike); the blocks draw no random
+mask, which checkpoint's RNG stash would not replay from an explicit
+generator.
+
 With ``num_classes`` the trunk carries its own ``fc`` head (the image
 classifiers' ResNet zoo, ``models/factory.ImageClassifier``).
 
@@ -36,11 +45,13 @@ on-card reference).
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from workoutdetector_tpu_torch.ops import kernels
 from workoutdetector_tpu_torch.ops.conv import conv2d_nhwc
@@ -56,6 +67,26 @@ BOTTLENECK = {"resnet18": False, "resnet34": False, "resnet50": True,
 
 ShiftSpec = Optional[Tuple[int, int]]  # (n_segment, fold_div)
 BN_MOMENTUM = 0.9  # flax's convention: running ← 0.9·running + 0.1·batch
+
+_recomputing = [0]  # > 0 while a checkpointed block runs again
+
+
+@contextmanager
+def _recompute():
+    _recomputing[0] += 1
+    try:
+        yield
+    finally:
+        _recomputing[0] -= 1
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` checkpointed: its activations are recomputed in the
+    backward, under ``_recompute`` (BatchNorm leaves its running
+    statistics alone there)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (nullcontext(), _recompute()))
 
 
 def cached(module: nn.Module, name: str, sources: Sequence[torch.Tensor],
@@ -205,7 +236,8 @@ class BatchNorm(nn.Module):
         if self.batch_stats() and self.sync is not None:
             return self._global_batch_norm(xr).reshape(x.shape)
         if self.batch_stats():
-            self._update_running(xr)
+            if not _recomputing[0]:
+                self._update_running(xr)
             y = F.batch_norm(xr, None, None, self.weight, self.bias,
                              training=True, eps=self.eps)
         else:
@@ -226,10 +258,12 @@ class BatchNorm(nn.Module):
         mean = s1[:-1] / n
         centred = xf - mean
         var = self.sync(centred.square().sum(0)) / n
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not _recomputing[0]:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         y = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
@@ -425,6 +459,8 @@ class ResNet(nn.Module):
         num_classes: > 0 adds the linear head ``fc`` on the pooled
             features (the image classifiers' zoo, JAX ``resnet.py:380``);
             0 returns the pooled features.
+        remat: checkpoint each residual block of a train-mode forward
+            under autograd (module docstring).
     """
 
     def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True,
@@ -436,8 +472,9 @@ class ResNet(nn.Module):
                  use_kernels: bool = True, eps: float = 1e-5,
                  partial_bn: bool = False,
                  out_indices: Optional[Sequence[int]] = None,
-                 num_classes: int = 0):
+                 num_classes: int = 0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.out_indices = None if out_indices is None else tuple(out_indices)
         # the last block of each tapped stage
         self.tap_blocks = {f"layer{i + 1}_{stage_sizes[i] - 1}"
@@ -490,6 +527,7 @@ class ResNet(nn.Module):
                 0, 2, 3, 1)
         stage = -1
         taps = []
+        ckpt = self.remat and self.training and torch.is_grad_enabled()
         for i, name, pre in self.blocks:
             if not seg_lo <= i + 1 < seg_hi:
                 continue
@@ -499,7 +537,8 @@ class ResNet(nn.Module):
                     x = self.stage_hook(x, i)
             if pre is not None:
                 x = shift_input(x, pre, self.use_kernels)
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = remat(block, x) if ckpt else block(x)
             if name in self.tap_blocks:
                 taps.append(x)
         if self.out_indices is not None:

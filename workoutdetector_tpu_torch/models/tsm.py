@@ -9,7 +9,8 @@ temporal max-pool before stage 2, dropout and a linear head, and average
 
 The module is built in eval mode, as the JAX module's call defaults to
 ``train=False``; ``model.train()`` selects training (BN batch statistics
-except under ``partial_bn``, dropout before ``fc``).
+except under ``partial_bn``, dropout before ``fc``); ``remat``
+recomputes each residual block in the backward (``ResNet``).
 
 Input (B, T, H, W, C) normalized float; the trunk runs on the flat
 (B·T, H, W, C) batch in ``dtype``. On the main path (bottleneck archs,
@@ -21,7 +22,7 @@ Training runs every block unfused, with the 1×1 backward kernels.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -42,25 +43,51 @@ class RowDraw(NamedTuple):
     total: int
 
 
+class Split(NamedTuple):
+    """Rows of a sequence-parallel tensor: its leading dim is (rows, k)
+    flattened, and those k are block ``index`` of ``n`` equal blocks of a
+    global dim of k·n (the ``model`` rank's patches or frames)."""
+
+    k: int
+    n: int
+    index: int
+
+
+def uniform(shape: Sequence[int],
+            generator: Union[torch.Generator, RowDraw, None],
+            device, split: Optional[Split] = None) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) for a mask of ``shape``, drawn at the
+    global shape and cut to this rank's part: a ``RowDraw`` cuts the
+    leading dim by clip (it holds a whole number of rows per clip), a
+    ``split`` cuts its k-blocks. One process on the whole batch draws
+    the same numbers for the same global shape."""
+    shape = list(shape)
+    lead = [shape[0]]
+    idx = [slice(None)]
+    if split is not None:
+        lead = [shape[0] // split.k, split.k * split.n]
+        idx = [slice(None), slice(split.index * split.k,
+                                  split.index * split.k + split.k)]
+    if isinstance(generator, RowDraw):
+        per_clip = lead[0] // (generator.hi - generator.lo)
+        idx[0] = slice(generator.lo * per_clip, generator.hi * per_clip)
+        lead[0] = generator.total * per_clip
+        generator = generator.generator
+    u = torch.rand(lead + shape[1:], generator=generator, device=device)
+    return u[tuple(idx)].reshape(shape)
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Union[torch.Generator, RowDraw, None] = None
-            ) -> torch.Tensor:
+            generator: Union[torch.Generator, RowDraw, None] = None,
+            split: Optional[Split] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 − rate, scale the kept
     values by 1 / (1 − rate) in x's dtype, zero the rest. x's leading dim
     holds a whole number of rows per clip (a ``RowDraw`` cuts its mask by
-    clip)."""
+    clip; ``split``: by the rank's token block too, ``uniform``)."""
     keep = 1.0 - rate
     if keep <= 0.0:
         return torch.zeros_like(x)
-    if isinstance(generator, RowDraw):
-        per_clip = x.shape[0] // (generator.hi - generator.lo)
-        shape = (generator.total * per_clip,) + tuple(x.shape[1:])
-        mask = torch.rand(shape, generator=generator.generator,
-                          device=x.device)[generator.lo * per_clip:
-                                           generator.hi * per_clip] < keep
-    else:
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device, split) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -80,7 +107,7 @@ class TSM(nn.Module):
                  fused_block: bool = True,
                  fused_stages: Sequence[int] = (0, 1),
                  use_kernels: bool = True, dropout: float = 0.5,
-                 partial_bn: bool = True):
+                 partial_bn: bool = True, remat: bool = False):
         super().__init__()
         if shift_place not in ("blockres", "block"):
             raise ValueError(f"shift_place {shift_place!r}")
@@ -117,7 +144,7 @@ class TSM(nn.Module):
                                shift_spec=shift_spec, pre_shift=pre_shift,
                                stage_hook=self._stage_hook,
                                fuse_spec=fuse_spec, use_kernels=use_kernels,
-                               partial_bn=partial_bn)
+                               partial_bn=partial_bn, remat=remat)
         self.fc = Dense(self.backbone.num_features, num_class)
         self.eval()
 

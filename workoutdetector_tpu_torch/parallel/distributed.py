@@ -15,12 +15,13 @@ has a card of its own, gloo for CPU ranks and for ranks that share a card
 rank that dies fails the others' next collective instead of hanging them.
 
 ``Collectives`` runs every collective of the parallel paths (the mesh's
-``comm``) through one fixed transport per operation and counts the host
-time spent in them. NCCL takes CUDA tensors for every operation. Gloo takes
+``comm``) through one fixed transport per operation and counts their
+calls, the bytes each sent and the host time spent in them.
+``group_sum`` and ``all_to_all`` are the differentiable ones. NCCL takes CUDA tensors for every operation. Gloo takes
 CPU tensors for every operation, and of CUDA tensors only ``all_reduce``
 and ``broadcast``, which it copies through host memory itself; its
-all-gather and point-to-point transfers of CUDA tensors are staged here
-through pinned host buffers. The compute stays on the card either way:
+all-gather, all-to-all and point-to-point transfers of CUDA tensors are
+staged here through pinned host buffers. The compute stays on the card either way:
 this is the transport, not a fallback.
 """
 
@@ -240,6 +241,9 @@ class Collectives:
         self.timed = False
         self.seconds = 0.0
         self.calls: Counter = Counter()
+        self.bytes: Counter = Counter()  # bytes each operation sent
+        self.op_seconds: Counter = Counter()  # host seconds by operation
+        self._op = ""
 
     def staged(self, op: str) -> bool:
         """Whether ``op`` on this process's tensors goes through pinned
@@ -263,9 +267,14 @@ class Collectives:
     def reset(self) -> None:
         self.seconds = 0.0
         self.calls.clear()
+        self.bytes.clear()
+        self.op_seconds.clear()
 
-    def _enter(self, op: str) -> float:
+    def _enter(self, op: str, t: Optional[torch.Tensor] = None) -> float:
         self.calls[op] += 1
+        self._op = op
+        if t is not None:
+            self.bytes[op] += t.numel() * t.element_size()
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
@@ -273,7 +282,9 @@ class Collectives:
     def _leave(self, t0: float) -> None:
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        self.op_seconds[self._op] += dt
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -284,7 +295,7 @@ class Collectives:
         """In-place sum of ``t`` over ``group``; returns ``t``. The
         backends read a tensor's storage as dense, so a strided ``t`` goes
         through a contiguous copy."""
-        t0 = self._enter("all_reduce")
+        t0 = self._enter("all_reduce", t)
         buf = t.contiguous()
         dist.all_reduce(buf, group=group)
         if buf is not t:
@@ -294,7 +305,7 @@ class Collectives:
 
     def all_gather(self, t: torch.Tensor, group) -> List[torch.Tensor]:
         """Every member's ``t`` (same shape), in group-rank order."""
-        t0 = self._enter("all_gather")
+        t0 = self._enter("all_gather", t)
         n = dist.get_world_size(group)
         src = self._host(t) if self.staged("all_gather") else t.contiguous()
         out = [torch.empty(src.shape, dtype=src.dtype,
@@ -303,6 +314,22 @@ class Collectives:
         dist.all_gather(out, src, group=group)
         if src is not t:
             out = [o.to(t.device, non_blocking=True) for o in out]
+        self._leave(t0)
+        return out
+
+    def all_to_all(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The all-to-all of ``t`` (n, ...) over ``group`` of n members:
+        block j of this member's ``t`` goes to member j, and block i of the
+        result is what member i sent here (every block one shape). Its own
+        inverse."""
+        t0 = self._enter("all_to_all", t)
+        staged = self.staged("all_to_all")
+        src = self._host(t) if staged else t.contiguous()
+        out = torch.empty(src.shape, dtype=src.dtype, pin_memory=True) \
+            if staged else torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        if staged:
+            out = out.to(t.device, non_blocking=True)
         self._leave(t0)
         return out
 
@@ -404,3 +431,76 @@ def group_sum(t: torch.Tensor, comm: Collectives, group) -> torch.Tensor:
     counterpart of ``torch.distributed.nn.functional.all_reduce``, which
     newer PyTorch deprecates, through ``comm``'s transport."""
     return _GroupSum.apply(t, comm, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Differentiable ``Collectives.all_to_all``: the all-to-all is its own
+    inverse, so the backward sends each block's gradient back the way the
+    block came."""
+
+    @staticmethod
+    def forward(ctx, t, comm: Collectives, group):
+        ctx.comm, ctx.group = comm, group
+        return comm.all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_to_all(grad.contiguous(), ctx.group), None, None
+
+
+def all_to_all(t: torch.Tensor, comm: Collectives, group) -> torch.Tensor:
+    """Block j of ``t`` (n, ...) to member j of ``group``; block i of the
+    result from member i. Differentiable (``_AllToAll``), through
+    ``comm``'s transport."""
+    return _AllToAll.apply(t, comm, group)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Every member's block, concatenated along dim 0 in member order; the
+    backward sums every member's gradient of the whole and keeps this
+    member's block of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, comm: Collectives, group, index: int):
+        ctx.comm, ctx.group, ctx.index, ctx.k = comm, group, index, t.shape[0]
+        return torch.cat(comm.all_gather(t.contiguous(), group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = ctx.comm.all_reduce(grad.contiguous().clone(), ctx.group)
+        k = ctx.k
+        return whole[ctx.index * k:ctx.index * k + k], None, None, None
+
+
+def gather_blocks(t: torch.Tensor, comm: Collectives, group,
+                  index: int) -> torch.Tensor:
+    """Every member's ``t`` concatenated along dim 0 (this member's is block
+    ``index``), differentiable (``_GatherBlocks``)."""
+    return _GatherBlocks.apply(t, comm, group, index)
+
+
+class _ShareBlock(torch.autograd.Function):
+    """Block ``index`` (dim 0) of a tensor every member holds whole; the
+    backward gives every member the whole gradient: each member's block's
+    gradient all-gathered, over the group's size (every member's even
+    share, so their sum over the group is the true one)."""
+
+    @staticmethod
+    def forward(ctx, t, comm: Collectives, group, index: int, n: int):
+        ctx.comm, ctx.group, ctx.n = comm, group, n
+        k = t.shape[0] // n
+        return t[index * k:index * k + k]
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = torch.cat(ctx.comm.all_gather(grad.contiguous(), ctx.group))
+        return whole / ctx.n, None, None, None, None
+
+
+def share_block(t: torch.Tensor, comm: Collectives, group, index: int,
+                n: int) -> torch.Tensor:
+    """This member's block ``index`` of ``n`` along dim 0 of a ``t`` that
+    every member of ``group`` holds alike, its backward handing every
+    member the whole gradient (``_ShareBlock``): what follows the block on
+    the members' whole copies sees the gradient one process would."""
+    return _ShareBlock.apply(t, comm, group, index, n)

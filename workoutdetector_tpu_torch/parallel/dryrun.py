@@ -1,7 +1,8 @@
 """A dry run of the parallel paths over whatever world it is given.
 
 The port's counterpart of ``__graft_entry__.dryrun_multichip``'s phases
-dp, serve, fsdp, pp, het-pp, pp-serve and slice: ``run(rank, spec)`` runs
+dp, serve, fsdp, pp, het-pp, pp-serve, slice, sp, ep and composed:
+``run(rank, spec)`` runs
 on every rank of an initialized process group (``distributed.spawn``
 makes one) and returns what each phase gave, for the caller to hold
 against its one-process references (``chip_smoke.py`` phase 17 on the
@@ -20,8 +21,17 @@ card, ``tests/test_torch_parallel.py`` on the CPU with gloo ranks).
   ``pp_cuts`` against its one-shot forward;
 * pp-serve: the pp-staged engine against the one-shot engine, in the last
   serve dtype;
+* model-serve: an engine over the (world/2, 2) mesh, its weights at rest
+  over ``model``, per dtype of ``serve_dtypes``;
 * slice: a train step over a (2, world/2, 1) hybrid mesh, no leaf sharded
-  over ``slice``.
+  over ``slice``;
+* sp: a TimeSformer (``spec.ts_model``) with ``model.seq_parallel`` over
+  the (world/2, 2) mesh: ``ts_steps`` train steps and an eval step per
+  dtype of ``ts_dtypes``;
+* ep: the same TimeSformer with ``moe_experts = 2·model``, its expert
+  stacks sharded over ``model`` at rest and in compute (asserted);
+* composed: fsdp + sp + ep at once over the same mesh (needs data > 1),
+  with a leaf sharded over both ``data`` and ``model`` (asserted).
 
 The train phases' final states go to ``out_dir`` (``<phase>-<dtype>.pt``,
 written by the mesh's first rank, whole); everything else comes back in
@@ -34,7 +44,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -44,7 +54,16 @@ import torch.distributed as dist
 from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.parallel.distributed import TIMEOUT_S
 
-PHASES = ("dp", "serve", "fsdp", "pp", "het-pp", "pp-serve", "slice")
+# how long a rank waits for ``start_file``: a caller may run several
+# worlds in turn on the card, each waiting for the one before
+START_TIMEOUT_S = 3 * TIMEOUT_S
+PHASES = ("dp", "serve", "fsdp", "pp", "het-pp", "pp-serve", "model-serve",
+          "slice", "sp", "ep", "composed")
+TS_PHASES = ("sp", "ep", "composed")
+# the JAX dry run's TimeSformer (``__graft_entry__.py:172-203``)
+TS_TINY = dict(model_type="timesformer", base_model="tiny", num_class=2,
+               num_segments=4, image_size=32, patch_size=8, embed_dims=32,
+               num_layers=1, num_heads=2, dropout=0.0, partial_bn=False)
 
 
 @dataclass
@@ -79,6 +98,21 @@ class DryrunSpec:
     # a file each rank waits for before its first phase (None: start at
     # once), so that a caller sharing the card finishes its own work first
     start_file: Optional[str] = None
+    # the TimeSformer phases: a YAML configuration to start from (None:
+    # the defaults), cfg.model overrides, global batch, steps, dtypes, and
+    # flax-layout trees (torch.save) for the dense model (sp) and the MoE
+    # one (ep, composed); the port's initializers from ``seed`` without
+    # them
+    ts_config_file: Optional[str] = None
+    ts_model: Dict[str, Any] = field(default_factory=lambda: dict(TS_TINY))
+    ts_batch: int = 8
+    ts_steps: int = 1
+    ts_dtypes: Tuple[str, ...] = ("float32",)
+    ts_weights: Optional[str] = None
+    moe_weights: Optional[str] = None
+    # per TimeSformer phase, DryrunSpec fields that phase runs with (e.g.
+    # {"ep": {"ts_batch": 16}})
+    ts_overrides: Dict[str, Dict[str, Any]] = field(default_factory=dict)
 
     def __post_init__(self):
         self.device = str(resolve_device(self.device))
@@ -234,7 +268,8 @@ def serve_phase(spec: DryrunSpec, mesh, pp: bool, dtype: str,
     _sync(spec)
     out = _counts(spec, mesh, time.perf_counter() - t0)
     out.update(logits=logits, ref=ref,
-               max_abs_err=float(np.abs(logits - ref).max()))
+               max_abs_err=float(np.abs(logits - ref).max()),
+               held=eng.layout.held_fraction() if eng.layout else {})
     if spec.video is not None:
         video = np.load(spec.video)
         out["ref_count"] = count_by_video_model(one, video)
@@ -262,19 +297,23 @@ def state_runs(model, eng, one, video: np.ndarray):
     base = one.score_windows(windows)
     center = base.mean(0)
     boost = 2 * float(np.abs(base - center).max()) + 1.0
-    fc = model.fc
-    orig = fc.bias.detach().clone()
+    # the heads the engines score with (a model-sharded engine's is its
+    # own copy's; the bias is never sharded over model)
+    heads = {id(e.model.fc): e.model.fc for e in (eng, one)}
+    orig = model.fc.bias.detach().clone()
     seqs = ([], [])
     try:
         for k in range(0, n, COUNT_BLOCK):
             shift = -center.copy()
             shift[(k // COUNT_BLOCK) % len(shift)] += boost
-            fc.bias.data = orig + torch.from_numpy(shift).to(orig)
+            for fc in heads.values():
+                fc.bias.data = orig + torch.from_numpy(shift).to(orig)
             for seq, e in zip(seqs, (eng, one)):
                 seq.append(e.score_windows(windows[k:k + COUNT_BLOCK])
                            .argmax(-1))
     finally:
-        fc.bias.data = orig
+        for fc in heads.values():
+            fc.bias.data = orig.clone()
     return tuple(np.concatenate(s) for s in seqs)
 
 
@@ -365,6 +404,128 @@ def slice_phase(spec: DryrunSpec, mesh, weights: Weights) -> Dict[str, Any]:
     return {"loss": loss, "mesh": dict(mesh.shape)}
 
 
+def ts_config(spec: DryrunSpec, phase: str, dtype: str, model_axis: int,
+              experts: Optional[int] = None):
+    """The TimeSformer phases' configuration (the JAX dry run's: the
+    config's defaults, or ``ts_config_file``, and ``spec.ts_model``):
+    ``seq_parallel`` for sp and composed, ``moe_experts`` (``experts``,
+    else ``ts_model``'s, else ``2·model``) for ep and composed, FSDP for
+    composed."""
+    from workoutdetector_tpu_torch.config import Config, load_config
+
+    cfg = load_config(spec.ts_config_file) if spec.ts_config_file \
+        else Config()
+    for k, v in spec.ts_model.items():
+        setattr(cfg.model, k, v)
+    cfg.model.dtype = dtype
+    cfg.model.seq_parallel = phase in ("sp", "composed")
+    if phase in ("ep", "composed"):
+        cfg.model.moe_experts = experts or \
+            spec.ts_model.get("moe_experts") or 2 * model_axis
+    else:
+        cfg.model.moe_experts = 0
+    cfg.data.image_size = cfg.model.image_size
+    cfg.data.num_segments = cfg.model.num_segments
+    cfg.data.batch_size = spec.ts_batch
+    cfg.parallel.model_axis = model_axis
+    cfg.parallel.fsdp = phase == "composed"
+    cfg.seed = spec.seed
+    return cfg
+
+
+def ts_batch(spec: DryrunSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """The TimeSformer phases' global batch, from ``spec.seed``."""
+    m = ts_config(spec, "dp", "float32", 1).model
+    rng = np.random.default_rng(spec.seed + 500)
+    n, t, size = spec.ts_batch, m.num_segments, m.image_size
+    x = rng.integers(0, 256, (n, t, size, size, 3), dtype=np.uint8)
+    y = rng.integers(0, m.num_class, (n,)).astype(np.int32)
+    return x, y
+
+
+def _peak_reset(spec: DryrunSpec) -> None:
+    if spec.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(spec: DryrunSpec) -> Optional[int]:
+    return torch.cuda.max_memory_allocated() if spec.device == "cuda" \
+        else None
+
+
+def ts_phase(spec: DryrunSpec, mesh, phase: str, dtype: str
+             ) -> Dict[str, Any]:
+    """``ts_steps`` train steps and an eval step of the global batch of
+    the phase's TimeSformer over ``mesh``: the losses,
+    launches, collectives (each operation's calls, bytes and seconds),
+    peak memory, the MoE tokens each step dropped, the experts each rank
+    holds and the rows of the spatial attention's launches (b·T/m frames
+    under sp); the final state whole to ``out_dir``
+    (``<phase>-<dtype>.pt``)."""
+    from workoutdetector_tpu_torch.models.convert import \
+        init_flax_variables
+    from workoutdetector_tpu_torch.models.moe import pop_drops
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+
+    m = mesh.size("model")
+    t_init = time.perf_counter()
+    cfg = ts_config(spec, phase, dtype, m)
+    trainer = Trainer(cfg, mesh, device=spec.device)
+    model = trainer.model
+    path = spec.moe_weights if cfg.model.moe_experts else spec.ts_weights
+    variables = torch.load(path, weights_only=False) if path is not None \
+        else init_flax_variables(model, spec.seed)
+    state = trainer.init_state(steps_per_epoch=10, variables=variables)
+    layout = state.layout
+    out: Dict[str, Any] = {"sp_applied": model.sp_applied}
+    if cfg.model.seq_parallel and not model.sp_applied:
+        raise AssertionError(f"{phase}: sequence parallelism not applied "
+                             f"on {mesh}")
+    if cfg.model.moe_experts:
+        e = cfg.model.moe_experts
+        rest = layout.shards["block_0.mlp.w1"].shape[0]
+        layout.materialize()  # the weights as the forward sees them
+        compute = model.block_0.mlp.w1.shape[0]
+        layout.release()
+        if rest * m != e or compute * m != e:
+            raise AssertionError(f"{phase}: a rank holds {rest} experts at "
+                                 f"rest and {compute} in compute, not "
+                                 f"{e // m} of {e}")
+        out["experts_held"] = {"rest": rest, "compute": compute}
+    if phase == "composed" and not any(
+            "data" in sp and "model" in sp for sp in layout.specs.values()):
+        raise AssertionError("composed: no leaf sharded over data and model")
+    x, y = ts_batch(spec)
+    rows = []
+    hook = model.block_0.s_attn.register_forward_hook(
+        lambda mod, args, res: rows.append(args[0].shape[0]))
+    pop_drops(model)
+    _reset(spec, mesh)
+    _peak_reset(spec)
+    t0 = time.perf_counter()
+    init_s = t0 - t_init
+    losses, dropped = [], []
+    for _ in range(spec.ts_steps):
+        losses.append(float(trainer.train_step(state, x, y)["loss"]))
+        dropped.append(pop_drops(model))
+    _sync(spec)
+    hook.remove()
+    out.update(_counts(spec, mesh, time.perf_counter() - t0))
+    out.update(losses=losses, init_seconds=init_s,
+               steps_per_s=spec.ts_steps / out["seconds"],
+               collective_bytes=dict(mesh.comm.bytes),
+               collective_op_seconds=dict(mesh.comm.op_seconds),
+               peak_bytes=_peak(spec), dropped=dropped,
+               attention_rows=rows[0], model_split=trainer.model_split,
+               held=layout.held_fraction())
+    out["eval"] = {k: float(v) for k, v in
+                   trainer.eval_step(state, x, y).items()}
+    full = state.model_state()
+    if spec.out_dir is not None and mesh.is_main:
+        torch.save(full, os.path.join(spec.out_dir, f"{phase}-{dtype}.pt"))
+    return out
+
+
 def wait_for(path: str, timeout_s: float = TIMEOUT_S) -> None:
     """Return once ``path`` exists; TimeoutError after ``timeout_s``."""
     deadline = time.monotonic() + timeout_s
@@ -381,7 +542,7 @@ def run(rank: int, spec: DryrunSpec) -> Dict[str, Any]:
 
     resolve_device(spec.device)
     if spec.start_file is not None:
-        wait_for(spec.start_file)
+        wait_for(spec.start_file, START_TIMEOUT_S)
     if spec.threads:
         torch.set_num_threads(spec.threads)
     if spec.tf32 is not None:
@@ -419,9 +580,19 @@ def run(rank: int, spec: DryrunSpec) -> Dict[str, Any]:
             dtype = spec.serve_dtypes[-1]
             out[f"pp-serve-{dtype}"] = serve_phase(spec, pp_mesh, True, dtype,
                                                    weights)
+        elif phase == "model-serve":
+            for dtype in spec.serve_dtypes:
+                out[f"model-serve-{dtype}"] = serve_phase(
+                    spec, pp_mesh, False, dtype, weights)
         elif phase == "slice":
             out[phase] = slice_phase(spec, create_mesh(
                 slices=2, model=1, device=spec.device), weights)
+        elif phase in TS_PHASES:
+            if phase == "composed" and pp_mesh.size("data") == 1:
+                continue
+            ps = replace(spec, **spec.ts_overrides.get(phase, {}))
+            for dtype in ps.ts_dtypes:
+                out[f"{phase}-{dtype}"] = ts_phase(ps, pp_mesh, phase, dtype)
         else:
             raise ValueError(f"unknown dry-run phase {phase!r}")
         out.setdefault("phase_seconds", {})[phase] = time.perf_counter() - t0

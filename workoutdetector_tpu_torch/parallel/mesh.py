@@ -22,7 +22,16 @@ run by hand.
   leaf (parameters and BatchNorm statistics) at rest, gathers the full
   weights into the model before compute and releases them after, so each
   rank holds the fraction of every leaf the JAX layout gives it; the
-  optimizer's momenta live on the shards.
+  optimizer's momenta live on the shards. A leaf that the model
+  computes on in blocks (``compute_sharded``: a MoE's expert stacks under
+  expert parallelism, each ``model`` rank holding and computing its own
+  experts) is gathered only over its other axes, and the model holds its
+  block in compute too.
+* Sequences: ``seq_constrain`` is the JAX package's guard on a token
+  layout — a token dim shards over ``model`` only where ``model``
+  divides it — and ``SeqGroup`` the ``model`` group that a
+  sequence-parallel model splits its token dims over, with the
+  differentiable all-to-all and sum it moves them with.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch.nn as nn
 
 from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.parallel.distributed import (Collectives,
+                                                            all_to_all,
                                                             group_sum)
 
 Spec = Tuple[Optional[str], ...]  # per dim: the axis that shards it, or None
@@ -251,6 +261,43 @@ def prefetch_to_device(iterator: Iterable, mesh: Optional[Mesh],
         yield buf.popleft()
 
 
+# ------------------------------------------------------------ sequences
+
+def seq_constrain(sizes: Sequence[int], mesh: Optional[Mesh],
+                  axis: str = "model") -> bool:
+    """Whether token dims of ``sizes`` shard over ``axis`` of ``mesh``
+    (JAX ``seq_constrain``'s guard on the port's explicit layouts): there
+    is a mesh, the axis has more than one rank and divides every size.
+    Otherwise the layout stays whole, which is JAX's no-op."""
+    if mesh is None or mesh.size(axis) <= 1:
+        return False
+    n = mesh.size(axis)
+    return all(int(k) % n == 0 for k in sizes)
+
+
+class SeqGroup:
+    """The ``model`` group of a sequence-parallel forward: ``n`` ranks,
+    this one the ``index``-th; ``block(size)`` is its [lo, hi) of a token
+    dim, ``all_to_all`` and ``sum`` the differentiable collectives that
+    move and reduce token shards over the group."""
+
+    def __init__(self, mesh: Mesh, axis: str = "model"):
+        self.mesh = mesh
+        self.n = mesh.size(axis)
+        self.index = mesh.coords[axis]
+        self.group = mesh.group(axis)
+
+    def block(self, size: int) -> Tuple[int, int]:
+        k = size // self.n
+        return self.index * k, self.index * k + k
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        return all_to_all(t, self.mesh.comm, self.group)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return group_sum(t, self.mesh.comm, self.group)
+
+
 # ------------------------------------------------------------ state layout
 
 # the port's kernel layouts: dims of the port tensor in the flax kernel's
@@ -330,12 +377,14 @@ def state_sharding(model: nn.Module, mesh: Mesh, fsdp: bool = False
                           kernel=is_kernel(n, t)) for n, t in leaves}
 
 
-def local_index(shape: Sequence[int], spec: Spec, mesh: Mesh) -> tuple:
-    """This rank's block of a leaf of ``shape`` under ``spec``."""
+def local_index(shape: Sequence[int], spec: Spec, mesh: Mesh,
+                axes: Optional[Iterable[str]] = None) -> tuple:
+    """This rank's block of a leaf of ``shape`` under ``spec`` (only the
+    dims sharded over ``axes`` when given)."""
     idx = []
     for d, n in enumerate(shape):
         axis = spec[d] if spec else None
-        if axis is None:
+        if axis is None or (axes is not None and axis not in axes):
             idx.append(slice(None))
         else:
             k = n // mesh.size(axis)
@@ -344,17 +393,34 @@ def local_index(shape: Sequence[int], spec: Spec, mesh: Mesh) -> tuple:
     return tuple(idx)
 
 
+def compute_sharded(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{leaf: axes} of the leaves ``model`` computes on in blocks over
+    those axes: what a module's ``compute_sharded()`` names (a MoE's
+    expert stacks under expert parallelism)."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for prefix, mod in model.named_modules():
+        fn = getattr(mod, "compute_sharded", None)
+        if callable(fn):
+            for leaf, axes in fn().items():
+                out[f"{prefix}.{leaf}" if prefix else leaf] = tuple(axes)
+    return out
+
+
 class StateLayout:
     """Where a model's leaves lie at rest on this rank (``state_sharding``):
     a sharded leaf as this rank's block in ``shards`` (a parameter's as an
     ``nn.Parameter``, which the optimizer updates), every other leaf whole
     in the model.
 
-    ``materialize`` gathers the full sharded weights and statistics into
-    the model (before compute), ``release`` keeps this rank's block of the
-    statistics the compute updated and frees the full tensors (after it).
-    A gathered tensor goes in by an in-place copy under ``no_grad``, which
-    moves its version, so no weight cache keyed on (storage, version)
+    ``materialize`` gathers the sharded weights and statistics into the
+    model (before compute), ``release`` keeps this rank's block of the
+    statistics the compute updated and frees the gathered tensors (after
+    it). A leaf the model computes on in blocks (``compute_sharded``) is
+    gathered only over the axes the model does not split, so the model
+    holds the block it computes on; one sharded over those axes alone is
+    the model's own parameter, never gathered (``resident``). A gathered
+    tensor goes in by an in-place copy under ``no_grad``, which moves its
+    version, so no weight cache keyed on (storage, version)
     (``models/resnet.cached``) can serve a stale value.
     """
 
@@ -366,26 +432,57 @@ class StateLayout:
         self.leaves: Dict[str, torch.Tensor] = dict(model.named_parameters())
         self.leaves.update(model.named_buffers())
         self.shapes = {n: tuple(self.leaves[n].shape) for n in self.specs}
+        compute = {n: a for n, a in compute_sharded(model).items()
+                   if n in self.specs}
+        self.compute = compute  # the leaves the model computes on in blocks
+        # per sharded leaf: the axes it is gathered over before compute
+        self.gather_axes = {
+            n: tuple(a for a in s if a is not None
+                     and a not in compute.get(n, ()))
+            for n, s in self.specs.items()}
         self.shards: Dict[str, torch.Tensor] = {}
         params = dict(model.named_parameters())
         with torch.no_grad():
             for n in self.specs:
-                block = self.local(n, self.leaves[n]).clone()
-                self.shards[n] = nn.Parameter(
-                    block, requires_grad=params[n].requires_grad) \
-                    if n in params else block
-        self.resident = True
+                leaf = self.leaves[n]
+                block = self.local(n, leaf).clone()
+                if n in compute:  # the model computes on its block
+                    leaf.data = leaf.data[local_index(
+                        self.shapes[n], self.specs[n], mesh,
+                        compute[n])].clone()
+                if self.resident(n):
+                    self.shards[n] = leaf
+                else:
+                    self.shards[n] = nn.Parameter(
+                        block, requires_grad=params[n].requires_grad) \
+                        if n in params else block
+        self.materialized = True
 
     def sharded(self, name: str) -> bool:
         return name in self.specs
 
+    def resident(self, name: str) -> bool:
+        """A sharded leaf the model holds as this rank's block at rest and
+        in compute alike (never gathered)."""
+        return name in self.specs and not self.gather_axes[name]
+
     def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's block of ``full`` (a leaf, its gradient or momentum);
-        ``full`` itself for a leaf that is not sharded."""
+        """This rank's block of ``full`` (a whole leaf or momentum, as a
+        checkpoint holds it); ``full`` itself for a leaf that is not
+        sharded."""
         if name not in self.specs:
             return full
         return full[local_index(self.shapes[name], self.specs[name],
                                 self.mesh)]
+
+    def grad_block(self, name: str, grad: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the gradient of the model's leaf as the
+        model computes on it (whole, or the block of a compute-sharded
+        leaf)."""
+        if name not in self.specs:
+            return grad
+        return grad[local_index(grad.shape, self.specs[name], self.mesh,
+                                self.gather_axes[name])]
 
     def owns(self, name: str) -> bool:
         """Whether this rank is the one copy of its block that counts in a
@@ -395,13 +492,17 @@ class StateLayout:
                    if a not in used)
 
     def gather(self, blocks: Mapping[Any, torch.Tensor],
-               names: Mapping[Any, str]) -> Dict[Any, torch.Tensor]:
+               names: Mapping[Any, str],
+               compute: bool = False) -> Dict[Any, torch.Tensor]:
         """Full tensors from every rank's blocks: ``blocks[key]`` is this
-        rank's block of leaf ``names[key]`` (a shard, or a momentum of one).
-        One all-gather of a flat buffer per axis and dtype."""
+        rank's block of leaf ``names[key]`` (a shard, or a momentum of one);
+        with ``compute`` the block the model computes on instead (gathered
+        over ``gather_axes`` only). One all-gather of a flat buffer per
+        axis and dtype."""
         pieces = dict(blocks)
         for axis in ("data", "model"):
-            keys = [k for k in pieces if axis in self.specs[names[k]]]
+            keys = [k for k in pieces if axis in
+                    (self.gather_axes if compute else self.specs)[names[k]]]
             for dtype in sorted({pieces[k].dtype for k in keys}, key=str):
                 ks = [k for k in keys if pieces[k].dtype == dtype]
                 flat = torch.cat([pieces[k].reshape(-1) for k in ks])
@@ -423,27 +524,33 @@ class StateLayout:
 
     @torch.no_grad()
     def materialize(self) -> None:
-        """The full weights and statistics into the model (a collective)."""
-        if self.resident:
+        """The weights and statistics the model computes on into it (a
+        collective)."""
+        if self.materialized:
             return
-        for n, full in self.full_state().items():
+        gathered = [n for n in self.shards if not self.resident(n)]
+        full = self.gather({n: self.shards[n].detach() for n in gathered},
+                           {n: n for n in gathered}, compute=True)
+        for n, t in full.items():
             leaf = self.leaves[n]
-            leaf.data = torch.empty_like(full)
-            leaf.copy_(full)
-        self.resident = True
+            leaf.data = torch.empty_like(t)
+            leaf.copy_(t)
+        self.materialized = True
 
     @torch.no_grad()
     def release(self) -> None:
         """Keep this rank's block of the statistics the compute updated,
-        and free the full sharded tensors of the model."""
-        if not self.resident:
+        and free the gathered tensors of the model."""
+        if not self.materialized:
             return
         for n in self.specs:
+            if self.resident(n):
+                continue
             leaf = self.leaves[n]
             if not isinstance(self.shards[n], nn.Parameter):
-                self.shards[n].copy_(self.local(n, leaf))
+                self.shards[n].copy_(self.grad_block(n, leaf))
             leaf.data = torch.empty(0, dtype=leaf.dtype, device=leaf.device)
-        self.resident = False
+        self.materialized = False
 
     @torch.no_grad()
     def load_full(self, state: Mapping[str, torch.Tensor]) -> None:
@@ -451,9 +558,11 @@ class StateLayout:
         resume): this rank's block of each."""
         for n, shard in self.shards.items():
             shard.copy_(self.local(n, state[n].to(shard.device)))
-            leaf = self.leaves[n]
-            leaf.data = torch.empty(0, dtype=leaf.dtype, device=leaf.device)
-        self.resident = False
+            if not self.resident(n):
+                leaf = self.leaves[n]
+                leaf.data = torch.empty(0, dtype=leaf.dtype,
+                                        device=leaf.device)
+        self.materialized = False
 
     def held_fraction(self) -> Dict[str, float]:
         """{leaf: fraction of its elements this rank holds at rest}."""

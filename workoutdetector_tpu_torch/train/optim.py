@@ -266,7 +266,8 @@ class TrainOptimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.sources]
         if self.layout is not None:
-            grads = [self.layout.local(n, g) for n, g in zip(self.names, grads)]
+            grads = [self.layout.grad_block(n, g)
+                     for n, g in zip(self.names, grads)]
         if self.accum > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(g) for g in grads]
@@ -365,14 +366,16 @@ class EMA:
             e = self.params[n]
             e.copy_(e * d + self._source(n, p) * (1.0 - d))
 
-    def full_params(self) -> Dict[str, torch.Tensor]:
-        """The averages whole (a collective under a layout)."""
+    def full_params(self, compute: bool = False) -> Dict[str, torch.Tensor]:
+        """The averages whole (a collective under a layout); with
+        ``compute`` as the model computes on them (a compute-sharded leaf's
+        block, ``StateLayout.gather``)."""
         if self.layout is None or not self.layout.specs:
             return self.params
         sharded = {n: e for n, e in self.params.items()
                    if self.layout.sharded(n)}
         return dict(self.params, **self.layout.gather(
-            sharded, {n: n for n in sharded}))
+            sharded, {n: n for n in sharded}, compute=compute))
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.full_params()

@@ -38,14 +38,26 @@ one process per rank runs the JAX trainer's SPMD step by hand: every rank
 takes the same global batch (``train_step``, ``eval_step``) or its
 loader's block of it (``fit``) and works on its rows. The dropout masks
 and the augment draw are drawn for the global batch and cut to the rows
-(``models/tsm.RowDraw``: the models whose dropout is ``tsm.dropout``;
-TimeSformer's own masks refuse one), train-mode BatchNorm takes the
-global batch's statistics (``models/resnet.set_batch_sync``), the
-gradients are averaged over the data-parallel ways (one all-reduce of a
-flat buffer), and the state lies as ``state_sharding`` lays it
-(``StateLayout``: ``parallel.model_axis`` and ``parallel.fsdp`` shard
-weights, statistics, momenta and the EMA; the weights are gathered before
-compute). A step then equals the one-process step on the whole batch.
+(``models/tsm.RowDraw``, TimeSformer's stochastic depth too), train-mode
+BatchNorm takes the global batch's statistics
+(``models/resnet.set_batch_sync``), a MoE model routes the global batch
+(``models/moe.set_moe_mesh``, its experts sharded over ``model``: expert
+parallelism), ``model.seq_parallel`` hands the mesh to TimeSformer
+(``set_seq_mesh``: its token dims sharded over ``model``), and the state
+lies as ``state_sharding`` lays it (``StateLayout``:
+``parallel.model_axis`` and ``parallel.fsdp`` shard weights, statistics,
+momenta and the EMA; the weights are gathered before compute, the expert
+stacks only over ``data``). The gradients are averaged over the
+data-parallel ways (one all-reduce of a flat buffer per dtype) where the
+``model`` ranks compute the same thing; where they split the work
+(sequence or expert parallelism), every collective of the forward has
+its adjoint in the backward, so each rank's backward gives its part of
+the gradient of the sum of every rank's loss, and a leaf's gradient is
+the sum over the ranks that hold it over the mesh's size (``_average_
+grads``: a weight on a rank's token shard gets a partial gradient, one
+on replicated tokens a whole one on each of the m ``model`` ranks, and
+both come out right). A step then equals the one-process step on the
+whole batch.
 Eval sums its losses and counts over the ranks; only the mesh's first
 rank writes logs and checkpoints. A single process with no launcher
 environment makes no process group and no mesh.
@@ -69,6 +81,7 @@ from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.convert import (init_flax_variables,
                                                       load_flax_variables)
 from workoutdetector_tpu_torch.models.factory import build_model, kernels_for
+from workoutdetector_tpu_torch.models.moe import set_moe_mesh
 from workoutdetector_tpu_torch.models.resnet import set_batch_sync
 from workoutdetector_tpu_torch.models.tsm import RowDraw
 from workoutdetector_tpu_torch.ops.augment import (canvas_size, crop_flip,
@@ -194,8 +207,17 @@ class Trainer:
         self.model = build_model(
             cfg.model, kernels_for(self.device, cfg.model.dtype)
         ).to(self.device)
-        if mesh is not None and dp_size(mesh) > 1:
-            set_batch_sync(self.model, mesh.batch_sum)
+        # whether the model ranks split the work (sequence or expert
+        # parallelism), which sets the gradient reduction
+        self.model_split = False
+        if mesh is not None:
+            if dp_size(mesh) > 1:
+                set_batch_sync(self.model, mesh.batch_sum)
+            if cfg.model.seq_parallel and hasattr(self.model, "set_seq_mesh"):
+                self.model_split = self.model.set_seq_mesh(mesh)
+            experts = set_moe_mesh(self.model, mesh)
+            if experts and experts < cfg.model.moe_experts:
+                self.model_split = True
         self.best_val_acc = 0.0
         self._es_best = float("inf") if cfg.callbacks.early_stopping.mode == \
             "min" else float("-inf")
@@ -301,7 +323,7 @@ class Trainer:
         state.optimizer.zero_grad()
         loss.backward()
         if self.mesh is not None:
-            self._average_grads(model)
+            self._average_grads(model, state.layout)
         state.optimizer.step()
         if state.ema is not None:
             state.ema.update(model)
@@ -313,23 +335,41 @@ class Trainer:
         return {"loss": loss.detach(), "acc": acc}
 
     @torch.no_grad()
-    def _average_grads(self, model: torch.nn.Module) -> None:
-        """Every gradient averaged over the data-parallel ways: one
-        all-reduce of a flat buffer per dtype."""
-        n = dp_size(self.mesh)
-        if n == 1:
-            return
-        params = [p for p in model.parameters() if p.requires_grad]
-        for p in params:
+    def _average_grads(self, model: torch.nn.Module,
+                       layout: Optional[StateLayout]) -> None:
+        """Every gradient averaged over the data-parallel ways, or, where
+        the ``model`` ranks split the work, summed over the ranks that hold
+        the leaf (the mesh; a compute-sharded expert stack's data ways)
+        over the mesh's size (module docstring): one all-reduce of a flat
+        buffer per group and dtype."""
+        mesh = self.mesh
+        n = dp_size(mesh)
+        named = [(k, p) for k, p in model.named_parameters()
+                 if p.requires_grad]
+        for _, p in named:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        for dtype in {p.grad.dtype for p in params}:
-            ps = [p for p in params if p.grad.dtype == dtype]
-            flat = torch.cat([p.grad.reshape(-1) for p in ps])
-            self.mesh.comm.all_reduce(flat, self.mesh.dp_group)
-            flat /= n
-            for p, g in zip(ps, flat.split([p.numel() for p in ps])):
-                p.grad = g.view_as(p)
+        if not self.model_split:
+            if n == 1:
+                return
+            buckets = [(mesh.dp_group, [p for _, p in named])]
+            scale = n
+        else:  # expert stacks: summed over the ranks that hold the block
+            held = {k for k, _ in named
+                    if layout is not None and k in layout.compute}
+            buckets = [(mesh.all_group,
+                        [p for k, p in named if k not in held]),
+                       (mesh.dp_group, [p for k, p in named if k in held])]
+            scale = n * mesh.size("model")
+        for group, params in buckets:
+            for dtype in {p.grad.dtype for p in params}:
+                ps = [p for p in params if p.grad.dtype == dtype]
+                flat = torch.cat([p.grad.reshape(-1) for p in ps])
+                if dist.get_world_size(group) > 1:
+                    mesh.comm.all_reduce(flat, group)
+                flat /= scale
+                for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+                    p.grad = g.view_as(p)
 
     def eval_step(self, state: TrainState, x_u8, y) -> Dict[str, torch.Tensor]:
         """Inference-path logits (EMA weights when EMA is on) of the global
@@ -348,7 +388,8 @@ class Trainer:
                 "correct": sums[1].long(), "total": n.long()}
 
     def _ema(self, state: TrainState):
-        return state.ema.full_params() if state.ema is not None else None
+        return state.ema.full_params(compute=True) \
+            if state.ema is not None else None
 
     @torch.no_grad()
     def _eval_sums(self, state: TrainState, x_u8, y, ema_params
