@@ -245,9 +245,26 @@ not printed; no CUDA device → exit 2):
      ep with 8 experts, fsdp + sp + ep over (2, 2) on 4 ranks at 4 blocks,
      each held to its one-process run; TSM-R50 with ``model.remat``
      against without; the TSM-R50 engine with its weights over ``model``;
- 19. one JSON line of per-kernel numbers (and the sweep's, the file
+ 19. the tooling (``tooling_phase``): phase 6's TSM-R50 fit for 4 steps
+     with ``log.profile_steps`` 2 (step 1 the profiler's warm-up),
+     ``log.watch_every_n_steps`` 2 and TensorBoard on, its
+     ``torch.profiler`` trace of steps 2-3 holding
+     the hand kernels as many times as the launch counters moved over
+     them (16 shift-matmul, 33 dx, 33 dW a step; ``dw_reduce_kernel``
+     once a dW launch whose rows are split) in two ``ProfilerStep``
+     ranges, the watch columns in metrics.csv and a watch step's
+     parameter norms against ``vector_norm`` of the parameters after it;
+     the plain, watched and traced step times; ``eval_classification``'s
+     CLI over a rawframe tree written as phase 10's (``TSM_YAML``, its
+     val split, window batch 16: 10 shift-matmul and 6 fused launches a
+     forward), its per-class JSON held to the fp32 plain path by phase 4's
+     logit rule with every argmax flip listed, and its windows/s;
+     ``extract_frames``, ``cut`` and ``validate_dataset`` on that tree,
+     ``video_codecs.probe()``, and whether tensorboard and zstandard
+     import;
+ 20. one JSON line of per-kernel numbers (and the sweep's, the file
      training's, the serving phase's, TPN's, TDN's, the image phase's,
-     RepNet's, the MoE model's and phases 16-18's numbers), the card line
+     RepNet's, the MoE model's and phases 16-19's numbers), the card line
      again, the script's wall time, and the contract line ``{"ok": true,
      "device": {...}}`` last.
 
@@ -5297,6 +5314,408 @@ def seq_expert_phase(np, torch, kernels, variables, video, repo: Path,
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+TOOLING_STEPS = 4        # the traced and watched fit: steps 2-3 traced
+TOOLING_TIMED = 5        # steps timed for each of plain, watched, traced
+
+
+def trace_counts(path: Path) -> dict:
+    """{hand kernel: kernel events} and the CPU-side ``ProfilerStep``
+    ranges of a Chrome trace that ``utils/profiling`` wrote."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {k: 0 for k in HAND_KERNELS}
+    steps, kernel_ts, step_ts = [], [], []
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel":
+            kernel_ts.append((e["ts"], name[:48]))
+            for k in HAND_KERNELS:
+                if k in name:
+                    counts[k] += 1
+        elif name.startswith("ProfilerStep") and \
+                e.get("cat") == "user_annotation":
+            steps.append(name)
+            step_ts.append(e["ts"])
+    kernel_ts.sort()
+    # where the window's first kernels lie after its first step opened:
+    # what a mismatch of the counts is read against
+    lead = [(round((t - min(step_ts)) / 1e3, 3), n) for t, n in kernel_ts[:8]] \
+        if step_ts else []
+    return {"kernels": counts, "steps": steps,
+            "device_kernels": len(kernel_ts), "first_kernels_ms": lead}
+
+
+def dw_reduces_per_step(torch, kernels) -> int:
+    """The dW launches of a batch-32 TSM-R50 step whose rows are split,
+    each followed by one ``dw_reduce_kernel`` (``conv1x1.dw_splits``)."""
+    from workoutdetector_tpu_torch.ops.kernels.conv1x1 import dw_splits
+    frames = TRAIN_BATCH * FRAMES
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return sum(n for h, c, o, shifted, n in BWD_SITES
+               if dw_splits(dev, frames * h * h, c, o,
+                            h * h * FRAMES if shifted else frames * h * h) > 1)
+
+
+def tooling_fit(np, torch, kernels, variables, root: Path, card: str) -> dict:
+    """[19a]: the traced and watched fit, and the step times."""
+    import csv
+
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    from workoutdetector_tpu_torch.utils import profiling
+
+    cfg = train_config(Config, TOOLING_STEPS, TOOLING_STEPS * TRAIN_BATCH,
+                       str(root))
+    cfg.log.profile_steps = cfg.log.watch_every_n_steps = 2
+    cfg.log.tensorboard_enable = True
+    cfg.trainer.enable_checkpointing = False
+    cfg.trainer.check_val_every_n_epoch = 1000  # train steps only
+    # the launch counters where recording starts (the first step(): step
+    # 1 is the profiler's warm-up) and where the trace stops
+    snaps = []
+    step, stop = profiling.Tracer.step, profiling.Tracer.stop
+
+    def counted_step(self):
+        if not snaps:
+            snaps.append(kernels.launch_counts())
+        return step(self)
+
+    def counted_stop(self):
+        snaps.append(kernels.launch_counts())
+        return stop(self)
+
+    profiling.Tracer.step, profiling.Tracer.stop = counted_step, counted_stop
+    try:
+        trainer = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, _ = trainer.fit(variables=variables)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        profiling.Tracer.step, profiling.Tracer.stop = step, stop
+    launches = kernels.launch_counts()
+    want = {name: 0 for name in launches}
+    want.update(conv1x1_dx=33 * TOOLING_STEPS, conv1x1_dw=33 * TOOLING_STEPS,
+                shift_matmul=16 * TOOLING_STEPS)
+    log(f"    [19a] fit: {state.step} steps in {fit_s:.2f} s (steps 2-3 "
+        f"traced, 2 and 4 watched), launches={launches}")
+    if launches != want or state.step != TOOLING_STEPS:
+        raise AssertionError(f"tooling fit: launch counts {launches} != {want}")
+    (run,) = [p for p in root.iterdir() if p.is_dir() and p.name != "ckpt"]
+    (trace_path,) = list((run / "profile").glob("*.pt.trace.json"))
+    t0 = time.perf_counter()
+    found = trace_counts(trace_path)
+    parse_s = time.perf_counter() - t0
+    delta = {k: snaps[1][k] - snaps[0][k] for k in snaps[0]}
+    reduces = dw_reduces_per_step(torch, kernels) * (delta["conv1x1_dw"] // 33)
+    expect = {k: 0 for k in HAND_KERNELS}
+    expect.update(shift_matmul_kernel=delta["shift_matmul"],
+                  conv1x1_dx_kernel=delta["conv1x1_dx"],
+                  conv1x1_dw_kernel=delta["conv1x1_dw"],
+                  dw_reduce_kernel=reduces)
+    log(f"    trace {trace_path.relative_to(root)} "
+        f"({trace_path.stat().st_size / 2**20:.1f} MiB, parsed in "
+        f"{parse_s:.2f} s): {found['device_kernels']} kernel events, "
+        f"ProfilerStep ranges {found['steps']}; hand kernels "
+        f"{ {k: v for k, v in found['kernels'].items() if v} }; the launch "
+        f"counters over the traced steps {delta}; dw_reduce_kernel "
+        f"expected {reduces} (the split dW sites: "
+        f"{dw_reduces_per_step(torch, kernels)} a step)")
+    if found["kernels"] != expect or delta["shift_matmul"] != 32 or \
+            delta["conv1x1_dx"] != 66 or delta["conv1x1_dw"] != 66:
+        raise AssertionError(
+            f"trace kernels {found['kernels']} != {expect}; the window's "
+            f"first kernels (ms after its first step opened, name): "
+            f"{found['first_kernels_ms']}")
+    if len(found["steps"]) != 2:
+        raise AssertionError(f"ProfilerStep ranges {found['steps']}, not 2")
+    with open(run / "csv" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    watched = [r["step"] for r in rows if r.get("watch/grad_global_norm")]
+    cols = [k for k in rows[0] if k.startswith("watch/")]
+    events = sorted((run / "tensorboard").glob("events.*"))
+    log(f"    metrics.csv: watch rows at steps {watched}, columns {cols}; "
+        f"tensorboard event files {len(events)} "
+        f"({sum(p.stat().st_size for p in events)} bytes)")
+    if watched != ["2", "4"] or "watch/grad_leaf_norms/argmax_leaf" not in cols:
+        raise AssertionError("metrics.csv lacks the watch columns")
+
+    batches = iter(trainer._loader("train", shuffle=True))
+    x_u8, y = next(batches)
+    batches.close()
+    m = trainer.train_step(state, x_u8, y, watch=True)
+    params = dict(state.model.named_parameters())
+    ref = torch.stack([torch.linalg.vector_norm(params[k].detach().double())
+                       for _, k in trainer._watch_leaves(state)])
+    got = m["watch_param_leaf_norms"]
+    rel = float(((got.double() - ref).abs() / ref.clamp(min=1e-30)).max())
+    plain = trainer.train_step(state, x_u8, y)
+    log(f"    watch step: {len(got)} leaves, parameter norms vs vector_norm "
+        f"of the parameters after the step: max relative diff {rel:.3e} "
+        f"(limit 1e-5); gradient global norm "
+        f"{float(m['watch_grad_leaf_norms'].norm()):.4f}; the plain step's "
+        f"keys {sorted(plain)}")
+    if not rel <= 1e-5 or set(plain) != {"loss", "acc"} or \
+            m["watch_grad_leaf_norms"].dtype != torch.float32:
+        raise AssertionError("the watch step's norms or keys are wrong")
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TOOLING_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TOOLING_TIMED * 1e3
+
+    def watch_step():  # as fit fetches it: both vectors in one copy
+        w = trainer.train_step(state, x_u8, y, watch=True)
+        torch.cat([w["watch_grad_leaf_norms"],
+                   w["watch_param_leaf_norms"]]).cpu()
+
+    step = lambda: trainer.train_step(state, x_u8, y)  # noqa: E731
+    plain_ms = timed(step)
+    watch_ms = timed(watch_step)
+    tracer = profiling.Tracer(str(root / "timed-trace"), "cuda")
+    tracer.start()
+    traced_ms = timed(step)
+    t0 = time.perf_counter()
+    tracer.stop()
+    export_s = time.perf_counter() - t0
+    plain2_ms = timed(step)
+    log(f"    step ms at batch {TRAIN_BATCH} (mean of {TOOLING_TIMED}, host "
+        f"clock, synchronised): plain {plain_ms:.2f} / {plain2_ms:.2f}, "
+        f"watched {watch_ms:.2f} ({watch_ms / plain_ms - 1:+.1%}), traced "
+        f"{traced_ms:.2f} ({traced_ms / plain_ms - 1:+.1%}; the trace's "
+        f"stop and export {export_s:.2f} s) on {card}")
+    return {"fit_s": fit_s, "trace_kernels": found["kernels"],
+            "traced_launches": delta, "profiler_steps": len(found["steps"]),
+            "watch_param_rel_err": rel, "plain_step_ms": plain_ms,
+            "plain_step_ms_after": plain2_ms, "watch_step_ms": watch_ms,
+            "traced_step_ms": traced_ms, "trace_export_s": export_s,
+            "launches": launches}
+
+
+def tooling_eval(np, torch, kernels, repo: Path, root: Path, card: str
+                 ) -> dict:
+    """[19b]: eval_classification's CLI over a rawframe tree, held to the
+    fp32 plain path."""
+    from workoutdetector_tpu_torch.config import load_config
+    from workoutdetector_tpu_torch.data.datasets import build_dataset
+    from workoutdetector_tpu_torch.data.loader import DataLoader
+    from workoutdetector_tpu_torch.infer import InferenceEngine
+    from workoutdetector_tpu_torch.models import (build_model,
+                                                  init_flax_variables,
+                                                  load_flax_variables)
+    from workoutdetector_tpu_torch.scripts import eval_classification as ec
+
+    binary = root / "Binary"
+    opts = [f"data.data_root={root}",
+            f"data.val.anno={binary / 'all-val.txt'}",
+            f"data.batch_size={WINDOW_BATCH}"]
+    engines = []
+    build = ec.engine_from_checkpoint
+
+    def kept(*args, **kw):  # the engine the CLI builds, for the checks
+        engines.append(build(*args, **kw))
+        return engines[-1]
+
+    out_json = root / "acc.json"
+    ec.engine_from_checkpoint = kept
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = ec.main(["--cfg", str(repo / TSM_YAML), "--splits", "val",
+                           "-o", str(out_json)] + opts)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    finally:
+        ec.engine_from_checkpoint = build
+    launches = kernels.launch_counts()
+    cfg = load_config(str(repo / TSM_YAML), opts)
+    ds = build_dataset(cfg.data, "val", "cuda")
+    batches = list(DataLoader(ds, cfg.data.batch_size, shuffle=False,
+                              num_workers=cfg.data.num_workers))
+    windows = sum(len(y) for _, y in batches)
+    forwards = sum(-(-len(y) // WINDOW_BATCH) for _, y in batches)
+    want = {name: 0 for name in launches}
+    want.update(shift_matmul=10 * forwards, fused_bottleneck=6 * forwards)
+    log(f"    [19b] eval_classification.main (TSM-R50 {SIZE}, bf16, window "
+        f"batch {WINDOW_BATCH}, the port's seed-0 initializers): "
+        f"{len(ds)} val clips, {windows} scored in {forwards} forwards, "
+        f"{main_s:.2f} s with the model's build; launches={launches}")
+    if launches != want:
+        raise AssertionError(f"eval launch counts {launches} != {want}")
+    if json.loads(out_json.read_text()) != results:
+        raise AssertionError("the JSON file differs from main's result")
+
+    engine = engines[0]
+    engine.score_windows(batches[0][0])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ec.evaluate_split(engine, ds, cfg.data.batch_size,
+                              cfg.data.num_workers)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = np.concatenate([engine.score_windows(x) for x, _ in batches])
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    log(f"    windows/s: {windows / eval_s:.2f} through evaluate_split "
+        f"(the loader's JPEG decode included, {cfg.data.num_workers} "
+        f"workers), {windows / score_s:.2f} score_windows alone, on {card}")
+    if again != results["val"]:
+        raise AssertionError("a second evaluate_split differs")
+
+    # the same weights (engine_from_checkpoint's seed 0) on the fp32 plain
+    # model
+    plain_cfg = load_config(str(repo / TSM_YAML), opts + ["model.dtype=float32"])
+    plain_model = build_model(plain_cfg.model, use_kernels=False)
+    load_flax_variables(plain_model, init_flax_variables(plain_model, 0))
+    plain = InferenceEngine(plain_model, FRAMES, WINDOW_BATCH,
+                            image_size=cfg.data.image_size, device="cuda")
+    ref = np.concatenate([plain.score_windows(x) for x, _ in batches])
+    labels = np.concatenate([y for _, y in batches])
+
+    def per_class(pred):
+        out = {}
+        for k in sorted(set(labels.tolist())):
+            out[f"class_{k}"] = float(np.mean(pred[labels == k] == k))
+        out["overall"] = float(np.mean(pred == labels))
+        return out
+
+    got_cls = per_class(logits.argmax(1))
+    ref_cls = ec.evaluate_split(plain, ds, cfg.data.batch_size,
+                                cfg.data.num_workers)
+    err = float(np.abs(logits - ref).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    flips = [(int(i), float(top2[i, 1] - top2[i, 0]))
+             for i in np.nonzero(logits.argmax(1) != ref.argmax(1))[0]]
+    log(f"    per-class JSON {results['val']}; fp32 plain path {ref_cls}; "
+        f"argmax flips (window, fp32 top-2 margin) {flips} against the bf16 "
+        f"gap 2 x {err:.5f}")
+    if any(abs(got_cls[k] - v) > 1e-12 for k, v in results["val"].items()) \
+            or per_class(ref.argmax(1)) != ref_cls:
+        raise AssertionError("the per-class JSON is not the windows' argmax")
+    logit_rule(np, logits, ref, "eval_classification")
+    return {"windows": windows, "forwards": forwards, "main_s": main_s,
+            "windows_per_s": windows / eval_s,
+            "score_windows_per_s": windows / score_s,
+            "per_class": results["val"], "plain_per_class": ref_cls,
+            "flips": flips, "max_logit_diff": err, "launches": launches}
+
+
+def tooling_scripts(np, root: Path) -> dict:
+    """[19c]: extract_frames, cut and validate_dataset on the tree and a
+    video of it, the codec probe, and whether tensorboard and zstandard
+    import."""
+    import importlib.util
+    import io
+    import shutil
+    from contextlib import redirect_stdout
+
+    import cv2
+
+    from workoutdetector_tpu_torch.data.video import VideoReader, write_video
+    from workoutdetector_tpu_torch.scripts import (cut, extract_frames,
+                                                   validate_dataset,
+                                                   video_codecs)
+    from workoutdetector_tpu_torch.train.loggers import TensorBoardLogger
+
+    video_dir = sorted((root / "rawframes" / "val").iterdir())[0]
+    frames = np.stack([cv2.imread(str(p))[..., ::-1]
+                       for p in sorted(video_dir.glob("img_*.jpg"))])
+    src = root / "videos" / "val"
+    src.mkdir(parents=True)
+    write_video(str(src / "v.mp4"), frames, 30.0)
+    with VideoReader(str(src / "v.mp4")) as r:
+        decoded = len(r.read_raw())
+    n = extract_frames.extract_video(str(src / "v.mp4"), str(root / "ex"))
+    extract_frames.main(["-i", str(root / "videos"), "-o", str(root / "tree")])
+    tree_n = len(list((root / "tree" / "val" / "v").glob("img_*.jpg")))
+    clip = cut.cut_video(str(src), "v", 0.2, 0.6, str(root / "cuts"))
+    with VideoReader(clip) as r:
+        cut_n, cut_fps = len(r.read_raw()), r.fps
+    log(f"    [19c] {video_dir.name}: {len(frames)} JPEGs -> v.mp4 "
+        f"({decoded} frames decoded); extract_video {n} frames, "
+        f"extract_frames.main {tree_n}; cut [0.2, 0.6) s -> {cut_n} frames "
+        f"at {cut_fps:.2f} fps")
+    if not n == tree_n == decoded == len(frames) or \
+            not (root / "ex" / f"img_{n:05d}.jpg").exists() or \
+            abs(cut_n - 12) > 2 or abs(cut_fps - 30.0) >= 0.5:
+        raise AssertionError("extract_frames or cut returned the wrong frames")
+
+    anno = str(root / "Binary" / "all-val.txt")
+    issues = validate_dataset.validate_rawframe_list(anno, str(root),
+                                                     probe="full")
+    argv = ["--rawframe-list", anno, "--data-root", str(root),
+            "--num-class", str(NUM_CLASS)]
+    with redirect_stdout(io.StringIO()) as buf:
+        rc = validate_dataset.main(argv)
+    first = open(anno).readline().split()  # dir start total label
+    victim = root / first[0] / f"img_{int(first[1]) + int(first[2]) // 2:05}.jpg"
+    shutil.move(str(victim), str(root / "moved.jpg"))
+    with redirect_stdout(io.StringIO()) as broken:
+        rc_broken = validate_dataset.main(argv)
+    shutil.move(str(root / "moved.jpg"), str(victim))
+    videos = validate_dataset.validate_videos(str(src))
+    log(f"    validate_dataset: {len(issues)} issues (probe full), CLI rc "
+        f"{rc} ({buf.getvalue().strip().splitlines()[-1]}); with "
+        f"{victim.relative_to(root)} moved away rc {rc_broken} "
+        f"({broken.getvalue().strip().splitlines()[0][:100]}); videos "
+        f"{len(videos)} issues")
+    if issues or rc != 0 or rc_broken != 1 or videos or \
+            "missing" not in broken.getvalue():
+        raise AssertionError("validate_dataset's report is wrong")
+    probe = video_codecs.probe()
+    log(f"    video_codecs.probe(): {json.dumps(probe)}")
+    have = {}
+    for m in ("tensorboard", "tensorboardX", "zstandard"):
+        try:
+            importlib.import_module(m)
+            have[m] = True
+        except Exception as exc:  # absent, or present and broken
+            have[m] = f"{type(exc).__name__}: {exc}"[:80]
+    writer = TensorBoardLogger(str(root / "tb")).writer
+    have["tensorboard_writer"] = type(writer).__module__ if writer else None
+    log(f"    imports: tensorboard {have['tensorboard']}, tensorboardX "
+        f"{have['tensorboardX']}, zstandard {have['zstandard']}; "
+        f"TensorBoardLogger's writer: {have['tensorboard_writer']}")
+    return {"extract_frames": n, "cut_frames": cut_n, "codecs": probe,
+            "imports": have}
+
+
+def tooling_phase(np, torch, kernels, variables, repo: Path, card: str
+                  ) -> dict:
+    """Phase 19: the tooling on the card ([19a] the traced and watched
+    fit, [19b] eval_classification, [19c] the data scripts). Returns the
+    phase's numbers."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix=".smoke-tooling-", dir=repo))
+    try:
+        fit = tooling_fit(np, torch, kernels, variables, root / "fit", card)
+        torch.cuda.empty_cache()
+        corpus = root / "corpus"
+        t1 = time.perf_counter()
+        videos, jpegs = write_file_corpus(np, corpus)
+        log(f"    rawframe tree: {videos} videos, {jpegs} JPEGs in "
+            f"{time.perf_counter() - t1:.2f} s")
+        ev = tooling_eval(np, torch, kernels, repo, corpus, card)
+        torch.cuda.empty_cache()
+        scripts = tooling_scripts(np, corpus)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"    phase [19]: {seconds:.1f} s")
+    return {"fit": fit, "eval": ev, "scripts": scripts, "seconds": seconds}
+
+
 def main() -> int:
     start = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -5498,6 +5917,13 @@ def main() -> int:
     seq = seq_expert_phase(np, torch, kernels, variables, video, repo, card)
     log(f"    phase [18]: {seq['seconds']:.1f} s")
 
+    torch.cuda.empty_cache()
+    log(f"[19] the tooling: TSM-R50 {SIZE} fit with log.profile_steps 2, "
+        f"log.watch_every_n_steps 2 and TensorBoard, batch {TRAIN_BATCH}; "
+        f"eval_classification over a rawframe tree ({TSM_YAML}, window "
+        f"batch {WINDOW_BATCH}); the data scripts")
+    tooling = tooling_phase(np, torch, kernels, variables, repo, card)
+
     replaces = {
         "temporal_shift": ("workoutdetector_tpu_torch/csrc/shift.cu",
                            "workoutdetector_tpu/ops/pallas/shift.py:36"),
@@ -5558,6 +5984,13 @@ def main() -> int:
                          conv1x1_dx_image=image["dx_launches"],
                          conv1x1_dw_image=image["dw_launches"],
                          fused_bottleneck_person=person["fused_launches"])
+    # phase 19's own runs of the kernels: the fit's train steps and the
+    # sweep's forwards
+    for name, n in tooling["fit"]["launches"].items():
+        key = "shift_matmul_train" if name == "shift_matmul" else name
+        main_launches[key] = main_launches.get(key, 0) + n
+    for name, n in tooling["eval"]["launches"].items():
+        main_launches[name] = main_launches.get(name, 0) + n
     out = []
     for name, (source, tpu) in replaces.items():
         r = rows[name]
@@ -5577,7 +6010,7 @@ def main() -> int:
                     "tpn": tpn, "tdn": tdn, "image": image,
                     "repnet": repnet, "moe": moe, "phase15_s": phase15_s,
                     "person": person, "parallel": parallel,
-                    "seq_expert": seq, "card": card}))
+                    "seq_expert": seq, "tooling": tooling, "card": card}))
     log(f"card: {card_line()}")
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"ok": True, "device": {

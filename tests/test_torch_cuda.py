@@ -1281,3 +1281,82 @@ def test_cuda_sequence_and_expert_parallel_share_the_card(cuda_device):
         assert sp["attention_rows"] == 4 * 2
         assert "pinned host" in sp["transports"]["all_to_all"]
         assert r["ep-float32"]["experts_held"] == {"rest": 2, "compute": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_traced_and_watched_fit(cuda_device, tmp_path):
+    """``log.profile_steps`` and ``log.watch_every_n_steps`` on the card: a
+    bf16 TSM-R50 fit of 3 steps at 64², batch 4, traces step 2 into
+    ``<run_dir>/profile`` (one ``ProfilerStep`` range, after step 1's
+    warm-up) with the hand
+    kernels as many times as their launch counters moved over it (16
+    shift-matmul, 33 dx, 33 dW), and logs the watch columns of steps 1-3;
+    a watch step's parameter norms are those of the parameters after it
+    (float64 ``vector_norm``, 1e-5 relative)."""
+    import csv
+    import json
+
+    from workoutdetector_tpu_torch.config import Config
+    from workoutdetector_tpu_torch.train.trainer import Trainer
+    from workoutdetector_tpu_torch.utils import profiling
+
+    cfg = Config()
+    cfg.model.base_model, cfg.model.num_class = "resnet50", 3
+    cfg.model.num_segments, cfg.model.dtype = 8, "bfloat16"
+    d = cfg.data
+    d.dataset_type, d.image_size, d.num_segments = "DebugDataset", 64, 8
+    d.debug_size, d.debug_num_class, d.batch_size = 12, 3, 4
+    cfg.trainer.default_root_dir = str(tmp_path)
+    cfg.trainer.max_epochs, cfg.trainer.log_every_n_steps = 1, 1
+    cfg.trainer.enable_checkpointing = False
+    cfg.trainer.check_val_every_n_epoch = 100
+    cfg.log.profile_steps, cfg.log.watch_every_n_steps = 1, 1
+    # the launch counters where recording starts (the first step(): step
+    # 1 is the profiler's warm-up) and where the trace stops
+    snaps = []
+    step, stop = profiling.Tracer.step, profiling.Tracer.stop
+
+    def counted_step(self):
+        if not snaps:
+            snaps.append(kernels.launch_counts())
+        return step(self)
+
+    def counted_stop(self):
+        snaps.append(kernels.launch_counts())
+        return stop(self)
+
+    profiling.Tracer.step, profiling.Tracer.stop = counted_step, counted_stop
+    try:
+        trainer = Trainer(cfg, device=cuda_device)
+        state, _ = trainer.fit()
+    finally:
+        profiling.Tracer.step, profiling.Tracer.stop = step, stop
+    assert state.step == 3
+    delta = {k: snaps[1][k] - snaps[0][k] for k in snaps[0]}
+    assert {k: delta[k] for k in ("shift_matmul", "conv1x1_dx",
+                                  "conv1x1_dw")} == \
+        {"shift_matmul": 16, "conv1x1_dx": 33, "conv1x1_dw": 33}
+    (run,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    (path,) = (run / "profile").glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for kernel, key in (("shift_matmul_kernel", "shift_matmul"),
+                        ("conv1x1_dx_kernel", "conv1x1_dx"),
+                        ("conv1x1_dw_kernel", "conv1x1_dw")):
+        assert sum(kernel in n for n in names) == delta[key], kernel
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith("ProfilerStep")] == ["ProfilerStep#1"]
+    with open(run / "csv" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["step"] for r in rows if r.get("watch/grad_global_norm")] == \
+        ["1", "2", "3"]
+    x = np.random.default_rng(0).integers(0, 256, (4, 8, 64, 64, 3),
+                                          np.uint8)
+    m = trainer.train_step(state, x, np.array([0, 1, 2, 0]), watch=True)
+    params = dict(state.model.named_parameters())
+    ref = torch.stack([torch.linalg.vector_norm(params[k].detach().double())
+                       for _, k in trainer._watch_leaves(state)])
+    got = m["watch_param_leaf_norms"].double()
+    assert m["watch_param_leaf_norms"].dtype == torch.float32
+    assert ((got - ref).abs() <= 1e-5 * ref).all()
+    assert m["watch_grad_leaf_norms"].is_cuda

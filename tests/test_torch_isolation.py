@@ -116,9 +116,41 @@ state = trainer.init_state(steps_per_epoch=4)
 x = np.random.default_rng(0).integers(0, 256, (2, 4, 32, 32, 3), np.uint8)
 m = trainer.train_step(state, x, np.array([0, 1], np.int32))
 assert np.isfinite(float(m["loss"])) and state.step == 1
+import os, tempfile
+from workoutdetector_tpu_torch.utils.profiling import annotate, trace
+from workoutdetector_tpu_torch.train.loggers import (TensorBoardLogger,
+                                                     WandbLogger, build_loggers)
+from workoutdetector_tpu_torch.data.datasets import DebugDataset
+from workoutdetector_tpu_torch.infer import engine_from_checkpoint
+from workoutdetector_tpu_torch.scripts import (build_datasets, cut, download,
+                                               eval_classification,
+                                               extract_frames, relabel,
+                                               validate_dataset, video_codecs)
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("cv2", "pandas", "tensorboardX",
+                                     "tensorboard", "wandb", "yt_dlp"))
+assert not lazy, lazy  # imported only by the functions that use them
+with tempfile.TemporaryDirectory() as d:
+    with trace(d):
+        with annotate("watch"):
+            w = trainer.train_step(state, x, np.array([0, 1], np.int32),
+                                   watch=True)
+    assert any(f.endswith(".pt.trace.json") for f in os.listdir(d))
+paths = trainer.param_leaf_paths(state)
+assert w["watch_grad_leaf_norms"].shape == (len(paths),) == \
+    w["watch_param_leaf_norms"].shape
+assert download.parse_onedrive("https://1drv.ms/u/s!AAAA").endswith("content")
+assert relabel.name_to_png("v.mp4", 9.943) == "v.mp4_00_00_09.943.png"
+cfg.data.dataset_type, cfg.data.debug_size, cfg.data.batch_size = \
+    "DebugDataset", 4, 2
+cfg.data.image_size = 32
+acc = eval_classification.evaluate_split(
+    engine_from_checkpoint(cfg, image_size=32, window_batch=2, device="cpu"),
+    DebugDataset(2, 4, 4, 32), 2, 1)
+assert set(acc) == {"class_0", "class_1", "overall"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "workoutdetector_tpu", "yaml"))
+                                    "workoutdetector_tpu", "yaml", "pandas"))
 assert not bad, bad
 print("isolated")
 """
@@ -126,7 +158,10 @@ print("isolated")
 
 def test_port_trains_without_jax_nor_yaml_in_a_fresh_process():
     """A CPU train step of the port imports none of jax, flax, optax,
-    orbax or the JAX package, and a config built in code needs no yaml."""
+    orbax or the JAX package, and a config built in code needs no yaml;
+    nor do the tooling (a traced watch step, the loggers, the scripts and
+    an ``evaluate_split``), which import cv2, pandas, tensorboardX, wandb
+    and yt-dlp only in the functions that use them."""
     out = run_code(_TRAIN_CHILD)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("isolated")
@@ -465,6 +500,20 @@ def test_detector_and_pose_entry_points_raise_without_cuda(entry, tmp_path):
                str(tmp_path / "v.mp4"), pose_checkpoint=pose_file)}
     with pytest.raises(RuntimeError, match="CUDA"):
         run[entry]()
+
+
+def test_eval_classification_raises_without_cuda(tmp_path):
+    """Without ``--cpu`` the sweep asks for the card, and raises without
+    one before it builds a model."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from workoutdetector_tpu_torch.scripts import eval_classification
+    yaml = str(REPO / "workoutdetector_tpu" / "configs" /
+               "repcount_12_tsm.yaml")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_classification.main(["--cfg", yaml, "--splits", "val",
+                                  "model.base_model=resnet18",
+                                  "data.dataset_type=DebugDataset"])
 
 
 LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",

@@ -141,6 +141,25 @@ def test_fsdp_equals_dp_and_serves_fresh_weights(world):
     assert fs["held"] and all(f == 0.5 for f in fs["held"].values())
 
 
+def test_watch_step_norms_are_of_whole_leaves(world):
+    """A watch step (``train_step(..., watch=True)``) under DP and under
+    FSDP, where each rank holds half of every sharded leaf, taken after
+    the two plain steps that the other tests hold: the same labels, the
+    gradient norms of FSDP equal DP's and the parameter norms of both
+    equal the whole updated parameters' (float64), within 1e-6
+    relative."""
+    dp = world["ranks"][0]["dp"]["watch"]
+    fs = world["ranks"][2]["fsdp"]["watch"]
+    assert fs["labels"] == dp["labels"]
+    assert len(dp["labels"]) == len(dp["grad"])
+    np.testing.assert_allclose(fs["grad"], dp["grad"], rtol=1e-6)
+    assert (dp["grad"] > 0).sum() > len(dp["grad"]) // 2
+    for w in (dp, fs):
+        np.testing.assert_allclose(w["param"], w["whole"], rtol=1e-6)
+    np.testing.assert_allclose(fs["param"], dp["param"], rtol=1e-6)
+    assert world["ranks"][2]["fsdp"]["held"]  # FSDP shards leaves
+
+
 def test_fsdp_on_a_2x2_world_holds_its_fraction(world):
     """(data 2, model 2) + FSDP: each rank holds 1/(data·model) of every
     leaf sharded on both axes (1/2 of those on one), and trains as DP."""

@@ -26,6 +26,7 @@ from workoutdetector_tpu.models import TSM as JaxTSM
 from workoutdetector_tpu.models.resnet import FrozenAwareBatchNorm
 from workoutdetector_tpu.ops.preprocess import normalize_clip as j_normalize
 from workoutdetector_tpu.train.optim import build_optimizer as j_build_optimizer
+from workoutdetector_tpu.train.trainer import Trainer as JTrainer
 from workoutdetector_tpu.train.trainer import cross_entropy_loss
 from workoutdetector_tpu_torch.config import Config, load_config
 from workoutdetector_tpu_torch.data.datasets import DebugDataset, build_dataset
@@ -138,7 +139,9 @@ def _cfg(base: str, cls=Config):
 
 def _jax_train_step(base, variables, x_u8, y, steps_per_epoch):
     """The body of the JAX trainer's train_step (trainer.py:167-239) over
-    TSM(pallas_conv_bwd=True), jitted over jax arrays."""
+    TSM(pallas_conv_bwd=True), jitted over jax arrays, with its watch
+    outputs: the per-leaf norms of the gradient and of the updated
+    parameters (trainer.py:226-238)."""
     jcfg = _cfg(base, JConfig)
     model = JaxTSM(num_class=3, num_segments=SEG, base_model=base,
                    dropout=0.0, dtype=jnp.float32, pallas_conv_bwd=True)
@@ -162,20 +165,24 @@ def _jax_train_step(base, variables, x_u8, y, steps_per_epoch):
         (loss, new_stats), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params)
         updates, _ = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), new_stats, loss
+        new_params = optax.apply_updates(params, updates)
+        gl = jnp.stack([jnp.linalg.norm(g.astype(jnp.float32))
+                        for g in jax.tree_util.tree_leaves(grads)])
+        pl = jnp.stack([jnp.linalg.norm(p.astype(jnp.float32))
+                        for p in jax.tree_util.tree_leaves(new_params)])
+        return new_params, new_stats, loss, gl, pl
 
     with pltpu.force_tpu_interpret_mode():
-        new_params, new_stats, loss = step(params, stats, tx.init(params),
-                                           jnp.asarray(x_u8), jnp.asarray(y))
-    return {"params": new_params, "batch_stats": new_stats}, float(loss)
+        new_params, new_stats, loss, gl, pl = step(
+            params, stats, tx.init(params), jnp.asarray(x_u8), jnp.asarray(y))
+    return ({"params": new_params, "batch_stats": new_stats}, float(loss),
+            np.asarray(gl), np.asarray(pl))
 
 
-@pytest.mark.parametrize("base", ["resnet18", "resnet50"])
-def test_one_train_step_matches_jax(base):
-    """From identical weights and batch, one step of the port's trainer
-    against the JAX train step (partial BN, fc_lr5, TSN policies, clip 20,
-    SGD momentum; the R50 backward through the 1×1 kernels on both sides,
-    Pallas in interpret mode)."""
+def _jax_step_case(base):
+    """The JAX side of ``test_one_train_step_matches_jax``: (variables,
+    batch, new variables, loss, grad norms, parameter norms, JAX's leaf
+    labels)."""
     kw = dict(num_class=3, num_segments=SEG, base_model=base, dropout=0.0,
               dtype=jnp.float32)
     variables = randomized_variables(
@@ -183,12 +190,38 @@ def test_one_train_step_matches_jax(base):
     rng = np.random.default_rng(3)
     x_u8 = rng.integers(0, 256, (BATCH, SEG, SIZE, SIZE, 3), dtype=np.uint8)
     y = np.array([0, 1, 2, 1], np.int32)
-    want, want_loss = _jax_train_step(base, variables, x_u8, y, 10)
+    want, loss, gl, pl = _jax_train_step(base, variables, x_u8, y, 10)
+    labels = JTrainer.param_leaf_paths(None, variables["params"])
+    return variables, x_u8, y, want, loss, gl, pl, labels
+
+
+@pytest.mark.parametrize("base", ["resnet18", "resnet50"])
+def test_one_train_step_matches_jax(base):
+    """From identical weights and batch, one step of the port's trainer
+    against the JAX train step (partial BN, fc_lr5, TSN policies, clip 20,
+    SGD momentum; the R50 backward through the 1×1 kernels on both sides,
+    Pallas in interpret mode). The same step as a watch step
+    (``log.watch_every_n_steps``), from a fresh state: the plain step's
+    state bit for bit, JAX's labels, its gradient norms (before the clip)
+    within 1e-4 and its updated parameters' within 1e-5 relative."""
+    variables, x_u8, y, want, want_loss, gl, pl, labels = _jax_step_case(base)
 
     trainer = Trainer(_cfg(base), device="cpu")
     state = trainer.init_state(steps_per_epoch=10, variables=variables)
     metrics = trainer.train_step(state, x_u8, y)
     assert abs(float(metrics["loss"]) - want_loss) <= 1e-5
+    assert set(metrics) == {"loss", "acc"}
+
+    watcher = Trainer(_cfg(base), device="cpu")
+    watched = watcher.init_state(steps_per_epoch=10, variables=variables)
+    wm = watcher.train_step(watched, x_u8, y, watch=True)
+    plain_sd, watched_sd = state.model.state_dict(), watched.model.state_dict()
+    assert all(torch.equal(plain_sd[k], watched_sd[k]) for k in plain_sd)
+    assert watcher.param_leaf_paths(watched) == labels
+    np.testing.assert_allclose(wm["watch_grad_leaf_norms"].numpy(), gl,
+                               rtol=1e-4)
+    np.testing.assert_allclose(wm["watch_param_leaf_norms"].numpy(), pl,
+                               rtol=1e-5)
     got = {k: v.numpy() for k, v in state.model.state_dict().items()}
     ref = flax_to_port_state(jax.tree_util.tree_map(np.asarray, want))
     assert got.keys() == ref.keys()
@@ -198,6 +231,56 @@ def test_one_train_step_matches_jax(base):
                                    err_msg=k)
         if got[k].ndim >= 2 or k.startswith("backbone.bn1."):  # moved
             assert not np.array_equal(ref[k], before[k]), k
+
+
+def test_watch_step_is_the_plain_step_with_norms():
+    """A watch step updates as the plain step does, bit for bit, and adds
+    two fp32 vectors in the JAX package's leaf order (its
+    ``Trainer.param_leaf_paths`` of the same flax tree): the norms of the
+    raw gradient, before the optimizer clips it in place (a clip of 1
+    that the step's gradient exceeds), and of the updated parameters
+    (float64 sums, 1e-6 relative); the plain step returns no watch keys
+    (``test_one_train_step_matches_jax`` holds the norms to JAX's)."""
+    from workoutdetector_tpu_torch.train.trainer import train_loss
+    model = TSM(3, SEG, "resnet18")
+    variables = random_flax_variables(model, seed=4)
+    x_u8 = np.random.default_rng(5).integers(
+        0, 256, (BATCH, SEG, SIZE, SIZE, 3), dtype=np.uint8)
+    y = np.array([0, 1, 2, 1], np.int32)
+    cfg = _cfg("resnet18")
+    cfg.optimizer.grad_clip = 1.0
+    states = []
+    for watch in (True, False, None):
+        trainer = Trainer(cfg, device="cpu")
+        state = trainer.init_state(steps_per_epoch=10, variables=variables)
+        if watch is None:  # the raw gradient of the same step, by hand
+            x, yt = trainer._batch(x_u8, y, 0)
+            state.model.train()
+            train_loss(state.model(x, dropout_generator=trainer
+                                   .dropout_generator(0)), yt, 0.0)[0] \
+                .backward()
+            grads = dict(state.model.named_parameters())
+            break
+        metrics = trainer.train_step(state, x_u8, y, watch=watch)
+        states.append(state.model.state_dict())
+        if watch:
+            watched, leaves = metrics, trainer._watch_leaves(state)
+        else:
+            assert set(metrics) == {"loss", "acc"}
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    labels = JTrainer.param_leaf_paths(None, variables["params"])
+    assert [path for path, _ in leaves] == labels
+    got_g = watched["watch_grad_leaf_norms"]
+    got_p = watched["watch_param_leaf_norms"]
+    assert got_g.dtype == got_p.dtype == torch.float32
+    assert got_g.shape == got_p.shape == (len(labels),)
+    raw = [float(grads[k].grad.double().norm()) for _, k in leaves]
+    assert np.linalg.norm(raw) > 1.0  # the clip acts on this step
+    np.testing.assert_allclose(got_g.numpy(), raw, rtol=1e-6)
+    after = {k: v.double() for k, v in states[0].items()}
+    np.testing.assert_allclose(
+        got_p.numpy(), [float(after[k].norm()) for _, k in leaves],
+        rtol=1e-6)
 
 
 # ---------------------------------------------------------------- trainer

@@ -53,10 +53,18 @@ def _child(code: str, env: Dict[str, str], out_path: str,
     os._exit(0)
 
 
+# about three times the slowest snippet under a loaded test run: a hung
+# snippet costs its test, not the run's clock
+TIMEOUT_S = 90.0
+
+
 def run_code(code: str, env: Optional[Dict[str, str]] = None,
-             timeout: float = 300.0) -> subprocess.CompletedProcess:
+             timeout: float = TIMEOUT_S) -> subprocess.CompletedProcess:
     """``code`` in a freshly forked process (module docstring); returns its
-    exit code, stdout and stderr as ``subprocess.run`` would."""
+    exit code, stdout and stderr as ``subprocess.run`` would. A snippet
+    still running after ``timeout`` seconds is killed (SIGTERM, then
+    SIGKILL after 10 s) and returns a nonzero code with a line saying so
+    after its stderr."""
     from workoutdetector_tpu_torch.parallel.distributed import _rank_context
 
     ctx = _rank_context()
@@ -66,14 +74,20 @@ def run_code(code: str, env: Optional[Dict[str, str]] = None,
                            args=(code, dict(env or {}), out_path, err_path))
         proc.start()
         proc.join(timeout)
-        if proc.is_alive():
+        late = proc.is_alive()
+        if late:
             proc.terminate()
             proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
         code_ = proc.exitcode if proc.exitcode is not None else -9
 
         def read(p):
             return open(p).read() if os.path.exists(p) else ""
 
+        err = read(err_path)
+        if late:
+            err += f"\nrun_code: killed after {timeout:.0f} s\n"
         return subprocess.CompletedProcess([sys.executable, "-c", code],
-                                           code_, read(out_path),
-                                           read(err_path))
+                                           code_, read(out_path), err)

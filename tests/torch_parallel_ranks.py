@@ -11,9 +11,13 @@ that a spawned rank starts with torch alone.
 
 from __future__ import annotations
 
+import faulthandler
 import fcntl
 import hashlib
 import os
+import signal
+import sys
+import time
 
 import numpy as np
 import torch
@@ -28,6 +32,12 @@ TS_DROPOUT = dict(dropout=0.3, drop_path_rate=0.2)
 MOE_EXPERTS = 4  # the MoE TimeSformer's experts, as the dry run's (2, 2) ep
 
 
+# about three times the slowest shared computation (the 4-rank world and
+# its references, ≈ 58 s in one worker): a worker that waits longer for
+# another's fails, and does not hold the run's clock
+WAIT_S = 180.0
+
+
 def once_per_run(tmp_path_factory, name, compute, meanwhile=()):
     """``compute()`` once per test run, its result shared by every fixture
     and pytest-xdist worker that needs it (a module-scoped fixture runs
@@ -35,7 +45,8 @@ def once_per_run(tmp_path_factory, name, compute, meanwhile=()):
     computes under a file lock in the run's temporary directory and saves
     the result, the others load it. One that finds the lock taken first
     computes each (name, compute) of ``meanwhile`` that no worker has
-    computed or is computing, then waits."""
+    computed or is computing, then waits, for ``WAIT_S`` seconds at most
+    (then RuntimeError)."""
     run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
     base = tmp_path_factory.getbasetemp()
     root = base.parent if run else base  # xdist: the workers' common dir
@@ -43,11 +54,20 @@ def once_per_run(tmp_path_factory, name, compute, meanwhile=()):
     def attempt(name, compute, block):
         path = root / f"{name}-{run}.pt"
         with open(root / f"{name}-{run}.lock", "w") as lock:
-            try:
-                fcntl.flock(lock, fcntl.LOCK_EX | (0 if block else
-                                                   fcntl.LOCK_NB))
-            except BlockingIOError:
-                return None
+            deadline = time.monotonic() + WAIT_S
+            while True:
+                try:
+                    fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                    break
+                except BlockingIOError:
+                    if not block:
+                        return None
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"{name}: the worker computing it did not finish "
+                            f"in {WAIT_S:.0f} s (its own failure, if any, "
+                            "is in its tests' report)")
+                    time.sleep(0.2)
             if path.exists():
                 return torch.load(path, weights_only=False)
             result = compute()
@@ -63,6 +83,33 @@ def once_per_run(tmp_path_factory, name, compute, meanwhile=()):
                 pass
         result = attempt(name, compute, block=True)
     return result
+
+
+def logged(rank, log_dir, fn, *args):
+    """``fn(rank, *args)`` with this rank's stdout and stderr (file
+    descriptors too) in ``<log_dir>/rank<rank>.log``, and its threads'
+    Python stacks written there when it is stopped by SIGTERM (as
+    ``spawn`` stops the ranks of a world past its time), so that a hung
+    world fails with what each rank was doing (``rank_logs``)."""
+    log = open(os.path.join(log_dir, f"rank{rank}.log"), "w")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    faulthandler.register(signal.SIGTERM, file=log, all_threads=True,
+                          chain=True)
+    return fn(rank, *args)
+
+
+def rank_logs(log_dir, size: int, tail: int = 4000) -> str:
+    """The end of each rank's ``logged`` output."""
+    out = []
+    for r in range(size):
+        path = os.path.join(log_dir, f"rank{r}.log")
+        text = open(path).read()[-tail:] if os.path.exists(path) else \
+            "(no log)"
+        out.append(f"--- rank {r} ---\n{text}")
+    return "\n".join(out)
 
 
 def save_tree(tree, path):
@@ -191,6 +238,19 @@ def _one_copy(rank, first, arrays):
     return arrays if rank == first else digest(arrays)
 
 
+def _watch_step(trainer, state, b):
+    """One more step, a watch step, on ``b``: its labels and norms, and the
+    float64 norms of the whole parameters after it (the gathered state) in
+    its order."""
+    metrics = trainer.train_step(state, *b, watch=True)
+    whole = _state(state)
+    return {"labels": trainer.param_leaf_paths(state),
+            "grad": metrics["watch_grad_leaf_norms"].numpy(),
+            "param": metrics["watch_param_leaf_norms"].numpy(),
+            "whole": np.array([np.linalg.norm(whole[k].astype(np.float64))
+                               for _, k in trainer._watch_leaves(state)])}
+
+
 def _eval(trainer, state, b):
     return {k: float(v) for k, v in trainer.eval_step(state, *b).items()}
 
@@ -280,6 +340,7 @@ def parallel_world(rank, weights_path, tmp):
             save_tree(dp_state, os.path.join(tmp, "dp_state.pt"))
         out["dp"] = {"losses": [first, second], "eval": _eval(tr, st, b1),
                      "state": _one_copy(rank, 0, dp_state)}
+        out["dp"]["watch"] = _watch_step(tr, st, b1)
     else:
         tr = Trainer(tiny_cfg(fsdp=True), pair_b, device="cpu")
         st = tr.init_state(steps_per_epoch=2, variables=variables)
@@ -300,6 +361,7 @@ def parallel_world(rank, weights_path, tmp):
                        "held": st.layout.held_fraction(),
                        "engine": logits,
                        "engine_ref": ref.score_windows(b1[0])}
+        out["fsdp"]["watch"] = _watch_step(tr, st, b1)
     dist.barrier()
     dp_state = load_arrays(os.path.join(tmp, "dp_state.pt"))
     if rank >= 2:

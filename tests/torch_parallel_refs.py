@@ -26,9 +26,10 @@ import torch
 from test_torch_tsm import randomized_variables
 from torch_parallel_ranks import (DIMS, SEG, SIZE, batch, close_ratio,
                                   dense_inputs, dense_stack, digest,
-                                  het_stack, once_per_run, parallel_world,
-                                  pipeline_world, save_tree, tiny_cfg,
-                                  ts_dp_config, ts_spec, tsm_batch)
+                                  het_stack, logged, once_per_run,
+                                  parallel_world, pipeline_world, rank_logs,
+                                  save_tree, tiny_cfg, ts_dp_config, ts_spec,
+                                  tsm_batch)
 from workoutdetector_tpu.config import Config as JConfig
 from workoutdetector_tpu.infer.engine import InferenceEngine as JEngine
 from workoutdetector_tpu.models.tdn import TDN as JaxTDN
@@ -118,9 +119,25 @@ def _start_jax_ts(tmp):
     return procs
 
 
+# about three times the slowest times of a loaded test run (the JAX
+# TimeSformer references ≈ 17 s, waited for after the world; the worlds
+# 24-58 s): a hang fails its tests, not the run's clock
+JAX_TS_WAIT_S = 60.0
+WORLD_TIMEOUT_S = 180.0
+
+
 def _wait_jax_ts(procs, tmp):
     for p in procs:
-        out = p.communicate(timeout=600)[0]
+        try:
+            out = p.communicate(timeout=JAX_TS_WAIT_S)[0]
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out = p.communicate()[0]
+            raise RuntimeError(
+                f"JAX TimeSformer reference did not finish in "
+                f"{JAX_TS_WAIT_S:.0f} s; killed:\n"
+                f"{out.decode(errors='replace')[-4000:]}")
         if p.returncode:
             raise RuntimeError(f"JAX TimeSformer reference failed:\n"
                                f"{out.decode(errors='replace')[-4000:]}")
@@ -265,17 +282,20 @@ def _computations(tmp_path_factory):
     return parallel, pipeline
 
 
-def _beside(world, size, args, refs):
+def _beside(world, size, args, refs, log_dir):
     """(the ranks' results of ``spawn(world, size, args)``, ``refs()``),
-    the two computed at once: the world in a thread, ``refs`` here."""
+    the two computed at once: the world in a thread, ``refs`` here. A world
+    that fails or runs past ``WORLD_TIMEOUT_S`` (its ranks stopped) raises
+    with each rank's output (``torch_parallel_ranks.logged``)."""
     spawned = {}
 
     def run():
         try:
-            spawned["ranks"] = spawn(world, size, args, device="cpu",
-                                     timeout_s=600)
+            spawned["ranks"] = spawn(logged, size, (log_dir, world) + args,
+                                     device="cpu", timeout_s=WORLD_TIMEOUT_S)
         except RuntimeError as exc:
-            spawned["error"] = exc
+            spawned["error"] = RuntimeError(
+                f"{exc}\n{rank_logs(log_dir, size)}")
 
     thread = threading.Thread(target=run)
     thread.start()
@@ -332,7 +352,8 @@ def _compute_parallel(tmp_path_factory):
             raise out.pop("error")
         return out
 
-    ranks, refs = _beside(parallel_world, 4, (path, str(tmp)), refs)
+    ranks, refs = _beside(parallel_world, 4, (path, str(tmp)), refs,
+                          str(tmp))
     refs["jax_ts"] = _wait_jax_ts(jax_ts, tmp)
     # the whole-model arrays are held to their references here, and their
     # ratios (``close_ratio``) and hashes kept: the shared result stays small
@@ -367,7 +388,7 @@ def _compute_pipeline(tmp_path_factory):
     for tree, p in ((tsm_vars, paths[0]), (tdn_vars, paths[1])):
         save_tree(tree, p)
     ranks, refs = _beside(pipeline_world, 2, paths,
-                          lambda: _jax_refs(tsm_vars, tdn_vars))
+                          lambda: _jax_refs(tsm_vars, tdn_vars), str(tmp))
     checks = {"tsm_grads_vs_jax": close_ratio(
         ranks[0]["tsm"]["grads"], refs["tsm"].pop("grads"), 1e-4, 1e-5)}
     ranks[0]["tsm"]["grads"] = digest(ranks[0]["tsm"]["grads"])

@@ -297,8 +297,9 @@ class LogConfig(ConfigNode):
     csv_enable: bool = True
     tensorboard_enable: bool = True
     wandb: WandbConfig = field(default_factory=WandbConfig)
-    # step tracing and gradient/parameter norm histograms (not in the port
-    # yet; the trainer ignores them)
+    # torch.profiler traces of train steps [2, 2 + profile_steps) into
+    # <run_dir>/profile, and the per-leaf gradient and parameter norm
+    # histograms of every watch_every_n_steps-th step (0: off)
     profile_steps: int = 0
     watch_every_n_steps: int = 0
 

@@ -26,7 +26,14 @@ Port of ``workoutdetector_tpu/train/trainer.py`` (``Trainer``, ``train``,
   checkpoints, resume (``'auto'``: from 'last' when it exists) that
   continues the epoch budget and is exact mid-epoch, early stopping on
   the configured monitor, and SIGTERM/SIGINT preemption (finish the step,
-  save 'last', return).
+  save 'last', return);
+* ``log.profile_steps`` traces train steps [2, 2 + profile_steps) with
+  ``torch.profiler`` into ``<run_dir>/profile`` (one ``ProfilerStep``
+  range a step; the first rank of a mesh alone), and
+  ``log.watch_every_n_steps`` runs every n-th step as a watch step
+  (``train_step(..., watch=True)``), whose per-leaf gradient and
+  parameter norms go to the loggers as histograms labelled by
+  ``param_leaf_paths`` (the reference's ``wandb.watch``).
 
 Every source of randomness is a function of (seed, step) or (seed, epoch,
 index), and cuDNN is held to deterministic algorithms, so a resumed run
@@ -71,6 +78,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -79,7 +87,8 @@ from workoutdetector_tpu_torch.data.datasets import build_dataset
 from workoutdetector_tpu_torch.data.loader import DataLoader
 from workoutdetector_tpu_torch.device import resolve_device
 from workoutdetector_tpu_torch.models.convert import (init_flax_variables,
-                                                      load_flax_variables)
+                                                      load_flax_variables,
+                                                      port_state_to_flax)
 from workoutdetector_tpu_torch.models.factory import build_model, kernels_for
 from workoutdetector_tpu_torch.models.moe import set_moe_mesh
 from workoutdetector_tpu_torch.models.resnet import set_batch_sync
@@ -97,7 +106,7 @@ from workoutdetector_tpu_torch.train.checkpoint import CheckpointManager
 from workoutdetector_tpu_torch.train.loggers import (LoggerCollection,
                                                      build_loggers)
 from workoutdetector_tpu_torch.train.optim import EMA, TrainOptimizer
-from workoutdetector_tpu_torch.utils.profiling import StepTimer
+from workoutdetector_tpu_torch.utils.profiling import StepTimer, Tracer
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -224,6 +233,7 @@ class Trainer:
         self._es_count = 0
         self._ckpt: Optional[CheckpointManager] = None
         self._best_is_ours = False
+        self._leaves: Optional[List[Tuple[str, str]]] = None
 
     # ------------------------------------------------------------ state
     def init_state(self, steps_per_epoch: int, variables=None) -> TrainState:
@@ -291,24 +301,27 @@ class Trainer:
         self.mesh.comm.all_reduce(t, self.mesh.all_group)
         return (t / dist.get_world_size(self.mesh.all_group)).tolist()
 
-    def train_step(self, state: TrainState, x_u8, y) -> Dict[str, torch.Tensor]:
+    def train_step(self, state: TrainState, x_u8, y, watch: bool = False
+                   ) -> Dict[str, torch.Tensor]:
         """One micro-step on the global batch ``x_u8``, ``y`` (each rank of
         a mesh takes its rows): the on-device augment where configured,
         forward, loss, backward, optimizer, EMA. Returns device scalars
-        {'loss', 'acc'} of the global batch (no host sync without a mesh).
-        """
+        {'loss', 'acc'} of the global batch (no host sync without a mesh);
+        with ``watch`` also ``watch_grad_leaf_norms`` and
+        ``watch_param_leaf_norms`` (``_watch_norms``)."""
         lo, hi = self._rows(len(y))
-        metrics = self._train_step(state, x_u8[lo:hi], y[lo:hi], lo, len(y))
+        metrics = self._train_step(state, x_u8[lo:hi], y[lo:hi], lo, len(y),
+                                   watch)
         if self.mesh is not None:
             loss, acc = self._mesh_mean([float(metrics["loss"]),
                                          float(metrics["acc"])])
-            metrics = {"loss": torch.tensor(loss), "acc": torch.tensor(acc)}
+            metrics.update(loss=torch.tensor(loss), acc=torch.tensor(acc))
         return metrics
 
-    def _train_step(self, state: TrainState, x_u8, y, lo: int, total: int
-                    ) -> Dict[str, torch.Tensor]:
+    def _train_step(self, state: TrainState, x_u8, y, lo: int, total: int,
+                    watch: bool = False) -> Dict[str, torch.Tensor]:
         """The step on rows [lo, lo + len(y)) of a ``total``-row global
-        batch; this rank's loss and accuracy."""
+        batch; this rank's loss and accuracy (and the watch's norms)."""
         model = state.model
         model.train()
         if state.layout is not None:
@@ -324,7 +337,13 @@ class Trainer:
         loss.backward()
         if self.mesh is not None:
             self._average_grads(model, state.layout)
+        out = {}
+        if watch:  # the raw gradient, before the optimizer clips it
+            out["watch_grad_leaf_norms"] = self._watch_norms(state, grads=True)
         state.optimizer.step()
+        if watch:
+            out["watch_param_leaf_norms"] = self._watch_norms(state,
+                                                              grads=False)
         if state.ema is not None:
             state.ema.update(model)
         if state.layout is not None:  # nothing whole stays between steps
@@ -332,7 +351,81 @@ class Trainer:
             state.layout.release()
         state.step += 1
         acc = (logits.detach().argmax(-1) == y).float().mean()
-        return {"loss": loss.detach(), "acc": acc}
+        return {"loss": loss.detach(), "acc": acc, **out}
+
+    # ------------------------------------------------------------ watch
+    def _watch_leaves(self, state: TrainState) -> List[Tuple[str, str]]:
+        """(flax path, port key) of every parameter, in the order of the
+        JAX package's ``jax.tree_util.tree_leaves(params)``: the port's
+        keys go through ``port_state_to_flax`` (a placeholder of each
+        leaf's rank holding its index) and the tree is flattened in sorted
+        key order, as JAX flattens a dict."""
+        if self._leaves is None:
+            layout = state.layout
+            own = state.model.state_dict()
+            keys = [k for k in own
+                    if not k.rsplit(".", 1)[-1].startswith("running_")]
+            marks = {}
+            for i, k in enumerate(keys):
+                shape = layout.shapes[k] if layout is not None and \
+                    layout.sharded(k) else own[k].shape
+                marks[k] = np.full((1,) * len(shape), i)
+
+            def flat(tree, prefix):
+                for name in sorted(tree):
+                    v = tree[name]
+                    if isinstance(v, dict):
+                        yield from flat(v, prefix + (name,))
+                    else:
+                        yield "/".join(prefix + (name,)), keys[int(v.flat[0])]
+
+            self._leaves = list(flat(port_state_to_flax(marks)["params"],
+                                     ()))
+        return self._leaves
+
+    def param_leaf_paths(self, state: TrainState) -> List[str]:
+        """The '/'-joined flax paths of the parameters in the JAX
+        package's ``tree_leaves`` order: the labels of the watch step's
+        norm vectors (JAX ``Trainer.param_leaf_paths``)."""
+        return [path for path, _ in self._watch_leaves(state)]
+
+    @torch.no_grad()
+    def _watch_norms(self, state: TrainState, grads: bool) -> torch.Tensor:
+        """One fp32 device vector: the L2 norm of each parameter's gradient
+        (``grads``; 0 where a leaf has none) or of the parameter, in
+        ``param_leaf_paths`` order, each of the whole leaf and summed in
+        float64. Under a layout each rank sums the squares of the blocks
+        it is the one copy of (a sharded parameter's shard, a
+        compute-sharded leaf's gradient block, a whole leaf on the mesh's
+        first coordinate) and the sums are summed over the mesh."""
+        params = dict(state.model.named_parameters())
+        layout, mesh = state.layout, self.mesh
+        first = mesh is None or all(c == 0 for c in mesh.coords.values())
+        norms = []
+        for _, k in self._watch_leaves(state):
+            p = params.get(k)
+            t, counts = (p.grad if p is not None else None), first
+            if not grads:
+                t = layout.shards[k] if layout is not None and \
+                    layout.sharded(k) else p
+                if layout is not None and layout.sharded(k):
+                    counts = layout.owns(k)
+            elif layout is not None and k in layout.compute:
+                counts = all(c == 0 for a, c in mesh.coords.items()
+                             if a not in layout.compute[k])
+            # summed in float64: an fp32 sum over a 2.4M-element kernel
+            # drifts by 3e-5 relative on the CPU
+            norms.append(torch.linalg.vector_norm(t.detach(),
+                                                  dtype=torch.float64)
+                         if t is not None and counts else
+                         torch.zeros((), dtype=torch.float64,
+                                     device=self.device))
+        norms = torch.stack(norms)
+        if mesh is not None:
+            sq = norms ** 2
+            mesh.comm.all_reduce(sq, mesh.all_group)
+            norms = sq.sqrt()
+        return norms.float()
 
     @torch.no_grad()
     def _average_grads(self, model: torch.nn.Module,
@@ -520,6 +613,11 @@ class Trainer:
         resume_skip = 0 if cfg.trainer.fast_dev_run else \
             global_step % steps_per_epoch
         timer = StepTimer()
+        # the watch: every n-th step also returns per-leaf norms (the
+        # other steps compute none)
+        watch_every = cfg.log.watch_every_n_steps
+        watch_paths = self.param_leaf_paths(state) if watch_every > 0 else []
+        tracer: Optional[Tracer] = None
         es = cfg.callbacks.early_stopping
         es_on_train = es.enable and es.monitor.startswith("train")
         for epoch in range(start_epoch, max_epochs):
@@ -530,22 +628,52 @@ class Trainer:
             block = train_loader.local_batch * train_loader.shard_id
             for bx, by in prefetch_to_device(train_loader, self.mesh,
                                              device=self.device):
+                # trace steps [2, 2 + profile_steps): step 1 pays the
+                # first call's set-up (cuDNN plans, the kernels' build) and
+                # is the profiler's warm-up, so that the device's activity
+                # tracing is up before step 2's first kernel; each later
+                # step opens its ProfilerStep range as it starts
+                if cfg.log.profile_steps > 0 and global_step == 0 and \
+                        tracer is None and self._main:
+                    tracer = Tracer(os.path.join(log_dir, "profile"),
+                                    self.device, warmup=1)
+                    tracer.start()
+                elif tracer is not None and tracer.prof is not None:
+                    tracer.step()
+                watching = watch_every > 0 and \
+                    (global_step + 1) % watch_every == 0
                 metrics = self._train_step(state, bx, by, block,
-                                           cfg.data.batch_size)
+                                           cfg.data.batch_size, watching)
                 if self.mesh is not None:  # global metrics, one stop signal
                     loss, acc, stop = self._mesh_mean(
                         [float(metrics["loss"]), float(metrics["acc"]),
                          float(preempted.is_set())])
-                    metrics = {"loss": torch.tensor(loss),
-                               "acc": torch.tensor(acc)}
+                    metrics.update(loss=torch.tensor(loss),
+                                   acc=torch.tensor(acc))
                     if stop > 0:
                         preempted.set()
                 global_step += 1
+                if watching:  # both vectors in one host round-trip
+                    gl = metrics.pop("watch_grad_leaf_norms")
+                    both = torch.cat([gl, metrics.pop(
+                        "watch_param_leaf_norms")]).cpu().numpy()
+                    gl, pl = both[:len(gl)], both[len(gl):]
+                    loggers.log_histograms(
+                        {"watch/grad_leaf_norms": gl,
+                         "watch/param_leaf_norms": pl},
+                        step=global_step, labels=watch_paths)
+                    loggers.log_metrics(
+                        {"watch/grad_global_norm": float(np.linalg.norm(gl)),
+                         "watch/param_global_norm": float(np.linalg.norm(pl))},
+                        step=global_step)
                 if es_on_train:  # device sums, fetched at the epoch's end
                     epoch_loss_sum = epoch_loss_sum + metrics["loss"]
                     epoch_acc_sum = epoch_acc_sum + metrics["acc"]
                     epoch_steps += 1
                 timer.tick()
+                if tracer is not None and tracer.prof is not None and \
+                        global_step >= 1 + cfg.log.profile_steps:
+                    tracer.stop()
                 if global_step % cfg.trainer.log_every_n_steps == 0 or \
                         cfg.trainer.fast_dev_run:
                     loggers.log_metrics(
@@ -606,6 +734,9 @@ class Trainer:
                 break
             if 0 < cfg.trainer.max_steps <= global_step:
                 break
+        if tracer is not None and tracer.prof is not None:
+            tracer.stop()  # the run ended inside the traced window (or,
+            # writing nothing, after its warm-up step)
         if ckpt is not None:
             ckpt.save(state, name="last",
                       meta={"best_val_acc": self.best_val_acc,
